@@ -1,0 +1,203 @@
+"""JAX package flax variables -> this package's ``state_dict``.
+
+The inverse of the layout transforms in
+``disentangledcolorization_tpu/tools/convert_torch.py`` (which maps a reference
+torch ``state_dict`` onto the flax tree). The flax variables come as nested
+dicts of numpy arrays:
+
+  HWIO conv kernel (kh, kw, I, O)            -> Conv2d weight (O, I, kh, kw)
+  pre-flipped deconv kernel (kh, kw, I, O)   -> ConvTranspose2d weight (I, O, kh, kw), unflipped
+  Dense kernel (in, out)                      -> Linear weight (out, in)
+  BN scale/bias + batch_stats mean/var        -> weight/bias/running_mean/running_var
+  SNConv kernel (+ spectral u when unfolded)  -> weight_orig, weight_u, weight_v
+
+With ``sn_folded=True`` the kernels already carry 1/sigma; ``weight_u`` and
+``weight_v`` are then placeholders the folded model never reads. Unfolded,
+``weight_v`` is set to normalize(W^T u), the value the port's own
+initialisation gives it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _conv_w(k):
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+def _deconv_w(k):
+    return np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+class _StateDictBuilder:
+    """Reads flax leaves by path and writes torch keys (inverse of the
+    converter's ``_TreeBuilder``; same method names)."""
+
+    def __init__(self, variables: dict, sn_folded: bool):
+        self.params = variables["params"]
+        self.stats = variables.get("batch_stats", {})
+        self.spectral = variables.get("spectral", {})
+        self.sn_folded = sn_folded
+        self.sd: dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def _get(tree: dict, path: tuple):
+        for p in path:
+            tree = tree[p]
+        return np.asarray(tree, dtype=np.float32)
+
+    @staticmethod
+    def _has(tree: dict, path: tuple) -> bool:
+        for p in path:
+            if not isinstance(tree, dict) or p not in tree:
+                return False
+            tree = tree[p]
+        return True
+
+    def _bias(self, tkey: str, path: tuple):
+        if self._has(self.params, path + ("bias",)):
+            self.sd[f"{tkey}.bias"] = self._get(self.params, path + ("bias",))
+
+    def conv(self, tkey: str, path: tuple):
+        self.raw_conv(tkey, path + ("conv",))
+
+    def raw_conv(self, tkey: str, path: tuple):
+        self.sd[f"{tkey}.weight"] = _conv_w(self._get(self.params, path + ("kernel",)))
+        self._bias(tkey, path)
+
+    def deconv(self, tkey: str, path: tuple):
+        self.sd[f"{tkey}.weight"] = _deconv_w(self._get(self.params, path + ("kernel",)))
+        self._bias(tkey, path)
+
+    def snconv(self, tkey: str, path: tuple):
+        w = _conv_w(self._get(self.params, path + ("kernel",)))
+        o = w.shape[0]
+        if self.sn_folded:
+            u = np.full((o,), 1.0 / np.sqrt(o), np.float32)
+        else:
+            u = self._get(self.spectral, path + ("u",))
+        v = w.reshape(o, -1).T @ u
+        self.sd[f"{tkey}.weight_orig"] = w
+        self.sd[f"{tkey}.weight_u"] = u
+        self.sd[f"{tkey}.weight_v"] = (v / (np.linalg.norm(v) + 1e-12)).astype(np.float32)
+        self._bias(tkey, path)
+
+    def bn(self, tkey: str, path: tuple):
+        self.sd[f"{tkey}.weight"] = self._get(self.params, path + ("bn", "scale"))
+        self.sd[f"{tkey}.bias"] = self._get(self.params, path + ("bn", "bias"))
+        self.sd[f"{tkey}.running_mean"] = self._get(self.stats, path + ("bn", "mean"))
+        self.sd[f"{tkey}.running_var"] = self._get(self.stats, path + ("bn", "var"))
+        self.sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def linear(self, tkey: str, path: tuple):
+        self.sd[f"{tkey}.weight"] = self._get(self.params, path + ("kernel",)).T
+        self._bias(tkey, path)
+
+    def layernorm(self, tkey: str, path: tuple):
+        self.sd[f"{tkey}.weight"] = self._get(self.params, path + ("scale",))
+        self.sd[f"{tkey}.bias"] = self._get(self.params, path + ("bias",))
+
+
+def _spixelnet(b: _StateDictBuilder, tprefix: str, path: tuple):
+    units = [
+        "conv0a", "conv0b", "conv1a", "conv1b", "conv2a", "conv2b",
+        "conv3a", "conv3b", "conv4a", "conv4b", "conv3_1", "conv2_1",
+        "conv1_1", "conv0_1",
+    ]
+    for u in units:
+        b.raw_conv(f"{tprefix}{u}.0", path + (u, "conv"))
+        b.bn(f"{tprefix}{u}.1", path + (u, "norm"))
+    for d in ("deconv3", "deconv2", "deconv1", "deconv0"):
+        b.deconv(f"{tprefix}{d}.0", path + (d, "deconv"))
+    b.raw_conv(f"{tprefix}pred_mask0", path + ("pred_mask0",))
+
+
+def _colorprobnet(b: _StateDictBuilder, tprefix: str, path: tuple):
+    stages = {"conv1_2": 2, "conv2_3": 3, "conv3_3": 3, "conv4_3": 3, "conv5_3": 3, "conv6_3": 3, "conv7_3": 3}
+    for name, n in stages.items():
+        for i in range(n):
+            b.snconv(f"{tprefix}{name}.{2 * i}", path + (name, f"conv{i}"))
+        b.bn(f"{tprefix}{name}.{2 * n}", path + (name, "norm"))
+    b.conv(f"{tprefix}conv8up.1", path + ("conv8up",))
+    b.conv(f"{tprefix}conv3short8.0", path + ("conv3short8",))
+    b.conv(f"{tprefix}conv8_3.1", path + ("conv8_1",))
+    b.conv(f"{tprefix}conv8_3.3", path + ("conv8_2",))
+    b.bn(f"{tprefix}conv8_3.5", path + ("norm8",))
+    b.conv(f"{tprefix}conv9up.1", path + ("conv9up",))
+    b.conv(f"{tprefix}conv9_2.0", path + ("conv9_1",))
+    b.bn(f"{tprefix}conv9_2.2", path + ("norm9",))
+    b.conv(f"{tprefix}conv10up.1", path + ("conv10up",))
+    b.conv(f"{tprefix}conv10_2.1", path + ("conv10_1",))
+
+
+def _encoder(b: _StateDictBuilder, tprefix: str, path: tuple):
+    n_layers = sum(1 for k in b.params[path[-1]] if k.startswith("layer"))
+    for i in range(n_layers):
+        tl, pl = f"{tprefix}layers.{i}.", path + (f"layer{i}",)
+        b.sd[tl + "self_attn.in_proj_weight"] = b._get(b.params, pl + ("self_attn", "in_proj_weight"))
+        b.sd[tl + "self_attn.in_proj_bias"] = b._get(b.params, pl + ("self_attn", "in_proj_bias"))
+        b.linear(tl + "self_attn.out_proj", pl + ("self_attn", "out_proj"))
+        b.linear(tl + "linear1", pl + ("linear1",))
+        b.linear(tl + "linear2", pl + ("linear2",))
+        b.layernorm(tl + "norm1", pl + ("norm1",))
+        b.layernorm(tl + "norm2", pl + ("norm2",))
+
+
+def _hourglass(b: _StateDictBuilder, tprefix: str, path: tuple):
+    p = path + ("in_conv",)
+    b.conv(f"{tprefix}inConv.inConv.0", p + ("in_conv",))
+    b.conv(f"{tprefix}inConv.conv.0", p + ("conv0",))
+    b.bn(f"{tprefix}inConv.conv.2", p + ("norm",))
+    for name in ("down1", "down2"):
+        p = path + (name,)
+        b.conv(f"{tprefix}{name}.conv.0", p + ("down_conv",))
+        b.conv(f"{tprefix}{name}.conv.2", p + ("conv0",))
+        b.bn(f"{tprefix}{name}.conv.4", p + ("norm",))
+    for i in range(3):
+        t, p = f"{tprefix}residual.{i}.conv.", path + (f"residual{i}",)
+        b.conv(f"{t}0", p + ("conv_a",))
+        b.snconv(f"{t}1", p + ("conv_sn",))
+        b.conv(f"{t}3", p + ("conv_b",))
+    for name in ("up2", "up1"):
+        p = path + (name,)
+        b.conv(f"{tprefix}{name}.conv1", p + ("conv1",))
+        b.conv(f"{tprefix}{name}.combine", p + ("combine",))
+        b.conv(f"{tprefix}{name}.conv2.0", p + ("post_conv0",))
+        b.conv(f"{tprefix}{name}.conv2.2", p + ("post_conv1",))
+        b.bn(f"{tprefix}{name}.conv2.4", p + ("norm",))
+    b.conv(f"{tprefix}outConv", path + ("out_conv",))
+
+
+def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tensor]:
+    """AnchorColorProb flax variables (as built by ``convert_disco_state_dict``
+    or ``model.init``) -> the port's AnchorColorProb ``state_dict``.
+
+    ``sn_folded`` must match how the variables were made; the port model is
+    then built with the same flag. The encoder depth is read from the tree.
+    """
+    b = _StateDictBuilder(variables, sn_folded)
+    _spixelnet(b, "segnet.net.", ("segnet", "net"))
+    _colorprobnet(b, "repnet.", ("repnet",))
+    _encoder(b, "wildpath.", ("wildpath",))
+    _encoder(b, "hintpath.", ("hintpath",))
+    for name in ("mid_word_prj", "trg_word_emb", "trg_word_prj"):
+        b.linear(name, (name,))
+    _hourglass(b, "enhanceNet.", ("enhanceNet",))
+    return {k: torch.tensor(np.array(v)) for k, v in b.sd.items()}
+
+
+def fold_spectral_norm(state_dict: dict) -> dict:
+    """Divide every ``weight_orig`` by sigma = u . (W v) from its stored u, v:
+    a reference (torch spectral_norm) checkpoint -> weights for a model built
+    with ``sn_folded=True`` (the converter's folded form)."""
+    out = dict(state_dict)
+    for k in state_dict:
+        if k.endswith(".weight_orig"):
+            base = k[: -len("weight_orig")]
+            w = state_dict[k].float()
+            u, v = state_dict[base + "weight_u"].float(), state_dict[base + "weight_v"].float()
+            sigma = (u * (w.reshape(w.shape[0], -1) * v).sum(-1)).sum()
+            out[k] = w / sigma
+    return out

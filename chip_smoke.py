@@ -8,18 +8,30 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: every kernel of ``disentangledcolorization_tpu_torch/csrc`` with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version at the main path's
-     shapes (batch 8, 256x256), with its time, the plain version's time, a
-     library call's time where one computes the same function, and its bound;
-  4. main path: a seeded random-weight ``Colorizer`` answers 3 ``colorize_batch``
-     requests of 8 images at 256x256 and one ``colorize`` with hints; every
-     kernel's launch count must rise (per forward: pool_stats 1,
-     affinity_head 1, upfeat 1, attention 12); the card's forward is held
-     against the same model's plain path on the CPU.
+  3. kernels: each kernel against its plain PyTorch version at its path's
+     shapes (serving: batch 8, training: batch 24, 256x256; labels: 16x16x16
+     and 4x256x256), with its time, the plain version's time, a library
+     call's time where one computes the same function, and its bound; the
+     pooling and unpooling autograd functions' backward passes against
+     autograd of the plain versions;
+  4. serving path: a seeded random-weight ``Colorizer`` answers 3
+     ``colorize_batch`` requests of 8 images at 256x256 and one ``colorize``
+     with hints; launches per forward: pool_stats 1, affinity_head 1,
+     upfeat 1, attention 12; the card's forward is held against the same
+     model's plain path on the CPU;
+  5. training path: a seeded random-weight trainer at the recipe's
+     configuration (6+6 layers, 8 clusters, dropout 0.1, Adam 2e-4 poly)
+     takes 10 steps at batch 24 on 240 synthetic 256x256 images held on the
+     card, then one eval step; launches per step: affinity_head 1,
+     pool_stats 2, upfeat 2, attention 12, attention_bwd 12; then 5 steps
+     with TF32 on. One step at batch 2, 32x32, dropout 0, pinned anchors is
+     held against the same step on the CPU;
+  6. label path: ``encode_ab2ind`` soft-encodes training colors (kernel E).
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
-All f32 work runs with TF32 off for both cuDNN and matmuls.
+All f32 work runs with TF32 off for both cuDNN and matmuls, except the
+5 steps that measure TF32 on.
 """
 
 from __future__ import annotations
@@ -45,9 +57,19 @@ TOLERANCES = {
     "affinity_head": 1e-5,
     # 9 f32 multiply-adds per output
     "upfeat": 1e-5,
-    # online softmax over 256 keys vs the two-pass softmax
+    # online softmax over 256 keys vs the two-pass softmax, with and without
+    # a dropout keep-mask
     "attention": 1e-5,
+    # recomputed softmax, then sums of 256 products per output; the gradients
+    # reach about 10 in size at the training shape, so 1e-5 is ~1e-6 relative
+    "attention_bwd": 2e-5,
+    # exp of bitwise-equal f32 distances over <= 5 terms, renormalized
+    "encode_ab2ind": 1e-6,
 }
+# the autograd functions' backward passes (kernels C and A) against autograd
+# of the plain versions, relative to the largest entry: the unpooling
+# gradient sums 256 products per token and reaches tens in size
+FUNCTION_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -149,6 +171,7 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     rows.append(dict(
         name="upfeat", source="disentangledcolorization_tpu_torch/csrc/upfeat.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:273",
+        also_replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:230 (upfeat_fused, K6)",
         max_abs_err=max_err(out, ref),
         ms=time_ms(lambda: superpixel.upfeat(tokens, prob, sp_size, sp_size), device),
         plain_ms=time_ms(lambda: superpixel.upfeat_plain(tokens, prob, sp_size, sp_size), device),
@@ -161,6 +184,9 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     err = max_err(out, attention.attention_plain(q, k, v, nhead))
     mask = (torch.rand(n, t, generator=g) < 0.25).to(device)
     err = max(err, max_err(attention.attention(q, k, v, nhead, mask), attention.attention_plain(q, k, v, nhead, mask)))
+    keep = (torch.rand(n, nhead, t, t, generator=g) >= 0.1).to(device)  # dropout 0.1 on the weights
+    err = max(err, max_err(attention.attention(q, k, v, nhead, mask, keep, 0.1),
+                           attention.attention_plain(q, k, v, nhead, mask, keep, 0.1)))
     hd = d // nhead
     heads = lambda z: z.view(n, t, nhead, hd).transpose(1, 2)  # noqa: E731
     b_ms, b_by = bound(nbytes(q, k, v, out), n * nhead * (4.0 * t * t * hd + 3.0 * t * t))
@@ -173,6 +199,115 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), device),
     ))
+
+    for r in rows:
+        r["route"] = "cuda"
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} (tol {TOLERANCES[r['name']]:.0e}) "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']}")
+        if not r["max_abs_err"] <= TOLERANCES[r["name"]]:
+            raise AssertionError(f"{r['name']}: max|d| {r['max_abs_err']} above {TOLERANCES[r['name']]}")
+    return rows
+
+
+def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp_size: int = 16, d: int = 64,
+                             t: int = 256, nhead: int = 8, rate: float = 0.1):
+    """Phase 3, training and label kernels: attention_bwd and kernel E against
+    their plain versions, and the pooling/unpooling backward passes against
+    autograd of the plain versions, at the training path's shapes."""
+    from disentangledcolorization_tpu_torch.ops import attention, colorlabel, superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    rows = []
+    # attention backward, 12 per training step: batch 24, T=256, d=64, 8 heads
+    q, k, v, dout = rand(n, t, d), rand(n, t, d), rand(n, t, d), rand(n, t, d)
+    keep = (torch.rand(n, nhead, t, t, generator=g) >= rate).to(device)
+    mask = (torch.rand(n, t, generator=g) < 0.25).to(device)
+    err = max(
+        max_err(attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate),
+                attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate)),
+        max_err(attention.attention_bwd(q, k, v, dout, nhead), attention.attention_bwd_plain(q, k, v, dout, nhead)),
+        max_err(attention.attention_bwd(q, k, v, dout, nhead, mask), attention.attention_bwd_plain(q, k, v, dout, nhead, mask)),
+    )
+    hd = d // nhead
+    # the work the gradient needs per (n, head): S and dP (2 T^2 hd each),
+    # dQ, dK, dV (2 T^2 hd each), the softmax and dS (about 10 T^2)
+    b_ms, b_by = bound(nbytes(q, k, v, dout, keep) + 3 * nbytes(q), n * nhead * (10.0 * t * t * hd + 10.0 * t * t))
+    heads = [x.view(n, t, nhead, hd).transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*heads)
+    sdpa_dout = dout.view(n, t, nhead, hd).transpose(1, 2)
+    rows.append(dict(
+        name="attention_bwd", source="disentangledcolorization_tpu_torch/csrc/attention_bwd.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_attention.py:56 (no Pallas backward: XLA autodiff of models/transformer.py:50-58)",
+        max_abs_err=err,
+        ms=time_ms(lambda: attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate), device),
+        plain_ms=time_ms(lambda: attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate), device),
+        bound_ms=b_ms, bound_by=b_by,
+        # SDPA's backward, without dropout
+        library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, heads, sdpa_dout, retain_graph=True), device),
+    ))
+    log(f"attention (kernel D) with keep-mask at the training shape: "
+        f"{time_ms(lambda: attention.attention(q, k, v, nhead, None, keep, rate), device):.4f} ms")
+
+    # E: soft labels at the token grid of a training batch and at full resolution
+    errs, pattern_ok = [], True
+    for shape in ((16, 16, 16), (4, 256, 256)):
+        ab = (torch.rand(*shape, 2, generator=g) * 1.2 - 0.6).to(device)
+        ab.view(-1, 2)[:4] = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.0], [-0.5, 0.5]], device=device)  # exact ties
+        out, ref = colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)
+        errs.append(max_err(out, ref))
+        pattern_ok &= bool(torch.equal(out > 0, ref > 0))
+        log(f"encode_ab2ind {tuple(ab.shape)}: max|d|={errs[-1]:.3e} "
+            f"ms={time_ms(lambda: colorlabel.encode_ab2ind(ab), device):.4f}")
+    if not pattern_ok:
+        raise AssertionError("encode_ab2ind: the top-5 bin sets differ from the plain version")
+    m = ab.numel() // 2
+    b_ms, b_by = bound(nbytes(ab) + 313 * 2 * 4 + m * 313 * 4, m * 313 * 10.0)
+    rows.append(dict(
+        name="encode_ab2ind", source="disentangledcolorization_tpu_torch/csrc/encode_ab2ind.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_colorlabel.py:63",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: colorlabel.encode_ab2ind(ab), device),
+        plain_ms=time_ms(lambda: colorlabel.encode_ab2ind_plain(ab), device, iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # the autograd functions' backward passes at the training shapes
+    feat = rand(n, h, w, d + 2)
+    prob = torch.softmax(rand(n, h, w, 9), dim=-1).contiguous()
+    hc, wc = h // sp_size, w // sp_size
+    g_pool, g_up, tokens = rand(n, hc, wc, d + 2), rand(n, h, w, d), rand(n, hc, wc, d)
+
+    def pool_grad(fn):
+        f = feat.detach().requires_grad_()
+        return torch.autograd.grad(fn(f), f, g_pool)[0]
+
+    def pool_plain(f):
+        tt, mass, _ = superpixel.pool_stats_plain(f, prob, sp_size, sp_size, with_hard=False)
+        return superpixel._shift_add(tt) / (superpixel._shift_add(mass)[..., None] + 1e-8)
+
+    def up_grad(fn):
+        x = tokens.detach().requires_grad_()
+        return torch.autograd.grad(fn(x, prob, sp_size, sp_size), x, g_up)[0]
+
+    checks = [
+        ("pooling backward (kernel C)", lambda: pool_grad(lambda f: superpixel.poolfeat(f, prob, sp_size, sp_size)),
+         lambda: pool_grad(pool_plain), nbytes(g_pool, prob, feat), n * h * w * 9 * (d + 2) * 2.0),
+        ("unpooling backward (kernel A)", lambda: up_grad(superpixel.upfeat), lambda: up_grad(superpixel.upfeat_plain),
+         nbytes(g_up, prob, tokens), n * h * w * 9 * d * 2.0),
+    ]
+    for label, fn, plain, moved, flops in checks:
+        ref = plain()
+        err = max_err(fn(), ref) / float(ref.abs().max())
+        b_ms, b_by = bound(moved, flops)
+        log(f"{label}: max|d|/max|ref|={err:.3e} (tol {FUNCTION_TOL:.0e}) ms={time_ms(fn, device):.4f} "
+            f"plain_ms={time_ms(plain, device):.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
+        if not err <= FUNCTION_TOL:
+            raise AssertionError(f"{label}: max|d| {err} above {FUNCTION_TOL}")
 
     for r in rows:
         r["route"] = "cuda"
@@ -251,6 +386,200 @@ def card_vs_cpu(col, size: int = 256, atol: float = 1e-3):
     return errs
 
 
+TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "attention": 12, "attention_bwd": 12}
+
+
+def drive_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 24, size: int = 256, n_images: int = 240):
+    """Phase 5: the trainer takes ``steps`` steps (TF32 off) on a device-resident
+    synthetic set and one eval step, then ``tf32_steps`` more with TF32 on.
+    Returns the launch counts of the TF32-off steps."""
+    import warnings
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps as steps_lib
+
+    torch.manual_seed(130)
+    model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.1).to(device)
+    st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 60, n_images // batch))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the documented L1 fallback for the VGG term
+        loss = losses.AnchorColorProbLoss(enhanced=True)
+    train_step = steps_lib.make_colorizer_train_step(loss, class_lambda=0.5)
+    eval_step = steps_lib.make_colorizer_eval_step(loss, class_lambda=0.5)
+    ds = data.synthetic_dataset(n_images, size, device, seed=0)
+    log(f"training set: {n_images} images {size}x{size} on the card, "
+        f"{sum(nbytes(v) for v in ds.values()) / 1e6:.1f} MB")
+    loader = data.DeviceIndexLoader(n_images, batch, shuffle=True, seed=0)
+    seg0 = {k: v.clone() for k, v in model.segnet.state_dict().items()}
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters() if not k.startswith("segnet.")}
+
+    def batches(epoch):
+        loader.set_epoch(epoch)
+        for idx in loader:
+            idx = torch.as_tensor(idx, device=device)
+            yield {"gray": ds["gray"][idx], "color": ds["color"][idx]}
+
+    def run(n_steps, epoch):
+        secs, metrics = [], []
+        it = batches(epoch)
+        for _ in range(n_steps):
+            b = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(train_step(st, b, 130))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs, metrics
+
+    kernels.reset_launch_counts()
+    secs, metrics = run(steps, 0)
+    counts = dict(kernels.LAUNCHES)
+    log(f"training path: launch counts {json.dumps(counts)} over {steps} steps")
+    for kname, per in TRAIN_PER_STEP.items():
+        if counts[kname] != per * steps:
+            raise AssertionError(f"{kname}: {counts[kname]} launches, expected {per} per step x {steps}")
+    losses_seen = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(np.isfinite(v) for m in losses_seen for v in m.values()):
+        raise AssertionError(f"non-finite training losses: {losses_seen}")
+    log("training losses (totalLoss per step): " + json.dumps([round(m["totalLoss"], 5) for m in losses_seen]))
+    changed = sum(not torch.equal(p0[k], p.detach()) for k, p in model.named_parameters() if k in p0)
+    if changed != len(p0):
+        raise AssertionError(f"only {changed} of {len(p0)} trainable parameters changed")
+    if not all(torch.equal(seg0[k], v) for k, v in model.segnet.state_dict().items()):
+        raise AssertionError("the frozen segnet changed")
+    ev = {k: float(v) for k, v in eval_step(st, next(batches(1)), 130).items()}
+    if not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"non-finite eval losses: {ev}")
+    log(f"eval step losses: {json.dumps(ev)}")
+    steady = secs[1:]
+    off = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady))
+    log(f"training step, TF32 off: s per step {[round(x, 4) for x in secs]} (first includes cuDNN warm-up); "
+        f"steady {off['s_per_step']:.4f} s/step, {off['images_per_s']:.2f} images/s at batch {batch}, {size}x{size}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    secs_on, _ = run(tf32_steps, 1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steady = secs_on[1:]
+    on = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady))
+    log(f"training step, TF32 on: s per step {[round(x, 4) for x in secs_on]}; "
+        f"steady {on['s_per_step']:.4f} s/step, {on['images_per_s']:.2f} images/s")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return counts
+
+
+def _center_conv_biases(model, gray, color, gap: float = 1e-3):
+    """Shift each trainable conv's bias so its output channels have mean about
+    0.5 std on this batch, and no output lies within ``gap`` std of 0.
+
+    With random weights some ReLU channels before a BatchNorm are otherwise
+    nearly dead, and a batch variance near 0 makes the f32 gradient
+    ill-conditioned on any device. And a conv output within rounding of 0
+    can take the other side of a ReLU on the card than on the CPU, which
+    moves a weight gradient by about 1/sqrt(pixels) of its size (2.6e-2 of
+    its max, measured at 32x32). The gap keeps every ReLU input out of reach
+    of f32 rounding for this batch's training forward: a conv's output, or
+    where a ReLU takes a sum (the residual blocks, repnet's conv8 input),
+    the sum that the conv's output completes."""
+    from disentangledcolorization_tpu_torch.models.layers import SNConv
+
+    partner = {}  # conv -> the tensor its output is added to before a ReLU
+
+    def center(mod, inp, out):
+        with torch.no_grad():
+            base = out + partner.pop(mod, 0.0)
+            mean, std = base.mean(dim=(0, 2, 3)), base.std(dim=(0, 2, 3))
+            shifts = (0.5 + 0.01 * torch.arange(50.0))[:, None] * std - mean  # (candidates, C)
+            dist = torch.stack([(base + sh[None, :, None, None]).abs().amin(dim=(0, 2, 3)) for sh in shifts])
+            first = torch.argmax((dist >= gap * std).int(), dim=0)  # the first candidate with the gap (else 0)
+            shift = shifts[first, torch.arange(out.shape[1])]
+            mod.bias += shift
+            return out + shift[None, :, None, None]
+
+    hooks = [m.register_forward_hook(center) for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, SNConv)) and not name.startswith("segnet.")]
+    for block in model.enhanceNet.residual:  # relu(x + conv(x))
+        hooks.append(block.register_forward_pre_hook(lambda m, inp: partner.__setitem__(m.conv[3], inp[0])))
+    rep = model.repnet  # relu(conv8up(f7) + conv3short8(f3)), conv8up first
+    hooks.append(rep.conv8up[1].register_forward_hook(lambda m, inp, out: partner.__setitem__(rep.conv3short8[0], out)))
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    with torch.no_grad():
+        model(gray, color, test_mode=False, train=True)
+    for h in hooks:
+        h.remove()
+    model.load_state_dict({**model.state_dict(), **buffers})
+
+
+def train_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = 1e-3):
+    """One training step on the card against the same step on the CPU (plain
+    versions): full widths, dropout 0, pinned anchors, SGD. Losses relative,
+    gradients per tensor against its largest entry."""
+    import warnings
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, anchor
+    from disentangledcolorization_tpu_torch.train import data, losses, state, steps as steps_lib
+
+    hc = size // 16
+    hint = torch.zeros(batch, hc, hc, 1)
+    hint[:, 0, 0] = hint[:, -1, -1] = 1.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        loss = losses.AnchorColorProbLoss(enhanced=True)
+    results = []
+    pinned = anchor.clustering_hint_mask
+    anchor.clustering_hint_mask = lambda feats, *a, **k: (hint.to(feats.device), None)
+    try:
+        torch.manual_seed(7)
+        model = AnchorColorProb(dropout=0.0)
+        b = data.synthetic_dataset(batch, size, "cpu", seed=8)
+        _center_conv_biases(model, b["gray"], b["color"])  # on the step's own forward: anchors pinned
+        sd = model.state_dict()
+        for dev in (device, torch.device("cpu")):
+            m = AnchorColorProb(dropout=0.0)
+            m.load_state_dict(sd)
+            m.to(dev)
+            st = state.TrainState.create(m, name="sgd", schedule=0.1, momentum=0.0)
+            grads, apply = {}, st.optimizer.step
+            st.optimizer.step = lambda m=m, apply=apply: grads.update(
+                {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters() if p.grad is not None}) or apply()
+            with torch.backends.mkldnn.flags(enabled=False):  # oneDNN's f32 CPU convs round less exactly
+                metrics = steps_lib.make_colorizer_train_step(loss)(st, {k: v.to(dev) for k, v in b.items()}, 0)
+            results.append(({k: float(v) for k, v in metrics.items()}, grads))
+    finally:
+        anchor.clustering_hint_mask = pinned
+    (m_dev, g_dev), (m_cpu, g_cpu) = results
+    loss_err = max(abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    grad_err = {k: float((g_dev[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    log(f"training step card vs CPU ({batch}x{size}x{size}, full widths): losses rel {loss_err:.3e}; "
+        f"gradients max|d|/max|g| worst {json.dumps(worst)} over {len(grad_err)} tensors")
+    if sorted(g_dev) != sorted(g_cpu) or not loss_err <= tol or not all(v <= tol for v in grad_err.values()):
+        raise AssertionError(f"training step: card and CPU disagree beyond {tol}")
+
+
+def drive_labels(device):
+    """Phase 6: soft labels of 4 training images at full resolution through
+    ``encode_ab2ind`` (kernel E); each row sums to 1 and peaks at the nearest
+    bin. Returns the launch counts of that run."""
+    from disentangledcolorization_tpu_torch.ops import colorlabel, kernels
+    from disentangledcolorization_tpu_torch.train import data
+
+    ab = data.synthetic_dataset(4, 256, device, seed=1)["color"]
+    kernels.reset_launch_counts()
+    q = colorlabel.encode_ab2ind(ab)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    if counts["encode_ab2ind"] != 1:
+        raise AssertionError(f"label path: {counts['encode_ab2ind']} encode_ab2ind launches, expected 1")
+    if not (torch.isfinite(q).all() and float((q.sum(-1) - 1).abs().max()) <= 1e-5):
+        raise AssertionError("encode_ab2ind: soft labels do not sum to 1")
+    if not torch.equal(q.argmax(-1), colorlabel.nearest_bin_index(ab)):
+        raise AssertionError("encode_ab2ind: the soft label does not peak at the nearest bin")
+    log(f"label path: {tuple(q.shape)} soft labels, launch counts {json.dumps(counts)}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -283,9 +612,9 @@ def main() -> int:
                 log(f"  ptxas {kname}: {line.strip()}")
 
     # 3. kernels against their plain versions
-    rows = compare_kernels(device)
+    rows = compare_kernels(device) + compare_training_kernels(device)
 
-    # 4. main path
+    # 4. serving path
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
     per_forward = {"pool_stats": 1, "affinity_head": 1, "upfeat": 1, "attention": 12}
     log(f"main path: launch counts {json.dumps(counts)} over {forwards} forwards")
@@ -297,10 +626,24 @@ def main() -> int:
         f"(first includes cuDNN warm-up), hints request {hint_latency:.4f} s, "
         f"steady {8 * len(steady) / sum(steady):.1f} images/s at batch 8, 256x256, f32, TF32 off")
     card_vs_cpu(col)
-    for r in rows:
-        r["launches"] = counts[r["name"]]
+    del col
 
-    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # 5. training path
+    train_counts = drive_training(device)
+    train_card_vs_cpu(device)
+
+    # 6. label path
+    label_counts = drive_labels(device)
+
+    paths = {"serving": counts, "training": train_counts, "labels": label_counts}
+    for r in rows:
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']}: no path launched it")
+
+    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -9,17 +9,17 @@ from __future__ import annotations
 
 import torch.nn as nn
 
-from .layers import BatchNorm, SNConv, conv
+from .layers import BatchNorm, Seq, SNConv, conv
 
 
-def _sn_stage(in_ch: int, features: int, n_convs: int, first_stride: int, folded: bool) -> nn.Sequential:
+def _sn_stage(in_ch: int, features: int, n_convs: int, first_stride: int, folded: bool) -> Seq:
     layers = []
     for i in range(n_convs):
         layers += [
             SNConv(in_ch if i == 0 else features, features, stride=first_stride if i == 0 else 1, folded=folded),
             nn.LeakyReLU(0.2),
         ]
-    return nn.Sequential(*layers, BatchNorm(features))
+    return Seq(*layers, BatchNorm(features))
 
 
 def _up() -> nn.Upsample:
@@ -41,18 +41,23 @@ class ColorProbNet(nn.Module):
         self.conv7_3 = _sn_stage(512, 512, 3, 1, f)
         self.conv8up = nn.Sequential(_up(), conv(512, 256))
         self.conv3short8 = nn.Sequential(conv(256, 256))
-        self.conv8_3 = nn.Sequential(
+        self.conv8_3 = Seq(
             nn.ReLU(), conv(256, 256), nn.ReLU(), conv(256, 256), nn.ReLU(), BatchNorm(256)
         )
         self.conv9up = nn.Sequential(_up(), conv(256, 128))
-        self.conv9_2 = nn.Sequential(conv(128, 128), nn.ReLU(), BatchNorm(128))
+        self.conv9_2 = Seq(conv(128, 128), nn.ReLU(), BatchNorm(128))
         self.conv10up = nn.Sequential(_up(), conv(128, 64))
         self.conv10_2 = nn.Sequential(nn.ReLU(), conv(64, 64), nn.ReLU())
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """``train``: BatchNorm batch statistics and SNConv u updates."""
         x = x.permute(0, 3, 1, 2)
-        f3 = self.conv3_3(self.conv2_3(self.conv1_2(x)))
-        f7 = self.conv7_3(self.conv6_3(self.conv5_3(self.conv4_3(f3))))
-        x8 = self.conv8_3(self.conv8up(f7) + self.conv3short8(f3))
-        x9 = self.conv9_2(self.conv9up(x8))
+        f3 = x
+        for stage in (self.conv1_2, self.conv2_3, self.conv3_3):
+            f3 = stage(f3, train)
+        f7 = f3
+        for stage in (self.conv4_3, self.conv5_3, self.conv6_3, self.conv7_3):
+            f7 = stage(f7, train)
+        x8 = self.conv8_3(self.conv8up(f7) + self.conv3short8(f3), train)
+        x9 = self.conv9_2(self.conv9up(x8), train)
         return self.conv10_2(self.conv10up(x9)).permute(0, 2, 3, 1)

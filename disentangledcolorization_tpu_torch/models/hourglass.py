@@ -26,9 +26,12 @@ class HourGlass2(nn.Module):
         self.up1 = UpsampleBlock(128, 64, 64, conv_num=3)
         self.outConv = conv(64, 2)
 
-    def forward(self, x):
-        """(N, H, W, 65) gray + unpooled features -> (N, H, W, 2)."""
-        f1 = self.inConv(x.permute(0, 3, 1, 2))
-        f2 = self.down1(f1)
-        r = self.residual(self.down2(f2))
-        return self.outConv(self.up1(self.up2(r, f2), f1)).permute(0, 2, 3, 1)
+    def forward(self, x, train: bool = False):
+        """(N, H, W, 65) gray + unpooled features -> (N, H, W, 2). ``train``:
+        BatchNorm batch statistics and SNConv u updates."""
+        f1 = self.inConv(x.permute(0, 3, 1, 2), train)
+        f2 = self.down1(f1, train)
+        r = self.down2(f2, train)
+        for block in self.residual:
+            r = block(r, train)
+        return self.outConv(self.up1(self.up2(r, f2, train), f1, train)).permute(0, 2, 3, 1)

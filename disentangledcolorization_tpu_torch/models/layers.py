@@ -1,9 +1,14 @@
-"""Building-block layers: convs, spectral norm, inference BatchNorm, res/up/down blocks.
+"""Building-block layers: convs, spectral norm, BatchNorm, res/up/down blocks.
 
 Counterpart of ``disentangledcolorization_tpu/models/layers.py`` in its default
 (naive) form. Modules run NCHW inside; the ``nn.Sequential`` indices mirror the
 reference torch modules, so ``state_dict`` keys are the reference's keys
 (``conv.0.weight``, ``conv.1.weight_orig``, ...).
+
+Training follows the JAX package, not ``nn.Module.training``: every forward
+takes an explicit ``train`` flag (default False), threaded down by
+:class:`Seq`. ``train=True`` makes BatchNorm use batch statistics and update
+its running ones, and makes SNConv store its power-iteration vector.
 
 Initialisation follows the JAX package's scale (lecun-normal kernels, zero
 biases) so that random weights give well-scaled activations.
@@ -64,27 +69,50 @@ class SNConv(nn.Module):
         self.register_buffer("weight_u", u)
         self.register_buffer("weight_v", v / (v.norm() + 1e-12))
 
-    def weight(self) -> torch.Tensor:
+    def weight(self, train: bool = False) -> torch.Tensor:
+        """The normalized weight. sigma is a constant to autograd, as
+        ``stop_gradient(sigma)`` in JAX; ``train`` stores the new u (in place)."""
         if self.folded:
             return self.weight_orig
-        w_mat = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
-        v = (w_mat.t() * self.weight_u).sum(-1)  # W^T u as an exact f32 sum
-        v = v / (v.norm() + 1e-12)
-        wv = (w_mat * v).sum(-1)
-        u_new = wv / (wv.norm() + 1e-12)
-        sigma = (u_new * wv).sum()
-        return self.weight_orig / sigma.detach()
+        with torch.no_grad():
+            w_mat = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
+            v = (w_mat.t() * self.weight_u).sum(-1)  # W^T u as an exact f32 sum
+            v = v / (v.norm() + 1e-12)
+            wv = (w_mat * v).sum(-1)
+            u_new = wv / (wv.norm() + 1e-12)
+            sigma = (u_new * wv).sum()
+            if train:
+                self.weight_u.copy_(u_new)
+        return self.weight_orig / sigma
 
-    def forward(self, x):
-        return F.conv2d(x, self.weight(), self.bias, self.stride, 1)
+    def forward(self, x, train: bool = False):
+        return F.conv2d(x, self.weight(train), self.bias, self.stride, 1)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm2d (eps 1e-5): always the running statistics, as the
-    JAX package's test-mode path."""
+    """BatchNorm2d (eps 1e-5) with flax's rules. ``train=False``: the running
+    statistics. ``train=True``: batch statistics, and
+    ``running = 0.9 running + 0.1 batch`` with the biased batch variance
+    (``nn.BatchNorm2d`` would store the unbiased one)."""
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class Seq(nn.Sequential):
+    """``nn.Sequential`` that passes ``train`` to the layers that take it
+    (BatchNorm, SNConv); same ``state_dict`` keys."""
+
+    def forward(self, x, train: bool = False):
+        for m in self:
+            x = m(x, train) if isinstance(m, (BatchNorm, SNConv)) else m(x)
+        return x
 
 
 def _relu_convs(features: int, n: int) -> list:
@@ -100,10 +128,10 @@ class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, conv_num: int = 2):
         super().__init__()
         self.inConv = nn.Sequential(conv(in_ch, features), nn.ReLU())
-        self.conv = nn.Sequential(*_relu_convs(features, conv_num - 1), BatchNorm(features))
+        self.conv = Seq(*_relu_convs(features, conv_num - 1), BatchNorm(features))
 
-    def forward(self, x):
-        return self.conv(self.inConv(x))
+    def forward(self, x, train: bool = False):
+        return self.conv(self.inConv(x), train)
 
 
 class ResidualBlock(nn.Module):
@@ -112,12 +140,12 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, features: int, sn_folded: bool = False):
         super().__init__()
-        self.conv = nn.Sequential(
+        self.conv = Seq(
             conv(features, features), SNConv(features, features, folded=sn_folded), nn.ReLU(), conv(features, features)
         )
 
-    def forward(self, x):
-        return F.relu(x + self.conv(x))
+    def forward(self, x, train: bool = False):
+        return F.relu(x + self.conv(x, train))
 
 
 class DownsampleBlock(nn.Module):
@@ -125,12 +153,12 @@ class DownsampleBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, conv_num: int = 2):
         super().__init__()
-        self.conv = nn.Sequential(
+        self.conv = Seq(
             conv(in_ch, features, stride=2), nn.ReLU(), *_relu_convs(features, conv_num - 1), BatchNorm(features)
         )
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, train: bool = False):
+        return self.conv(x, train)
 
 
 class UpsampleBlock(nn.Module):
@@ -140,8 +168,8 @@ class UpsampleBlock(nn.Module):
         super().__init__()
         self.conv1 = conv(in_ch, features)
         self.combine = conv(features + skip_ch, features)
-        self.conv2 = nn.Sequential(*_relu_convs(features, conv_num - 1), BatchNorm(features))
+        self.conv2 = Seq(*_relu_convs(features, conv_num - 1), BatchNorm(features))
 
-    def forward(self, x, skip):
+    def forward(self, x, skip, train: bool = False):
         x = F.interpolate(self.conv1(x), scale_factor=2, mode="nearest")
-        return self.conv2(F.relu(self.combine(torch.cat([x, skip], dim=1))))
+        return self.conv2(F.relu(self.combine(torch.cat([x, skip], dim=1))), train)

@@ -12,15 +12,15 @@ import torch
 import torch.nn as nn
 
 from ..ops import affinity
-from .layers import BatchNorm, _lecun_, deconv
+from .layers import BatchNorm, Seq, _lecun_, deconv
 
 _KAIMING_GAIN = 2.0 / (1 + 0.1**2)
 
 
-def _conv_unit(in_ch: int, out_ch: int, stride: int = 1) -> nn.Sequential:
+def _conv_unit(in_ch: int, out_ch: int, stride: int = 1) -> Seq:
     c = nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=False)
     _lecun_(c.weight, in_ch * 9, _KAIMING_GAIN)
-    return nn.Sequential(c, BatchNorm(out_ch), nn.LeakyReLU(0.1))
+    return Seq(c, BatchNorm(out_ch), nn.LeakyReLU(0.1))
 
 
 def _deconv_unit(in_ch: int, out_ch: int) -> nn.Sequential:
@@ -45,17 +45,20 @@ class SpixelNet(nn.Module):
         _lecun_(self.pred_mask0.weight, 16 * 9, _KAIMING_GAIN)
         nn.init.zeros_(self.pred_mask0.bias)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """``train`` (BatchNorm batch statistics) is stage-1 SpixelNet
+        training's; inside the colorizer the segnet always runs with False."""
         x = x.permute(0, 3, 1, 2)
-        out1 = self.conv0b(self.conv0a(x))
-        out2 = self.conv1b(self.conv1a(out1))
-        out3 = self.conv2b(self.conv2a(out2))
-        out4 = self.conv3b(self.conv3a(out3))
-        out5 = self.conv4b(self.conv4a(out4))
-        c3 = self.conv3_1(torch.cat([out4, self.deconv3(out5)], 1))
-        c2 = self.conv2_1(torch.cat([out3, self.deconv2(c3)], 1))
-        c1 = self.conv1_1(torch.cat([out2, self.deconv1(c2)], 1))
-        c0 = self.conv0_1(torch.cat([out1, self.deconv0(c1)], 1))
+        tr = train
+        out1 = self.conv0b(self.conv0a(x, tr), tr)
+        out2 = self.conv1b(self.conv1a(out1, tr), tr)
+        out3 = self.conv2b(self.conv2a(out2, tr), tr)
+        out4 = self.conv3b(self.conv3a(out3, tr), tr)
+        out5 = self.conv4b(self.conv4a(out4, tr), tr)
+        c3 = self.conv3_1(torch.cat([out4, self.deconv3(out5)], 1), tr)
+        c2 = self.conv2_1(torch.cat([out3, self.deconv2(c3)], 1), tr)
+        c1 = self.conv1_1(torch.cat([out2, self.deconv1(c2)], 1), tr)
+        c0 = self.conv0_1(torch.cat([out1, self.deconv0(c1)], 1), tr)
         # NHWC for the kernel: free when the net runs channels_last
         head = self.pred_mask0
         return affinity.affinity_head(
@@ -70,5 +73,5 @@ class SpixelSeg(nn.Module):
         super().__init__()
         self.net = SpixelNet()
 
-    def forward(self, input_grays):
-        return self.net(input_grays)
+    def forward(self, input_grays, train: bool = False):
+        return self.net(input_grays, train)

@@ -1,11 +1,16 @@
 """Post-norm transformer encoder over superpixel tokens, batch-first (N, T, D).
 
 Counterpart of ``disentangledcolorization_tpu/models/transformer.py``
-(``MultiheadAttention``, ``EncoderLayer``, ``TransformerEncoder``) in inference
-form (no dropout). The packed ``in_proj_weight`` (3d, d) keeps torch
-``nn.MultiheadAttention``'s layout; the attention core goes through kernel D
-(``ops/attention.py``). LayerNorm uses eps 1e-6, as flax's default in the JAX
-package.
+(``MultiheadAttention``, ``EncoderLayer``, ``TransformerEncoder``). The packed
+``in_proj_weight`` (3d, d) keeps torch ``nn.MultiheadAttention``'s layout; the
+attention core goes through kernel D and its backward (``ops/attention.py``).
+LayerNorm uses eps 1e-6, as flax's default in the JAX package.
+
+Dropout sits where flax puts it (``transformer.py:57,81,84,86``): on the
+attention weights, on the attention output (``dropout1``), on the FFN hidden
+layer and on the FFN output (``dropout2``). It runs only when a forward gets
+``train=True`` and a rate above 0; the masks are drawn from the
+``torch.Generator`` the caller passes, so a step is reproducible from its seed.
 """
 
 from __future__ import annotations
@@ -28,9 +33,21 @@ def _linear(in_f: int, out_f: int, bias: bool = True) -> nn.Linear:
     return m
 
 
+def _keep(shape, rate: float, generator, device) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep-mask, as flax ``nn.Dropout`` draws it."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def dropout(x, rate: float, generator):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale by 1/(1 - rate)."""
+    if rate == 0.0:
+        return x
+    return torch.where(_keep(x.shape, rate, generator, x.device), x / (1.0 - rate), torch.zeros_like(x))
+
+
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention``-compatible parameters; returns only the
-    attended values (nothing on the serving path reads the weights)."""
+    attended values (nothing reads the weights)."""
 
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
@@ -40,11 +57,16 @@ class MultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = _linear(d_model, d_model)
 
-    def forward(self, q, k, v, key_padding_mask=None):
+    def forward(self, q, k, v, key_padding_mask=None, rate: float = 0.0, generator=None):
+        """``rate`` > 0 drops attention weights with a mask drawn from ``generator``."""
         wq, wk, wv = self.in_proj_weight.chunk(3, dim=0)
         bq, bk, bv = self.in_proj_bias.chunk(3, dim=0)
+        keep = None
+        if rate > 0.0:
+            n, t, _ = q.shape
+            keep = _keep((n, self.nhead, t, k.shape[1]), rate, generator, q.device)
         out = attn_ops.attention(
-            F.linear(q, wq, bq), F.linear(k, wk, bk), F.linear(v, wv, bv), self.nhead, key_padding_mask
+            F.linear(q, wq, bq), F.linear(k, wk, bk), F.linear(v, wv, bv), self.nhead, key_padding_mask, keep, rate
         )
         return self.out_proj(out)
 
@@ -52,29 +74,35 @@ class MultiheadAttention(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-norm: MHA(q=k=src+pos, v=src) + FFN."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 256):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 256, dropout: float = 0.1):
         super().__init__()
+        self.rate = dropout
         self.self_attn = MultiheadAttention(d_model, nhead)
         self.linear1 = _linear(d_model, dim_feedforward)
         self.linear2 = _linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
-    def forward(self, src, pos=None, padding_mask=None):
+    def forward(self, src, pos=None, padding_mask=None, train: bool = False, generator=None):
+        rate = self.rate if train else 0.0
         qk = src if pos is None else src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src, padding_mask))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        attn = self.self_attn(qk, qk, src, padding_mask, rate, generator)
+        src = self.norm1(src + dropout(attn, rate, generator))
+        ff = self.linear2(dropout(F.relu(self.linear1(src)), rate, generator))
+        return self.norm2(src + dropout(ff, rate, generator))
 
 
 class TransformerEncoder(nn.Module):
     """Stack of post-norm layers; pos is added to (q, k) at every layer (the
     dense positions that DISCO's inference always uses)."""
 
-    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 256):
+    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 256, dropout: float = 0.1):
         super().__init__()
-        self.layers = nn.ModuleList(EncoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers))
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers)
+        )
 
-    def forward(self, src, pos, padding_mask=None):
+    def forward(self, src, pos, padding_mask=None, train: bool = False, generator=None):
         for layer in self.layers:
-            src = layer(src, pos, padding_mask)
+            src = layer(src, pos, padding_mask, train, generator)
         return src

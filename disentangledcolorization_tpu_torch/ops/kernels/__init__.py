@@ -35,13 +35,19 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
+_F = ctypes.c_float
 # kernel name -> (source file, C entry point, argtypes); every entry point
 # returns cudaGetLastError() as an int and takes the stream last
 KERNELS = {
     "pool_stats": ("pool_stats.cu", "disco_pool_stats", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "affinity_head": ("affinity_head.cu", "disco_affinity_head", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "upfeat": ("upfeat.cu", "disco_upfeat", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "attention": ("attention.cu", "disco_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "attention": ("attention.cu", "disco_attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "attention_bwd": (
+        "attention_bwd.cu", "disco_attention_bwd", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+    ),
+    "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

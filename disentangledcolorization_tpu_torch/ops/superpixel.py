@@ -9,6 +9,17 @@ Pallas kernels in ``ops/pallas_superpixel.py``:
 
 Direction order d=0..8 is (top-left, top, top-right, left, center, right,
 bottom-left, bottom, bottom-right): off_d spans (-1,-1)..(1,1) row-major.
+
+Both ops carry autograd to their feature/token input, through the same two
+kernels (the JAX package's ``custom_vjp``s at ``superpixel.py:200-223`` and
+``:269-286`` differentiate the XLA formulation instead):
+
+  pooled = shift_add(t) / (mass + 1e-8)  =>  d feat   = upfeat(g / (mass + 1e-8), prob) / (sp_h*sp_w)
+  out    = upfeat(tokens, prob)           =>  d tokens = shift_add(pool_stats(g, prob).t) * (sp_h*sp_w)
+
+(``shift_add`` and upfeat's zero-padded neighbour read are adjoint.) The
+affinity ``prob`` gets no gradient: stage-2 training freezes it, and a
+``prob`` that requires grad raises.
 """
 
 from __future__ import annotations
@@ -80,16 +91,44 @@ def _shift_add(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _check_prob(name: str, prob: torch.Tensor) -> None:
+    if prob.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name}: no gradient w.r.t. the affinity map; it comes with the stage-1 "
+            "(SpixelNet training) slice of the port (ROADMAP.md). Detach prob."
+        )
+
+
+class _Pool(torch.autograd.Function):
+    """Kernel A forward; the features-gradient is kernel C (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, feat, prob, sp_h, sp_w, with_hard):
+        t, mass, hard = pool_stats(feat, prob, sp_h, sp_w, with_hard)
+        mass_sum = _shift_add(mass)[..., None]
+        denom = mass_sum + 1e-8
+        sizes = _shift_add(hard)[..., None] if with_hard else None
+        ctx.save_for_backward(prob, denom)
+        ctx.cell = (sp_h, sp_w)
+        ctx.mark_non_differentiable(*(x for x in (mass_sum, sizes) if x is not None))
+        return _shift_add(t) / denom, mass_sum, sizes
+
+    @staticmethod
+    def backward(ctx, g_pooled, g_mass, g_sizes):
+        prob, denom = ctx.saved_tensors
+        sp_h, sp_w = ctx.cell
+        g_feat = _upfeat((g_pooled / denom).contiguous(), prob, sp_h, sp_w) * (1.0 / (sp_h * sp_w))
+        return g_feat, None, None, None, None
+
+
 def pool_and_sizes(feat, prob, sp_h: int = 16, sp_w: int = 16):
     """poolfeat(need_entry_prob=True) and get_spixel_size from one pass of kernel A.
 
-    Returns (pooled (N,hc,wc,C), mass (N,hc,wc,1), sizes (N,hc,wc,1)).
+    Returns (pooled (N,hc,wc,C), mass (N,hc,wc,1), sizes (N,hc,wc,1)); pooled
+    carries the gradient w.r.t. ``feat``.
     """
-    t, mass, hard = pool_stats(feat, prob, sp_h, sp_w, with_hard=True)
-    feat_sum = _shift_add(t)
-    mass_sum = _shift_add(mass)[..., None]
-    sizes = _shift_add(hard)[..., None]
-    pooled = feat_sum / (mass_sum + 1e-8)
+    _check_prob("pool_and_sizes", prob)
+    pooled, mass_sum, sizes = _Pool.apply(feat, prob, sp_h, sp_w, True)
     return pooled.to(feat.dtype), mass_sum.to(feat.dtype), sizes.to(feat.dtype)
 
 
@@ -97,12 +136,11 @@ def poolfeat(feat, prob, sp_h: int = 16, sp_w: int = 16, need_entry_prob: bool =
     """Soft-pool pixel features (N,H,W,C) onto the token grid (N,hc,wc,C),
     optionally with the per-token soft mass (N,hc,wc,1). Kernel A without the
     hard counts."""
-    t, mass, _ = pool_stats(feat, prob, sp_h, sp_w, with_hard=False)
-    mass_sum = _shift_add(mass)[..., None]
-    pooled = (_shift_add(t) / (mass_sum + 1e-8)).to(feat.dtype)
+    _check_prob("poolfeat", prob)
+    pooled, mass_sum, _ = _Pool.apply(feat, prob, sp_h, sp_w, False)
     if need_entry_prob:
-        return pooled, mass_sum.to(feat.dtype)
-    return pooled
+        return pooled.to(feat.dtype), mass_sum.to(feat.dtype)
+    return pooled.to(feat.dtype)
 
 
 def get_spixel_size(affinity_map, sp_h: int = 16, sp_w: int = 16):
@@ -122,9 +160,9 @@ def upfeat_plain(tokens, prob, up_h: int = 16, up_w: int = 16):
     return out.reshape(n, hc * up_h, wc * up_w, c).to(tokens.dtype)
 
 
-def upfeat(tokens, prob, up_h: int = 16, up_w: int = 16):
+def _upfeat(tokens, prob, up_h: int, up_w: int):
     """Kernel C (``csrc/upfeat.cu``) for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; no autograd."""
     if tokens.device.type == "cpu" and prob.device.type == "cpu":
         return upfeat_plain(tokens, prob, up_h, up_w)
     check_cuda("upfeat", {"tokens": tokens, "prob": prob})
@@ -134,3 +172,34 @@ def upfeat(tokens, prob, up_h: int = 16, up_w: int = 16):
     out = torch.empty((n, hc * up_h, wc * up_w, c), device=tokens.device, dtype=torch.float32)
     launch("upfeat", tokens, prob, out, n, hc, wc, c, up_h, up_w)
     return out
+
+
+class _Upfeat(torch.autograd.Function):
+    """Kernel C forward; the tokens-gradient is kernel A (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, tokens, prob, up_h, up_w):
+        ctx.save_for_backward(prob)
+        ctx.cell = (up_h, up_w)
+        return _upfeat(tokens, prob, up_h, up_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (prob,) = ctx.saved_tensors
+        up_h, up_w = ctx.cell
+        t, _, _ = pool_stats(g.contiguous(), prob, up_h, up_w, with_hard=False)
+        return _shift_add(t) * float(up_h * up_w), None, None, None
+
+
+def upfeat(tokens, prob, up_h: int = 16, up_w: int = 16):
+    """Soft-unpool tokens (N,hc,wc,C) to pixels (N,H,W,C): kernel C for CUDA
+    tensors, the plain version for CPU tensors, with the gradient w.r.t.
+    ``tokens``."""
+    _check_prob("upfeat", prob)
+    return _Upfeat.apply(tokens, prob, up_h, up_w)
+
+
+def upfeat_fused(tokens, prob, up_h: int = 16, up_w: int = 16):
+    """Entry of ``pallas_superpixel.py::upfeat_fused`` (K6), the per-direction
+    formulation of the same function as :func:`upfeat`: kernel C serves both."""
+    return upfeat(tokens, prob, up_h, up_w)

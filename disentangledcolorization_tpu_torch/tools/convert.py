@@ -14,7 +14,10 @@ dicts of numpy arrays:
 With ``sn_folded=True`` the kernels already carry 1/sigma; ``weight_u`` and
 ``weight_v`` are then placeholders the folded model never reads. Unfolded,
 ``weight_v`` is set to normalize(W^T u), the value the port's own
-initialisation gives it.
+initialisation gives it, and ``weight_u`` is the ``spectral`` u.
+
+:func:`grads_from_jax` maps a gradient tree (shaped like ``params``) the same
+way: every transform above is a permutation, so it carries gradients too.
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ class _StateDictBuilder:
     """Reads flax leaves by path and writes torch keys (inverse of the
     converter's ``_TreeBuilder``; same method names)."""
 
-    def __init__(self, variables: dict, sn_folded: bool):
+    def __init__(self, variables: dict, sn_folded: bool, buffers: bool = True):
         self.params = variables["params"]
         self.stats = variables.get("batch_stats", {})
         self.spectral = variables.get("spectral", {})
         self.sn_folded = sn_folded
+        self.buffers = buffers  # False: parameters only (a gradient tree)
         self.sd: dict[str, np.ndarray] = {}
 
     @staticmethod
@@ -74,19 +78,23 @@ class _StateDictBuilder:
     def snconv(self, tkey: str, path: tuple):
         w = _conv_w(self._get(self.params, path + ("kernel",)))
         o = w.shape[0]
+        self._bias(tkey, path)
+        self.sd[f"{tkey}.weight_orig"] = w
+        if not self.buffers:
+            return
         if self.sn_folded:
             u = np.full((o,), 1.0 / np.sqrt(o), np.float32)
         else:
             u = self._get(self.spectral, path + ("u",))
         v = w.reshape(o, -1).T @ u
-        self.sd[f"{tkey}.weight_orig"] = w
         self.sd[f"{tkey}.weight_u"] = u
         self.sd[f"{tkey}.weight_v"] = (v / (np.linalg.norm(v) + 1e-12)).astype(np.float32)
-        self._bias(tkey, path)
 
     def bn(self, tkey: str, path: tuple):
         self.sd[f"{tkey}.weight"] = self._get(self.params, path + ("bn", "scale"))
         self.sd[f"{tkey}.bias"] = self._get(self.params, path + ("bn", "bias"))
+        if not self.buffers:
+            return
         self.sd[f"{tkey}.running_mean"] = self._get(self.stats, path + ("bn", "mean"))
         self.sd[f"{tkey}.running_var"] = self._get(self.stats, path + ("bn", "var"))
         self.sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -170,14 +178,7 @@ def _hourglass(b: _StateDictBuilder, tprefix: str, path: tuple):
     b.conv(f"{tprefix}outConv", path + ("out_conv",))
 
 
-def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tensor]:
-    """AnchorColorProb flax variables (as built by ``convert_disco_state_dict``
-    or ``model.init``) -> the port's AnchorColorProb ``state_dict``.
-
-    ``sn_folded`` must match how the variables were made; the port model is
-    then built with the same flag. The encoder depth is read from the tree.
-    """
-    b = _StateDictBuilder(variables, sn_folded)
+def _build(b: _StateDictBuilder) -> dict[str, torch.Tensor]:
     _spixelnet(b, "segnet.net.", ("segnet", "net"))
     _colorprobnet(b, "repnet.", ("repnet",))
     _encoder(b, "wildpath.", ("wildpath",))
@@ -186,6 +187,24 @@ def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tens
         b.linear(name, (name,))
     _hourglass(b, "enhanceNet.", ("enhanceNet",))
     return {k: torch.tensor(np.array(v)) for k, v in b.sd.items()}
+
+
+def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tensor]:
+    """AnchorColorProb flax variables (as built by ``convert_disco_state_dict``
+    or ``model.init``, or a train state's params, batch_stats and spectral)
+    -> the port's AnchorColorProb ``state_dict``.
+
+    ``sn_folded`` must match how the variables were made; the port model is
+    then built with the same flag. The encoder depth is read from the tree.
+    """
+    return _build(_StateDictBuilder(variables, sn_folded))
+
+
+def grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:
+    """A gradient tree shaped like AnchorColorProb's ``params`` -> port
+    parameter name -> gradient of that parameter (deconv flip, transposes and
+    spectral-norm ``weight_orig`` as for the weights; no buffers)."""
+    return _build(_StateDictBuilder({"params": grads}, sn_folded=False, buffers=False))
 
 
 def fold_spectral_norm(state_dict: dict) -> dict:

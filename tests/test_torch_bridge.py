@@ -23,7 +23,7 @@ import torch
 from disentangledcolorization_tpu.tools import convert_torch as cvt
 from disentangledcolorization_tpu_torch import resolve_device
 from disentangledcolorization_tpu_torch.models import AnchorColorProb
-from disentangledcolorization_tpu_torch.ops import affinity, attention, kernels, superpixel
+from disentangledcolorization_tpu_torch.ops import affinity, attention, colorlabel, kernels, superpixel
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,18 +151,25 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     kern, bias = torch.randn(3, 3, 16, 9, generator=g), torch.randn(9, generator=g)
     q, k, v = (torch.randn(2, 16, 64, generator=g) for _ in range(3))
     tok = torch.randn(1, 2, 2, 5, generator=g)
+    ab = torch.rand(1, 4, 4, 2, generator=g) - 0.5
+    keep = torch.rand(2, 8, 16, 16, generator=g) < 0.9
     kernels.reset_launch_counts()
     pairs = [
         (superpixel.pool_stats(feat, prob, 16, 16), superpixel.pool_stats_plain(feat, prob, 16, 16)),
         (superpixel.upfeat(tok, prob, 16, 16), superpixel.upfeat_plain(tok, prob, 16, 16)),
         (affinity.affinity_head(x, kern, bias), affinity.affinity_head_plain(x, kern, bias)),
         (attention.attention(q, k, v, 8), attention.attention_plain(q, k, v, 8)),
+        (attention.attention(q, k, v, 8, None, keep, 0.1), attention.attention_plain(q, k, v, 8, None, keep, 0.1)),
+        (attention.attention_bwd(q, k, v, v, 8), attention.attention_bwd_plain(q, k, v, v, 8)),
+        (colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)),
     ]
     for a, b in pairs:
         for x_, y_ in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x_, y_)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
-    assert set(kernels.LAUNCHES) == {"pool_stats", "affinity_head", "upfeat", "attention"}
+    assert set(kernels.LAUNCHES) == {
+        "pool_stats", "affinity_head", "upfeat", "attention", "attention_bwd", "encode_ab2ind"
+    }
 
 
 def test_check_cuda_rejects_cpu_tensors():

@@ -6,8 +6,10 @@ the CPU suite holds the plain versions against the JAX package). On a card:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Shapes here are small and ragged (odd widths, sp=8, rectangular grids,
-head widths 8..64); ``chip_smoke.py`` covers the main path's shapes.
-Tolerance 1e-5 absolute, as there.
+head widths 8..64, odd pixel counts for kernel E, ties between bins);
+``chip_smoke.py`` covers the paths' shapes. Tolerances as there: 1e-5
+absolute (1e-6 for kernel E; the autograd functions' gradients 1e-5 of their
+largest entry).
 """
 
 import pytest
@@ -90,3 +92,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         superpixel.upfeat(_rand(cuda, 1, 2, 2, 4).double(), prob, 16, 16)
     with pytest.raises(ValueError, match="head width"):
         attention.attention(*(_rand(cuda, 1, 8, 24) for _ in range(3)), 2)
+
+
+@pytest.mark.parametrize("n,t,d,nhead", [(2, 64, 64, 8), (1, 50, 64, 4)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernel_with_keep_mask(cuda, n, t, d, nhead, rate):
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    q, k, v = (_rand(cuda, n, t, d, seed=i) for i in range(3))
+    keep = _rand(cuda, n, nhead, t, t, seed=5).abs() > 0.1
+    torch.testing.assert_close(
+        attention.attention(q, k, v, nhead, None, keep, rate),
+        attention.attention_plain(q, k, v, nhead, None, keep, rate), atol=1e-5, rtol=0,
+    )
+
+
+@pytest.mark.parametrize("n,t,d,nhead", [(2, 256, 64, 8), (1, 50, 64, 4), (1, 9, 32, 1), (3, 17, 128, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bwd_kernel(cuda, n, t, d, nhead, masked, rate):
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    q, k, v, dout = (_rand(cuda, n, t, d, seed=i) for i in range(4))
+    mask = (_rand(cuda, n, t, seed=4) > 0.5) if masked else None
+    keep = (_rand(cuda, n, nhead, t, t, seed=5).abs() > 0.1) if rate else None
+    out = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate)
+    ref = attention.attention_bwd_plain(q, k, v, dout, nhead, mask, keep, rate)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_attention_function_gradients(cuda):
+    """autograd through kernel D + attention_bwd equals autograd of the plain core."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    n, t, d, nhead = 2, 256, 64, 8
+    base = [_rand(cuda, n, t, d, seed=i) for i in range(3)]
+    dout = _rand(cuda, n, t, d, seed=3)
+    keep = _rand(cuda, n, nhead, t, t, seed=5).abs() > 0.1
+    grads = []
+    for fn in (attention.attention, attention.attention_plain):
+        xs = [x.clone().requires_grad_() for x in base]
+        grads.append(torch.autograd.grad(fn(*xs, nhead, None, keep, 0.1), xs, dout))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 5), (2, 7, 11), (16, 16, 16), (1, 1, 1)])
+def test_encode_ab2ind_kernel(cuda, shape):
+    from disentangledcolorization_tpu_torch.ops import colorlabel
+
+    ab = (torch.rand(*shape, 2, generator=torch.Generator().manual_seed(0)) * 1.2 - 0.6).to(cuda)
+    ties = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.0], [-0.5, 0.5]], device=cuda)
+    m = min(len(ties), ab.numel() // 2)
+    ab.view(-1, 2)[:m] = ties[:m]
+    out, ref = colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+    assert torch.equal(out > 0, ref > 0)
+
+
+@pytest.mark.parametrize("s", [8, 16])
+def test_superpixel_function_gradients(cuda, s):
+    """The pooling gradient (kernel C) and the unpooling gradient (kernel A)
+    against autograd of the plain versions."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n, hc, wc, c = 2, 3, 5, 66
+    prob = torch.softmax(_rand(cuda, n, hc * s, wc * s, 9, seed=1), -1).contiguous()
+
+    def plain_pool(f):
+        t, mass, _ = sp.pool_stats_plain(f, prob, s, s, with_hard=False)
+        return sp._shift_add(t) / (sp._shift_add(mass)[..., None] + 1e-8)
+
+    cases = [
+        (lambda f: sp.pool_and_sizes(f, prob, s, s)[0], plain_pool, (n, hc * s, wc * s, c), (n, hc, wc, c)),
+        (lambda t: sp.upfeat(t, prob, s, s), lambda t: sp.upfeat_plain(t, prob, s, s), (n, hc, wc, c), (n, hc * s, wc * s, c)),
+    ]
+    for fn, plain, x_shape, g_shape in cases:
+        x, g = _rand(cuda, *x_shape, seed=2), _rand(cuda, *g_shape, seed=3)
+        xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+        ga = torch.autograd.grad(fn(xa), xa, g)[0]
+        gb = torch.autograd.grad(plain(xb), xb, g)[0]
+        torch.testing.assert_close(ga, gb, atol=1e-5 * float(gb.abs().max()), rtol=0)

@@ -26,17 +26,22 @@ import torch  # noqa: E402
 
 from disentangledcolorization_tpu.api import Colorizer as JColorizer  # noqa: E402
 from disentangledcolorization_tpu.models import AnchorColorProb as JAnchorColorProb  # noqa: E402
+from disentangledcolorization_tpu.ops import colorlabel as jcl  # noqa: E402
 from disentangledcolorization_tpu.ops import pallas_affinity as pa  # noqa: E402
 from disentangledcolorization_tpu.ops import pallas_attention as pat  # noqa: E402
+from disentangledcolorization_tpu.ops import pallas_colorlabel as pcl  # noqa: E402
 from disentangledcolorization_tpu.ops import pallas_superpixel as psp  # noqa: E402
 from disentangledcolorization_tpu.ops import superpixel as sp  # noqa: E402
 from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 from disentangledcolorization_tpu_torch.models import AnchorColorProb  # noqa: E402
-from disentangledcolorization_tpu_torch.ops import affinity, attention  # noqa: E402
+from disentangledcolorization_tpu_torch.ops import affinity, attention, colorlabel  # noqa: E402
 from disentangledcolorization_tpu_torch.ops import superpixel as tsp  # noqa: E402
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables  # noqa: E402
 from test_torch_bridge import random_state_dict, to_jax_variables  # noqa: E402
 from test_torch_superpixel import _inputs as sp_inputs  # noqa: E402
+import test_torch_attention_grad as agrad  # noqa: E402
+import test_torch_colorlabel as tcl  # noqa: E402
+import test_torch_train as ttrain  # noqa: E402
 
 
 def err(a, b) -> float:
@@ -99,7 +104,51 @@ def main() -> None:
     hm[0, 0] = hm[2, 1] = hm[3, 2] = 1.0
     ab = rng.uniform(-0.5, 0.5, (4, 3, 2)).astype(np.float32)
     res["colorize_hints_uint8_max_gap"] = err(col.colorize(img, hints=(hm, ab)), jcol.colorize(img, hints=(hm, ab)))
+    res.update(training_parity())
     print(json.dumps(res))
+
+
+def training_parity() -> dict:
+    """The training slice's comparisons: soft labels, K6, the autograd functions' gradients
+    and one training step, on the tests' inputs."""
+    res = {}
+    ab = tcl._ab()
+    ours = colorlabel.encode_ab2ind(torch.from_numpy(ab))
+    res["encode_ab2ind_vs_xla"] = err(ours, jcl.encode_ab2ind(jnp.asarray(ab), backend="xla"))
+    res["encode_ab2ind_vs_pallas"] = err(ours, pcl.encode_ab2ind(jnp.asarray(ab)))
+    feat, prob = sp_inputs(0, 2, 64, 64, 66)
+    jp, tp = jnp.asarray(prob), torch.from_numpy(prob)
+    tok = np.random.default_rng(3).normal(size=(2, 4, 4, 66)).astype(np.float32)
+    res["upfeat_fused_vs_pallas"] = err(tsp.upfeat_fused(torch.from_numpy(tok), tp, 16, 16),
+                                        psp.upfeat_fused(jnp.asarray(tok), jp, 16, 16))
+    f = torch.from_numpy(feat).requires_grad_()
+    (tsp.pool_and_sizes(f, tp, 16, 16)[0] * torch.from_numpy(tok)).sum().backward()
+    res["pool_feature_grad_vs_jax"] = err(f.grad, jax.grad(
+        lambda x: jnp.sum(sp.pool_and_sizes(x, jp, 16, 16, backend="xla")[0] * jnp.asarray(tok)))(jnp.asarray(feat)))
+    t = torch.from_numpy(tok).requires_grad_()
+    (tsp.upfeat(t, tp, 16, 16) * torch.from_numpy(feat)).sum().backward()
+    res["upfeat_token_grad_vs_jax"] = err(t.grad, jax.grad(
+        lambda x: jnp.sum(sp.upfeat(x, jp, 16, 16) * jnp.asarray(feat)))(jnp.asarray(tok)))
+    q, k, v, g, mask = agrad._inputs(0, 2, 16, 64)
+    ours = agrad._torch_grads(lambda a, b, c: attention.attention(a, b, c, 8, torch.from_numpy(mask)), q, k, v, g)
+    res["attention_grads_masked_vs_jax"] = max(err(a, b) for a, b in zip(ours, agrad._jax_core_grads(q, k, v, g, 8, mask)))
+
+    class _Patch:
+        def setattr(self, obj, name, value):
+            setattr(obj, name, value)
+
+    ref = ttrain.ref.__wrapped__()
+    with torch.backends.mkldnn.flags(enabled=False):
+        model, st, batch, loss = ttrain._port(ref, _Patch(), ref["hint1"])
+        grads, apply = {}, st.optimizer.step
+        st.optimizer.step = lambda: grads.update(
+            {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}) or apply()
+        metrics = ttrain.steps.make_colorizer_train_step(loss)(st, batch, seed=0)
+    res["train_step_losses_max_rel"] = max(abs(float(metrics[n]) - ref["metrics"][n]) / abs(ref["metrics"][n])
+                                           for n in ttrain.LOSSES)
+    res["train_step_grads_max_rel_to_max"] = max(
+        err(grads[n], ref["grads"][n]) / float(ref["grads"][n].abs().max()) for n in grads)
+    return res
 
 
 if __name__ == "__main__":

@@ -1,12 +1,16 @@
-"""Where the PyTorch port's serving forward spends its time on the card.
+"""Where the PyTorch port's serving forward, or its training step, spends its time on the card.
 
 Runs the port's ``AnchorColorProb`` forward (seeded random weights, 6+6
-encoder layers, batch 8 at 256x256, f32) under ``torch.profiler`` and prints
-one JSON line per TF32 setting: host ms per forward, device kernel ms per
-forward, the device's busy share, the time of each hand-written kernel, of the
-convolutions, and the top kernels by device time. Needs a CUDA device:
+encoder layers, batch 8 at 256x256, f32), or with ``--train`` its colorizer
+training step (the recipe's configuration: dropout 0.1, Adam 2e-4 poly,
+batch 24 at 256x256 from 240 synthetic images held on the card), under
+``torch.profiler`` and prints one JSON line per TF32 setting: host ms per
+forward or step, device kernel ms, the device's busy share, the time of each
+hand-written kernel, of the convolutions (cuDNN), and the top kernels by
+device time. Needs a CUDA device:
 
     python tools/profile_port.py [--batch 8] [--size 256] [--iters 5]
+    python tools/profile_port.py --train [--batch 24] [--iters 3]
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 
-OURS = {"pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head", "upfeat_kernel": "upfeat", "attention_kernel": "attention"}
+OURS = {
+    "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head", "upfeat_kernel": "upfeat",
+    "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd", "encode_ab2ind_kernel": "encode_ab2ind",
+}
 
 
 def _device_us(evt) -> float:
@@ -34,22 +41,23 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(col: Colorizer, grays: torch.Tensor, iters: int, tf32: bool) -> dict:
+def profile(run, batch: int, iters: int, tf32: bool) -> dict:
+    """``run()`` is one forward or one training step on the card."""
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     for _ in range(3):
-        col.model(grays)
+        run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        col.model(grays)
+        run()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            col.model(grays)
+            run()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels = {}
@@ -70,21 +78,48 @@ def profile(col: Colorizer, grays: torch.Tensor, iters: int, tf32: bool) -> dict
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
         "tf32": tf32,
-        "batch": grays.shape[0],
-        "host_ms_per_forward": host_ms,
-        "images_per_s": grays.shape[0] * 1e3 / host_ms,
-        "profiled_host_ms_per_forward": prof_ms,
-        "device_kernel_ms_per_forward": total_ms,
+        "batch": batch,
+        "host_ms_per_call": host_ms,
+        "images_per_s": batch * 1e3 / host_ms,
+        "profiled_host_ms_per_call": prof_ms,
+        "device_kernel_ms_per_call": total_ms,
         "device_busy_share": total_ms / prof_ms,
-        "our_kernels_ms_per_forward": ours,
-        "conv_like_kernels_ms_per_forward": conv_ms,
-        "top_kernels_ms_per_forward": [[n[:90], us / 1e3 / iters] for n, us in top],
+        "our_kernels_ms_per_call": ours,
+        "our_kernels_share_of_device": sum(ours.values()) / total_ms,
+        "conv_like_kernels_ms_per_call": conv_ms,
+        "top_kernels_ms_per_call": [[n[:90], us / 1e3 / iters] for n, us in top],
     }
+
+
+def trainer(batch: int, size: int):
+    """The recipe's trainer on 240 synthetic images held on the card; returns
+    a function that takes one step."""
+    import warnings
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps
+
+    torch.manual_seed(130)
+    model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.1).cuda()
+    n_images = 240
+    st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 60, n_images // batch))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        step = steps.make_colorizer_train_step(losses.AnchorColorProbLoss(enhanced=True), class_lambda=0.5)
+    ds = data.synthetic_dataset(n_images, size, "cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def run():
+        idx = torch.randint(0, n_images, (batch,), generator=g, device="cuda")
+        step(st, {"gray": ds["gray"][idx], "color": ds["color"][idx]}, 130)
+
+    return run
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--train", action="store_true", help="profile the colorizer training step")
+    ap.add_argument("--batch", type=int, default=None, help="default 8 (forward) or 24 (--train)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args()
@@ -92,12 +127,20 @@ def main() -> None:
         sys.exit("profile_port: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.train:
+        batch = args.batch or 24
+        run = trainer(batch, args.size)
+        for tf32 in (False, True):
+            print(json.dumps({"card": smi, "what": "train_step", **profile(run, batch, args.iters, tf32)}), flush=True)
+        return
+    batch = args.batch or 8
     col = Colorizer(device="cuda", seed=130)
     g = torch.Generator().manual_seed(0)
-    grays = (torch.rand(args.batch, args.size, args.size, 1, generator=g) * 2 - 1).cuda()
+    grays = (torch.rand(batch, args.size, args.size, 1, generator=g) * 2 - 1).cuda()
     with torch.no_grad():
         for tf32 in (False, True):
-            print(json.dumps({"card": smi, **profile(col, grays, args.iters, tf32)}), flush=True)
+            print(json.dumps({"card": smi, "what": "forward", **profile(lambda: col.model(grays), batch, args.iters, tf32)}),
+                  flush=True)
 
 
 if __name__ == "__main__":

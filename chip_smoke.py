@@ -13,7 +13,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and 4x256x256), with its time, the plain version's time, a library
      call's time where one computes the same function, and its bound; the
      pooling and unpooling autograd functions' backward passes against
-     autograd of the plain versions;
+     autograd of the plain versions. The two attention kernels also with a
+     fully masked image, with the forward's saved statistics and without,
+     twice for bitwise equality, and timed in turns with
+     ``scaled_dot_product_attention`` (library, kernel, kernel, library) both
+     by CUDA events (enqueue included) and by the profiler's kernel durations
+     (device time alone);
   4. serving path: a seeded random-weight ``Colorizer`` answers 3
      ``colorize_batch`` requests of 8 images at 256x256 and one ``colorize``
      with hints; launches per forward: pool_stats 1, affinity_head 1,
@@ -37,6 +42,7 @@ All f32 work runs with TF32 off for both cuDNN and matmuls, except the
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +72,10 @@ TOLERANCES = {
     # exp of bitwise-equal f32 distances over <= 5 terms, renormalized
     "encode_ab2ind": 1e-6,
 }
+# kernel D's saved softmax statistics against the plain version's: the row max
+# (a depth-8 dot, or exactly -1e9) absolutely, the row sum of up to 256
+# exponentials in [0, 1] relative to its size
+STATS_TOL = 1e-5
 # the autograd functions' backward passes (kernels C and A) against autograd
 # of the plain versions, relative to the largest entry: the unpooling
 # gradient sums 256 products per token and reaches tens in size
@@ -93,6 +103,76 @@ def time_ms(fn, device, warmup: int = 3, iters: int = 20) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean milliseconds of device time per call, in all and by kernel: the
+    durations of every kernel that ``fn`` launches, summed by
+    ``torch.profiler`` over ``iters`` calls. (None, {}) where the profiler
+    shows no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
+        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            own = re.search(r"\w*kernel\w*(<[^>]*>)?", evt.key)  # the hand-written kernels are named *_kernel*
+            name = own.group(0) if own else evt.key[:48]
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / iters
+    return (sum(by_kernel.values()), by_kernel) if by_kernel else (None, {})
+
+
+def time_in_turns(label: str, library, kernel, device) -> dict:
+    """library, kernel, kernel, library: each turn's time by CUDA events
+    around 20 calls (the host's enqueue included), then each function's
+    device time alone. Returns the means of the two turns and the device times."""
+    lib_a, ker_a = time_ms(library, device), time_ms(kernel, device)
+    ker_b, lib_b = time_ms(kernel, device), time_ms(library, device)
+    (ker_dev, ker_by), (lib_dev, _) = device_ms(kernel), device_ms(library)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+    log(f"{label}: kernel ms {ker_a:.4f}, {ker_b:.4f} (device alone {fmt(ker_dev)}: "
+        f"{json.dumps({k: round(v, 4) for k, v in ker_by.items()})}); "
+        f"library ms {lib_a:.4f}, {lib_b:.4f} (device alone {fmt(lib_dev)})")
+    return dict(ms=(ker_a + ker_b) / 2, library_ms=(lib_a + lib_b) / 2, device_ms=ker_dev, library_device_ms=lib_dev)
+
+
+def stats_err(stats, ref) -> float:
+    """Largest error of kernel D's statistics: the max absolutely, the sum relatively."""
+    return max(float((stats[..., 0] - ref[..., 0]).abs().max()),
+               float(((stats[..., 1] - ref[..., 1]).abs() / ref[..., 1]).max()))
+
+
+def report_ptxas(build_log: dict, t: int = 256) -> None:
+    """Registers, static shared memory and spills of every kernel instance, as
+    ``nvcc -Xptxas -v`` printed them, and the dynamic shared memory the
+    attention kernels' launches ask for at T = ``t``. The head-width-8
+    instances of the two attention kernels (the main path's) must not spill and
+    must fit 128 registers."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    for kname, text in build_log.items():
+        blocks = re.split(r"Function properties for ", text)[1:]
+        for blk in blocks:
+            sym = blk.split()[0]
+            inst = re.search(r"\d+(attention\w*?kernel\w*?)ILi(\d+)ELb([01])E", sym)
+            regs = int(re.search(r"Used (\d+) registers", blk).group(1))
+            spills = [int(x) for x in re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", blk).groups()]
+            static = re.search(r"(\d+) bytes smem", blk)
+            label, dynamic = sym[:60], ""
+            if inst:
+                hd, keep = int(inst.group(2)), inst.group(3) == "1"
+                label = f"{inst.group(1)}<hd={hd}, keep-mask={keep}>"
+                kv, q_do = attention._smem_bytes(t, hd, keep)
+                dynamic = f", {q_do if inst.group(1).endswith('dkv') else kv} bytes dynamic smem at T={t}"
+                if hd == 8 and (max(spills) > 0 or regs > 128):
+                    raise AssertionError(f"{label}: {regs} registers, spills {spills}")
+            log(f"  ptxas {kname}: {label}: {regs} registers, {static.group(1) if static else 0} bytes static smem{dynamic}, "
+                f"{spills[0]} bytes spill stores, {spills[1]} bytes spill loads")
 
 
 def nbytes(*tensors) -> int:
@@ -178,26 +258,39 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
 
-    # D: attention core, T = 256 tokens, d = 64, 8 heads; also with a key-padding mask
+    # D: attention core, T = 256 tokens, d = 64, 8 heads; also with a key-padding
+    # mask (image 0: every key masked), a keep-mask, and its saved statistics
     q, k, v = rand(n, t, d), rand(n, t, d), rand(n, t, d)
     out = attention.attention(q, k, v, nhead)
     err = max_err(out, attention.attention_plain(q, k, v, nhead))
     mask = (torch.rand(n, t, generator=g) < 0.25).to(device)
+    mask[0] = True
     err = max(err, max_err(attention.attention(q, k, v, nhead, mask), attention.attention_plain(q, k, v, nhead, mask)))
     keep = (torch.rand(n, nhead, t, t, generator=g) >= 0.1).to(device)  # dropout 0.1 on the weights
     err = max(err, max_err(attention.attention(q, k, v, nhead, mask, keep, 0.1),
                            attention.attention_plain(q, k, v, nhead, mask, keep, 0.1)))
+    s_err = 0.0
+    for m_, k_, r_ in ((None, None, 0.0), (mask, None, 0.0), (mask, keep, 0.1)):
+        o, st = attention._attention(q, k, v, nhead, m_, k_, r_, with_stats=True)
+        o_ref, st_ref = attention.attention_plain(q, k, v, nhead, m_, k_, r_, return_stats=True)
+        err, s_err = max(err, max_err(o, o_ref)), max(s_err, stats_err(st, st_ref))
+    log(f"attention statistics (row max, row sum) vs the plain softmax's, fully masked image included: "
+        f"{s_err:.3e} (tol {STATS_TOL:.0e})")
+    if not s_err <= STATS_TOL:
+        raise AssertionError(f"attention statistics: {s_err} above {STATS_TOL}")
     hd = d // nhead
     heads = lambda z: z.view(n, t, nhead, hd).transpose(1, 2)  # noqa: E731
     b_ms, b_by = bound(nbytes(q, k, v, out), n * nhead * (4.0 * t * t * hd + 3.0 * t * t))
+    with torch.no_grad():
+        turns = time_in_turns(f"attention (kernel D), serving shape, batch {n}, no mask, vs SDPA forward",
+                              lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)),
+                              lambda: attention.attention(q, k, v, nhead), device)
     rows.append(dict(
         name="attention", source="disentangledcolorization_tpu_torch/csrc/attention.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_attention.py:56",
         max_abs_err=err,
-        ms=time_ms(lambda: attention.attention(q, k, v, nhead), device),
         plain_ms=time_ms(lambda: attention.attention_plain(q, k, v, nhead), device),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), device),
+        bound_ms=b_ms, bound_by=b_by, **turns,
     ))
 
     for r in rows:
@@ -227,31 +320,69 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
     q, k, v, dout = rand(n, t, d), rand(n, t, d), rand(n, t, d), rand(n, t, d)
     keep = (torch.rand(n, nhead, t, t, generator=g) >= rate).to(device)
     mask = (torch.rand(n, t, generator=g) < 0.25).to(device)
-    err = max(
-        max_err(attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate),
-                attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate)),
-        max_err(attention.attention_bwd(q, k, v, dout, nhead), attention.attention_bwd_plain(q, k, v, dout, nhead)),
-        max_err(attention.attention_bwd(q, k, v, dout, nhead, mask), attention.attention_bwd_plain(q, k, v, dout, nhead, mask)),
-    )
+    mask[0] = True  # image 0: every key masked
+    err = 0.0
+    for m_, k_, r_ in ((None, keep, rate), (None, None, 0.0), (mask, None, 0.0), (mask, keep, rate)):
+        ref = attention.attention_bwd_plain(q, k, v, dout, nhead, m_, k_, r_)
+        fwd_out, fwd_stats = attention._attention(q, k, v, nhead, m_, k_, r_, with_stats=True)
+        saved = attention.attention_bwd(q, k, v, dout, nhead, m_, k_, r_, fwd_out, fwd_stats)  # what training runs
+        alone = attention.attention_bwd(q, k, v, dout, nhead, m_, k_, r_)  # the wrapper's own forward first
+        again = attention.attention_bwd(q, k, v, dout, nhead, m_, k_, r_, fwd_out, fwd_stats)
+        err = max(err, max_err(saved, ref), max_err(alone, ref))
+        if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(saved, alone, again)):
+            raise AssertionError("attention_bwd: two runs on the same inputs are not bitwise equal")
+    log("attention_bwd: with saved statistics, without, and a second run are bitwise equal (4 mask settings)")
     hd = d // nhead
     # the work the gradient needs per (n, head): S and dP (2 T^2 hd each),
     # dQ, dK, dV (2 T^2 hd each), the softmax and dS (about 10 T^2)
-    b_ms, b_by = bound(nbytes(q, k, v, dout, keep) + 3 * nbytes(q), n * nhead * (10.0 * t * t * hd + 10.0 * t * t))
+    fwd_out, fwd_stats = attention._attention(q, k, v, nhead, None, keep, rate, with_stats=True)
+    b_ms, b_by = bound(nbytes(q, k, v, dout, keep, fwd_out, fwd_stats) + 3 * nbytes(q),
+                       n * nhead * (10.0 * t * t * hd + 10.0 * t * t))
     heads = [x.view(n, t, nhead, hd).transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*heads)
+    sdpa_out_drop = F.scaled_dot_product_attention(*heads, dropout_p=rate)
     sdpa_dout = dout.view(n, t, nhead, hd).transpose(1, 2)
+    bwd = lambda: attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate, fwd_out, fwd_stats)  # noqa: E731
+    turns = time_in_turns(
+        f"attention_bwd, training shape, batch {n}, keep-mask, saved statistics, vs SDPA backward without dropout",
+        lambda: torch.autograd.grad(sdpa_out, heads, sdpa_dout, retain_graph=True), bwd, device)
+    drop = time_in_turns(
+        f"attention_bwd, the same, vs SDPA backward with dropout_p={rate}",
+        lambda: torch.autograd.grad(sdpa_out_drop, heads, sdpa_dout, retain_graph=True), bwd, device)
     rows.append(dict(
         name="attention_bwd", source="disentangledcolorization_tpu_torch/csrc/attention_bwd.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_attention.py:56 (no Pallas backward: XLA autodiff of models/transformer.py:50-58)",
         max_abs_err=err,
-        ms=time_ms(lambda: attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate), device),
         plain_ms=time_ms(lambda: attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate), device),
-        bound_ms=b_ms, bound_by=b_by,
-        # SDPA's backward, without dropout
-        library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, heads, sdpa_dout, retain_graph=True), device),
+        bound_ms=b_ms, bound_by=b_by, **turns,  # library_ms: SDPA's backward without dropout
+        library_dropout_ms=drop["library_ms"], library_dropout_device_ms=drop["library_device_ms"],
     ))
-    log(f"attention (kernel D) with keep-mask at the training shape: "
-        f"{time_ms(lambda: attention.attention(q, k, v, nhead, None, keep, rate), device):.4f} ms")
+    log(f"attention_bwd without saved statistics (kernel D runs first): "
+        f"{time_ms(lambda: attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate), device):.4f} ms")
+    with torch.no_grad():
+        fwd = time_in_turns(
+            f"attention (kernel D), training shape, batch {n}, keep-mask and statistics, vs SDPA forward with dropout_p={rate}",
+            lambda: F.scaled_dot_product_attention(*heads, dropout_p=rate),
+            lambda: attention._attention(q, k, v, nhead, None, keep, rate, with_stats=True), device)
+    fb_ms, fb_by = bound(nbytes(q, k, v, keep, fwd_out, fwd_stats), n * nhead * (4.0 * t * t * hd + 3.0 * t * t))
+    log(f"attention (kernel D), training shape: bound_ms={fb_ms:.4f} ({fb_by}); "
+        f"plain_ms={time_ms(lambda: attention.attention_plain(q, k, v, nhead, None, keep, rate), device):.4f}")
+    extras = {"attention_training_shape": dict(fwd, bound_ms=fb_ms, bound_by=fb_by)}
+
+    # K5: kernel A without the winner-take-all counts (the unpooling backward's kernel), alone
+    feat64 = rand(n, h, w, d)
+    prob5 = torch.softmax(rand(n, h, w, 9), dim=-1).contiguous()
+    k5_out = superpixel.pool_stats(feat64, prob5, sp_size, sp_size, with_hard=False)
+    k5_err = max_err(k5_out[:2], superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, with_hard=False)[:2])
+    k5_b, k5_by = bound(nbytes(feat64, prob5, *k5_out[:2]), 2.0 * n * h * w * 9 * d)
+    k5_ms = time_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, with_hard=False), device)
+    k5_plain = time_ms(lambda: superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, with_hard=False), device)
+    log(f"pool_stats with_hard=False (K5) alone, batch {n}, C={d}: max|d|={k5_err:.3e} (tol {TOLERANCES['pool_stats']:.0e}) "
+        f"ms={k5_ms:.4f} plain_ms={k5_plain:.4f} bound_ms={k5_b:.4f} ({k5_by}) library_ms=None")
+    if not k5_err <= TOLERANCES["pool_stats"]:
+        raise AssertionError(f"pool_stats with_hard=False: max|d| {k5_err} above {TOLERANCES['pool_stats']}")
+    extras["pool_stats_without_hard"] = dict(ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by)
+    del feat64, prob5, k5_out
 
     # E: soft labels at the token grid of a training batch and at full resolution
     errs, pattern_ok = [], True
@@ -316,7 +447,7 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
             f"library_ms={r['library_ms']}")
         if not r["max_abs_err"] <= TOLERANCES[r["name"]]:
             raise AssertionError(f"{r['name']}: max|d| {r['max_abs_err']} above {TOLERANCES[r['name']]}")
-    return rows
+    return rows, extras
 
 
 def drive_main_path(device, n_requests: int = 3, batch: int = 8, size: int = 256):
@@ -606,13 +737,12 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = kernels.build()
     log(f"build: {len(secs)} kernels in {time.perf_counter() - t0:.2f} s wall ({json.dumps({k: round(v, 2) for k, v in secs.items()})})")
-    for kname, text in kernels.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {kname}: {line.strip()}")
+    report_ptxas(kernels.BUILD_LOG)
 
     # 3. kernels against their plain versions
-    rows = compare_kernels(device) + compare_training_kernels(device)
+    rows = compare_kernels(device)
+    training_rows, extras = compare_training_kernels(device)
+    rows += training_rows
 
     # 4. serving path
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
@@ -643,9 +773,10 @@ def main() -> int:
             raise AssertionError(f"{r['name']}: no path launched it")
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "library_dropout_ms",
+            "library_dropout_device_ms")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows], "also_measured": extras}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` process
 loaded with ``ctypes``. Nothing includes PyTorch's headers, so a build takes
 seconds. Libraries land in ``_build/`` under this package (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.
+source is rebuilt and an unchanged one is reused. The headers (``csrc/*.cuh``)
+that sources share enter every hash.
 
 A failed build raises; there is no fallback. Every wrapper in ``ops/`` calls
 :func:`launch`, which adds one to the kernel's launch count, runs the C entry
@@ -43,10 +44,8 @@ KERNELS = {
     "pool_stats": ("pool_stats.cu", "disco_pool_stats", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "affinity_head": ("affinity_head.cu", "disco_affinity_head", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "upfeat": ("upfeat.cu", "disco_upfeat", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "attention": ("attention.cu", "disco_attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "attention_bwd": (
-        "attention_bwd.cu", "disco_attention_bwd", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
-    ),
+    "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
+    "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
 }
 
@@ -69,8 +68,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [src, *sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{src[:-3]}_{digest}.so")
 
 

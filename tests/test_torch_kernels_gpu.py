@@ -138,6 +138,93 @@ def test_attention_function_gradients(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
+STAT_CASES = [(2, 256, 64, 8), (1, 50, 64, 4), (3, 17, 128, 2), (1, 9, 32, 1), (2, 64, 64, 2), (2, 12, 64, 4), (2, 16, 64, 8)]
+
+
+def _masked_inputs(cuda, n, t, d, nhead, masked, rate):
+    """q, k, v, dout, a key-padding mask whose first image has every key
+    masked, and a keep-mask."""
+    q, k, v, dout = (_rand(cuda, n, t, d, seed=i) for i in range(4))
+    mask = None
+    if masked:
+        mask = _rand(cuda, n, t, seed=4) > 0.5
+        mask[0] = True
+    keep = (_rand(cuda, n, nhead, t, t, seed=5).abs() > 0.1) if rate else None
+    return q, k, v, dout, mask, keep
+
+
+@pytest.mark.parametrize("n,t,d,nhead", STAT_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernel_statistics(cuda, n, t, d, nhead, masked, rate):
+    """Kernel D's second output against the plain version's row max and row
+    sum (the sum relative to its size), a fully masked image included; the
+    output is the same with and without it."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    q, k, v, _, mask, keep = _masked_inputs(cuda, n, t, d, nhead, masked, rate)
+    out, stats = attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)
+    ref, ref_stats = attention.attention_plain(q, k, v, nhead, mask, keep, rate, return_stats=True)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 0], ref_stats[..., 0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 1], ref_stats[..., 1], atol=0, rtol=1e-5)
+    assert torch.equal(out, attention._attention(q, k, v, nhead, mask, keep, rate)[0])
+    if masked:  # every key masked: a uniform softmax, max -1e9 and sum T
+        assert torch.equal(stats[0, ..., 0], torch.full_like(stats[0, ..., 0], -1e9))
+        torch.testing.assert_close(stats[0, ..., 1], torch.full_like(stats[0, ..., 1], float(t)), atol=0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,t,d,nhead", STAT_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bwd_kernel_with_saved_statistics(cuda, n, t, d, nhead, masked, rate):
+    """attention_bwd given the forward's output and statistics (what training
+    runs) equals attention_bwd given none, bit for bit, and the plain version,
+    a fully masked image included; two runs are bitwise equal."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    q, k, v, dout, mask, keep = _masked_inputs(cuda, n, t, d, nhead, masked, rate)
+    out, stats = attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)
+    saved = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats)
+    alone = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate)
+    again = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats)
+    ref = attention.attention_bwd_plain(q, k, v, dout, nhead, mask, keep, rate)
+    for a, b, c, r in zip(saved, alone, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=0)
+
+
+def test_attention_function_saves_statistics_only_for_a_gradient(cuda):
+    from disentangledcolorization_tpu_torch.ops import attention, kernels
+
+    q, k, v = (_rand(cuda, 2, 64, 64, seed=i) for i in range(3))
+    assert attention.attention(q, k, v, 8).grad_fn is None
+    out = attention.attention(q.clone().requires_grad_(), k, v, 8)
+    saved = out.grad_fn.saved_tensors
+    assert saved[-1].shape == (2, 8, 64, 2) and saved[-2].shape == out.shape
+    kernels.reset_launch_counts()
+    out.sum().backward()
+    assert kernels.LAUNCHES["attention"] == 0 and kernels.LAUNCHES["attention_bwd"] == 1
+
+
+def test_attention_kernels_take_views_at_odd_offsets(cuda):
+    """q, k, v cut from one buffer at an offset that is not 16-byte aligned,
+    and a keep-mask at an odd byte offset (byte loads instead of 16-byte ones)."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    n, t, d, nhead = 2, 32, 64, 8
+    buf = _rand(cuda, 3 * n * t * d + 1)
+    q, k, v = (buf[1 + i * n * t * d: 1 + (i + 1) * n * t * d].view(n, t, d) for i in range(3))
+    kbuf = _rand(cuda, n * nhead * t * t + 3, seed=5).abs() > 0.1
+    keep = kbuf[3:].view(n, nhead, t, t)
+    torch.testing.assert_close(
+        attention.attention(q, k, v, nhead, None, keep, 0.1), attention.attention_plain(q, k, v, nhead, None, keep, 0.1),
+        atol=1e-5, rtol=0)
+    for a, b in zip(attention.attention_bwd(q, k, v, v, nhead, None, keep, 0.1),
+                    attention.attention_bwd_plain(q, k, v, v, nhead, None, keep, 0.1)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 3, 5), (2, 7, 11), (16, 16, 16), (1, 1, 1)])
 def test_encode_ab2ind_kernel(cuda, shape):
     from disentangledcolorization_tpu_torch.ops import colorlabel

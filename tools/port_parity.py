@@ -132,6 +132,10 @@ def training_parity() -> dict:
     q, k, v, g, mask = agrad._inputs(0, 2, 16, 64)
     ours = agrad._torch_grads(lambda a, b, c: attention.attention(a, b, c, 8, torch.from_numpy(mask)), q, k, v, g)
     res["attention_grads_masked_vs_jax"] = max(err(a, b) for a, b in zip(ours, agrad._jax_core_grads(q, k, v, g, 8, mask)))
+    mask[0] = True  # every key of image 0 masked; the backward reads the saved statistics (max -1e9, sum T)
+    ours = agrad._torch_grads(lambda a, b, c: attention.attention(a, b, c, 8, torch.from_numpy(mask)), q, k, v, g)
+    res["attention_grads_fully_masked_image_vs_jax"] = max(
+        err(a, b) for a, b in zip(ours, agrad._jax_core_grads(q, k, v, g, 8, mask)))
 
     class _Patch:
         def setattr(self, obj, name, value):

@@ -13,7 +13,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and 4x256x256), with its time, the plain version's time, a library
      call's time where one computes the same function, and its bound; the
      pooling and unpooling autograd functions' backward passes against
-     autograd of the plain versions. The two attention kernels also with a
+     autograd of the plain versions. Kernels A, C and F (pooling statistics,
+     unpooling, the 9-direction shift-add) also at C = 64, 66 and 5, with a
+     scale and without mass, with a per-token factor, and twice for bitwise
+     equality. The two attention kernels also with a
      fully masked image, with the forward's saved statistics and without,
      twice for bitwise equality, and timed in turns with
      ``scaled_dot_product_attention`` (library, kernel, kernel, library) both
@@ -21,14 +24,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (device time alone);
   4. serving path: a seeded random-weight ``Colorizer`` answers 3
      ``colorize_batch`` requests of 8 images at 256x256 and one ``colorize``
-     with hints; launches per forward: pool_stats 1, affinity_head 1,
-     upfeat 1, attention 12; the card's forward is held against the same
+     with hints; launches per forward: pool_stats 1, shift_add 1,
+     affinity_head 1, upfeat 1, attention 12; the card's forward is held against the same
      model's plain path on the CPU;
   5. training path: a seeded random-weight trainer at the recipe's
      configuration (6+6 layers, 8 clusters, dropout 0.1, Adam 2e-4 poly)
      takes 10 steps at batch 24 on 240 synthetic 256x256 images held on the
      card, then one eval step; launches per step: affinity_head 1,
-     pool_stats 2, upfeat 2, attention 12, attention_bwd 12; then 5 steps
+     pool_stats 2, upfeat 2, shift_add 2, attention 12, attention_bwd 12; then 5 steps
      with TF32 on. One step at batch 2, 32x32, dropout 0, pinned anchors is
      held against the same step on the CPU;
   6. label path: ``encode_ab2ind`` soft-encodes training colors (kernel E).
@@ -63,6 +66,11 @@ TOLERANCES = {
     "affinity_head": 1e-5,
     # 9 f32 multiply-adds per output
     "upfeat": 1e-5,
+    # the 9 terms are added in the plain version's order, so the sums must be
+    # equal bit for bit (checked apart); the pooled features are then one
+    # correctly rounded f32 division on each side: 1e-6 allows for a last-bit
+    # difference in a quotient of size about 1
+    "shift_add": 1e-6,
     # online softmax over 256 keys vs the two-pass softmax, with and without
     # a dropout keep-mask
     "attention": 1e-5,
@@ -105,25 +113,30 @@ def time_ms(fn, device, warmup: int = 3, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, tries: int = 3):
     """Mean milliseconds of device time per call, in all and by kernel: the
     durations of every kernel that ``fn`` launches, summed by
-    ``torch.profiler`` over ``iters`` calls. (None, {}) where the profiler
-    shows no device time."""
+    ``torch.profiler`` over ``iters`` calls. A trace in which some kernel does
+    not appear a multiple of ``iters`` times has lost events and is taken
+    again. (None, {}) where the profiler shows no device time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for evt in prof.key_averages():
-        us = float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
-        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            own = re.search(r"\w*kernel\w*(<[^>]*>)?", evt.key)  # the hand-written kernels are named *_kernel*
-            name = own.group(0) if own else evt.key[:48]
-            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / iters
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, whole = {}, True
+        for evt in prof.key_averages():
+            us = float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
+            if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                own = re.search(r"\w*kernel\w*(<[^>]*>)?", evt.key)  # the hand-written kernels are named *_kernel*
+                name = own.group(0) if own else evt.key[:48]
+                by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / iters
+                whole &= evt.count % iters == 0
+        if whole:
+            break
     return (sum(by_kernel.values()), by_kernel) if by_kernel else (None, {})
 
 
@@ -147,6 +160,21 @@ def stats_err(stats, ref) -> float:
                float(((stats[..., 1] - ref[..., 1]).abs() / ref[..., 1]).max()))
 
 
+def kernel_label(symbol: str) -> str:
+    """``name<template arguments>`` of a mangled kernel symbol: the last
+    length-prefixed identifier that holds "kernel" (the length may follow
+    other digits directly), and the integer and bool arguments after it."""
+    label = symbol[:60]
+    for m in re.finditer(r"\d+", symbol):
+        for k in range(len(m.group(0))):
+            name = symbol[m.end(): m.end() + int(m.group(0)[k:])]
+            if len(name) == int(m.group(0)[k:]) and "kernel" in name and re.fullmatch(r"[A-Za-z_]\w*", name):
+                args = re.match(r"I((?:L[ib]\d+E)+)E", symbol[m.end() + len(name):])
+                label = f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1))) if args else ''}>"
+                break
+    return label
+
+
 def report_ptxas(build_log: dict, t: int = 256) -> None:
     """Registers, static shared memory and spills of every kernel instance, as
     ``nvcc -Xptxas -v`` printed them, and the dynamic shared memory the
@@ -163,7 +191,7 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
             regs = int(re.search(r"Used (\d+) registers", blk).group(1))
             spills = [int(x) for x in re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", blk).groups()]
             static = re.search(r"(\d+) bytes smem", blk)
-            label, dynamic = sym[:60], ""
+            label, dynamic = kernel_label(sym), ""
             if inst:
                 hd, keep = int(inst.group(2)), inst.group(3) == "1"
                 label = f"{inst.group(1)}<hd={hd}, keep-mask={keep}>"
@@ -192,6 +220,41 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def superpixel_variants(device, g, sp_size: int, n: int = 2, h: int = 64, w: int = 96) -> float:
+    """Kernels A and C beside the paths' calls: every channel-vector width
+    (C = 64, 66, 5), kernel A with a scale and without mass (what unpooling's
+    backward asks for), kernel C with a per-token factor (pooling's backward),
+    each twice for bitwise equality. Returns the largest error, relative to
+    the reference's largest entry where the sums are unscaled."""
+    from disentangledcolorization_tpu_torch.ops import superpixel
+
+    hc, wc, worst = h // sp_size, w // sp_size, 0.0
+    for c in (64, 66, 5):
+        feat, tokens = torch.randn(n, h, w, c, generator=g).to(device), torch.randn(n, hc, wc, c, generator=g).to(device)
+        prob = torch.softmax(torch.randn(n, h, w, 9, generator=g), dim=-1).to(device)
+        factor = (torch.rand(n, hc, wc, generator=g) + 0.5).to(device)
+        runs = [
+            (lambda: superpixel.pool_stats(feat, prob, sp_size, sp_size),
+             lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size)),
+            (lambda: superpixel.pool_stats(feat, prob, sp_size, sp_size, with_hard=False, with_mass=False, scale=1.0),
+             lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size, with_hard=False, with_mass=False, scale=1.0)),
+            (lambda: (superpixel._upfeat(tokens, prob, sp_size, sp_size, factor),),
+             lambda: (superpixel.upfeat_plain(tokens, prob, sp_size, sp_size, factor),)),
+            (lambda: (superpixel._upfeat(tokens, prob, sp_size, sp_size),),
+             lambda: (superpixel.upfeat_plain(tokens, prob, sp_size, sp_size),)),
+        ]
+        for kernel, plain in runs:
+            out, ref = kernel(), plain()
+            if not all(torch.equal(a, b) for a, b in zip(out, kernel()) if a is not None):
+                raise AssertionError(f"superpixel kernels, C={c}: two runs on the same inputs are not bitwise equal")
+            if [x is None for x in out] != [x is None for x in ref]:
+                raise AssertionError(f"superpixel kernels, C={c}: outputs and plain outputs differ in which are None")
+            worst = max(worst, max_err(out, ref) / max(1.0, float(ref[0].abs().max())))
+    log(f"kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, twice each: "
+        f"bitwise equal, max|d| (relative where sums are unscaled) {worst:.3e}")
+    return worst
+
+
 def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int = 16, d: int = 64, t: int = 256, nhead: int = 8):
     """Phase 3: each kernel against its plain version on the same inputs."""
     from disentangledcolorization_tpu_torch.ops import affinity, attention, superpixel
@@ -214,6 +277,9 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     err = max_err(out, ref)
     if float((out[2] - ref[2]).abs().max()) != 0.0:
         raise AssertionError("pool_stats: winner-take-all counts differ from the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(out, superpixel.pool_stats(feat, prob, sp_size, sp_size))):
+        raise AssertionError("pool_stats: two runs on the same inputs are not bitwise equal")
+    err = max(err, superpixel_variants(device, g, sp_size))
     b_ms, b_by = bound(nbytes(feat, prob, *out), 2.0 * n * h * w * 9 * (d + 2))
     rows.append(dict(
         name="pool_stats", source="disentangledcolorization_tpu_torch/csrc/pool_stats.cu",
@@ -224,6 +290,39 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
         plain_ms=time_ms(lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size), device),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+
+    # F: the 9-direction shift-add of kernel A's outputs, both uses: pooled
+    # features, mass and sizes (pooling's forward), and the bare sum at the
+    # training batch (unpooling's backward)
+    t_in, mass_in, hard_in = ref
+    out = superpixel.shift_add(t_in, mass_in, hard_in)
+    ref_f = superpixel.shift_add_plain(t_in, mass_in, hard_in)
+    t24 = rand(24, hc, wc, 9, d)
+    bare = superpixel.shift_add(t24)[0]
+    if not (torch.equal(out[1], ref_f[1]) and torch.equal(out[2], ref_f[2]) and torch.equal(bare, superpixel._shift_add(t24))):
+        raise AssertionError("shift_add: the sums differ from the plain version's, which adds in the same order")
+    again = superpixel.shift_add(t_in, mass_in, hard_in)
+    if not (all(torch.equal(a, b) for a, b in zip(out, again)) and torch.equal(bare, superpixel.shift_add(t24)[0])):
+        raise AssertionError("shift_add: two runs on the same inputs are not bitwise equal")
+    log(f"shift_add: sums bitwise equal to the plain version's; pooled features bitwise equal: {torch.equal(out[0], ref_f[0])}; "
+        f"bare sum at batch 24, C={d}: ms={time_ms(lambda: superpixel.shift_add(t24), device):.4f} "
+        f"plain_ms={time_ms(lambda: superpixel._shift_add(t24), device):.4f} "
+        f"bound_ms={bound(nbytes(t24, bare), 9.0 * bare.numel())[0]:.4f}")
+    b_ms, b_by = bound(nbytes(t_in, mass_in, hard_in, *out), 9.0 * out[0].numel())
+    rows.append(dict(
+        name="shift_add", source="disentangledcolorization_tpu_torch/csrc/shift_add.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:187 (_shift_add after pool_stats, called at :206-208: XLA ops, no Pallas kernel)",
+        max_abs_err=max_err(out[0], ref_f[0]) / float(ref_f[0].abs().max()),
+        ms=time_ms(lambda: superpixel.shift_add(t_in, mass_in, hard_in), device),
+        plain_ms=time_ms(lambda: superpixel.shift_add_plain(t_in, mass_in, hard_in), device),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    pool_fwd = lambda: superpixel.pool_and_sizes(feat, prob, sp_size, sp_size)  # noqa: E731
+    with torch.no_grad():
+        dev_ms, by_kernel = device_ms(pool_fwd)
+        log(f"pool_and_sizes (kernels A and F), batch {n}, C={d + 2}: ms={time_ms(pool_fwd, device):.4f} "
+            f"device {dev_ms:.4f}: {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}")
+    del t24, bare, t_in, mass_in, hard_in
 
     # B: affinity head, 16 -> 9
     x = rand(n, h, w, 16)
@@ -247,6 +346,8 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     tokens = rand(n, hc, wc, d)
     out = superpixel.upfeat(tokens, prob, sp_size, sp_size)
     ref = superpixel.upfeat_plain(tokens, prob, sp_size, sp_size)
+    if not torch.equal(out, superpixel.upfeat(tokens, prob, sp_size, sp_size)):
+        raise AssertionError("upfeat: two runs on the same inputs are not bitwise equal")
     b_ms, b_by = bound(nbytes(tokens, prob, out), 2.0 * n * h * w * 9 * d)
     rows.append(dict(
         name="upfeat", source="disentangledcolorization_tpu_torch/csrc/upfeat.cu",
@@ -372,16 +473,19 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
     # K5: kernel A without the winner-take-all counts (the unpooling backward's kernel), alone
     feat64 = rand(n, h, w, d)
     prob5 = torch.softmax(rand(n, h, w, 9), dim=-1).contiguous()
-    k5_out = superpixel.pool_stats(feat64, prob5, sp_size, sp_size, with_hard=False)
-    k5_err = max_err(k5_out[:2], superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, with_hard=False)[:2])
-    k5_b, k5_by = bound(nbytes(feat64, prob5, *k5_out[:2]), 2.0 * n * h * w * 9 * d)
-    k5_ms = time_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, with_hard=False), device)
-    k5_plain = time_ms(lambda: superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, with_hard=False), device)
-    log(f"pool_stats with_hard=False (K5) alone, batch {n}, C={d}: max|d|={k5_err:.3e} (tol {TOLERANCES['pool_stats']:.0e}) "
-        f"ms={k5_ms:.4f} plain_ms={k5_plain:.4f} bound_ms={k5_b:.4f} ({k5_by}) library_ms=None")
+    k5 = dict(with_hard=False, with_mass=False, scale=1.0)  # what unpooling's backward asks for
+    k5_out = superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5)
+    k5_ref = superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, **k5)
+    k5_err = max_err(k5_out, k5_ref) / float(k5_ref[0].abs().max())  # unscaled sums of 256 products: relative
+    k5_b, k5_by = bound(nbytes(feat64, prob5, k5_out[0]), 2.0 * n * h * w * 9 * d)
+    k5_ms = time_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5), device)
+    k5_dev = device_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5))[0]
+    k5_plain = time_ms(lambda: superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, **k5), device)
+    log(f"pool_stats without mass and hard, scale 1 (K5) alone, batch {n}, C={d}: max|d|/max|ref|={k5_err:.3e} (tol {TOLERANCES['pool_stats']:.0e}) "
+        f"ms={k5_ms:.4f} device {k5_dev:.4f} plain_ms={k5_plain:.4f} bound_ms={k5_b:.4f} ({k5_by}) library_ms=None")
     if not k5_err <= TOLERANCES["pool_stats"]:
-        raise AssertionError(f"pool_stats with_hard=False: max|d| {k5_err} above {TOLERANCES['pool_stats']}")
-    extras["pool_stats_without_hard"] = dict(ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by)
+        raise AssertionError(f"pool_stats without mass and hard: max|d| {k5_err} above {TOLERANCES['pool_stats']}")
+    extras["pool_stats_without_mass_and_hard"] = dict(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by)
     del feat64, prob5, k5_out
 
     # E: soft labels at the token grid of a training batch and at full resolution
@@ -407,38 +511,45 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
 
-    # the autograd functions' backward passes at the training shapes
+    # the autograd functions' backward passes at the training shapes: the
+    # backward alone (its graph kept), and with its forward as a step runs it
     feat = rand(n, h, w, d + 2)
     prob = torch.softmax(rand(n, h, w, 9), dim=-1).contiguous()
     hc, wc = h // sp_size, w // sp_size
     g_pool, g_up, tokens = rand(n, hc, wc, d + 2), rand(n, h, w, d), rand(n, hc, wc, d)
 
-    def pool_grad(fn):
-        f = feat.detach().requires_grad_()
-        return torch.autograd.grad(fn(f), f, g_pool)[0]
-
-    def pool_plain(f):
-        tt, mass, _ = superpixel.pool_stats_plain(f, prob, sp_size, sp_size, with_hard=False)
-        return superpixel._shift_add(tt) / (superpixel._shift_add(mass)[..., None] + 1e-8)
-
-    def up_grad(fn):
-        x = tokens.detach().requires_grad_()
-        return torch.autograd.grad(fn(x, prob, sp_size, sp_size), x, g_up)[0]
+    def pool_plain(f, affinity, sp_h, sp_w):
+        tt, mass, _ = superpixel.pool_stats_plain(f, affinity, sp_h, sp_w, with_hard=False)
+        return superpixel.shift_add_plain(tt, mass)[0]
 
     checks = [
-        ("pooling backward (kernel C)", lambda: pool_grad(lambda f: superpixel.poolfeat(f, prob, sp_size, sp_size)),
-         lambda: pool_grad(pool_plain), nbytes(g_pool, prob, feat), n * h * w * 9 * (d + 2) * 2.0),
-        ("unpooling backward (kernel A)", lambda: up_grad(superpixel.upfeat), lambda: up_grad(superpixel.upfeat_plain),
+        ("pooling backward", "kernel C with a per-token factor", superpixel.poolfeat, pool_plain, feat, g_pool,
+         nbytes(g_pool, prob, feat), n * h * w * 9 * (d + 2) * 2.0),
+        ("unpooling backward", "kernels A and F", superpixel.upfeat, superpixel.upfeat_plain, tokens, g_up,
          nbytes(g_up, prob, tokens), n * h * w * 9 * d * 2.0),
     ]
-    for label, fn, plain, moved, flops in checks:
-        ref = plain()
-        err = max_err(fn(), ref) / float(ref.abs().max())
+    for label, what, fn, plain, x, cotangent, moved, flops in checks:
+        def both(f, x=x, cotangent=cotangent):  # forward and backward
+            xg = x.detach().requires_grad_()
+            return torch.autograd.grad(f(xg, prob, sp_size, sp_size), xg, cotangent)[0]
+
+        xg = x.detach().requires_grad_()
+        out = fn(xg, prob, sp_size, sp_size)
+        alone = lambda xg=xg, out=out, cotangent=cotangent: torch.autograd.grad(out, xg, cotangent, retain_graph=True)[0]  # noqa: E731
+        ref = both(plain)
+        err = max(max_err(alone(), ref), max_err(both(fn), ref)) / float(ref.abs().max())
         b_ms, b_by = bound(moved, flops)
-        log(f"{label}: max|d|/max|ref|={err:.3e} (tol {FUNCTION_TOL:.0e}) ms={time_ms(fn, device):.4f} "
-            f"plain_ms={time_ms(plain, device):.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
+        dev_ms, by_kernel = device_ms(alone)
+        res = dict(ms=time_ms(alone, device), device_ms=dev_ms, kernels=by_kernel, with_forward_ms=time_ms(lambda: both(fn), device),
+                   plain_with_forward_ms=time_ms(lambda: both(plain), device), bound_ms=b_ms, bound_by=b_by)
+        extras[label.replace(" ", "_")] = res
+        log(f"{label} ({what}), batch {n}: max|d|/max|ref|={err:.3e} (tol {FUNCTION_TOL:.0e}) ms={res['ms']:.4f} "
+            f"device {dev_ms:.4f}, kernels launched: {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}; "
+            f"bound_ms={b_ms:.4f} ({b_by}); with its forward ms={res['with_forward_ms']:.4f} "
+            f"plain_ms={res['plain_with_forward_ms']:.4f} library_ms=None")
         if not err <= FUNCTION_TOL:
             raise AssertionError(f"{label}: max|d| {err} above {FUNCTION_TOL}")
+        del xg, out, alone
 
     for r in rows:
         r["route"] = "cuda"
@@ -517,7 +628,7 @@ def card_vs_cpu(col, size: int = 256, atol: float = 1e-3):
     return errs
 
 
-TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "attention": 12, "attention_bwd": 12}
+TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "shift_add": 2, "attention": 12, "attention_bwd": 12}
 
 
 def drive_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 24, size: int = 256, n_images: int = 240):
@@ -746,7 +857,7 @@ def main() -> int:
 
     # 4. serving path
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
-    per_forward = {"pool_stats": 1, "affinity_head": 1, "upfeat": 1, "attention": 12}
+    per_forward = {"pool_stats": 1, "shift_add": 1, "affinity_head": 1, "upfeat": 1, "attention": 12}
     log(f"main path: launch counts {json.dumps(counts)} over {forwards} forwards")
     for k, per in per_forward.items():
         if counts[k] != per * forwards:

@@ -1,75 +1,132 @@
 // Kernel C: soft unpooling of superpixel tokens back to pixels.
 //
 // Replaces disentangledcolorization_tpu/ops/pallas_superpixel.py::upfeat (_up_kernel).
-//   out[n,y,x,c] = sum_d prob[n,y,x,d] * tokens[n, i+dy_d, j+dx_d, c]
+//   out[n,y,x,c] = sum_d prob[n,y,x,d] * s[n,i+dy_d,j+dx_d] * tokens[n,i+dy_d,j+dx_d,c]
 // with (i, j) = (y / up_h, x / up_w), d = 0..8 the row-major offsets (-1,-1)..(1,1),
-// and tokens zero outside the hc x wc grid. f32 throughout.
+// tokens zero outside the hc x wc grid, and s an optional per-token factor
+// (tok_scale; 1 where the pointer is null). Pooling's backward passes
+// 1 / ((mass + 1e-8) * up_h * up_w) there, so no pass over the pixels follows
+// the kernel. f32 throughout; the 9 terms are added in the order of d.
 //
 // Bound: bytes. It reads prob once and writes C floats per pixel (about
-// 19.1 MB per 256x256 image at C=64); the token grid is tiny. Design: one
-// block per output row (n, y) stages the three token rows it needs (zero-padded
-// to wc+2 columns) and the row's 9 affinities per pixel in shared memory; then
-// thread e writes out[n,y,x,c] for e = x*C + c, so consecutive threads write
-// consecutive addresses and read shared memory without bank conflicts.
+// 19.1 MB per 256x256 image at C=64); the token grid is tiny and stays in L2.
+// Design: one block per cell. A thread owns one vector of channels (16 bytes
+// where C % 4 == 0, 8 where C % 2 == 0, else 4; narrower where a pointer is
+// not aligned to the vector) and holds the cell's 9 neighbour token vectors,
+// already scaled, in registers for all its pixels: an output vector costs the
+// pixel's 9 affinities (one address per pixel, broadcast to the threads that
+// share it) and 9 x width multiply-adds. Threads run over (pixel, vector) with
+// the vector fastest, so a warp stores one contiguous run (512 bytes at C=64:
+// two pixels). The output exceeds L2 at every batch size of the paths and is
+// not read again by this kernel: streaming stores (st.global.cs).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void upfeat_kernel(const float* __restrict__ tok, const float* __restrict__ prob,
-                              float* __restrict__ out, int H, int W, int C, int up_h, int up_w,
-                              int hc, int wc) {
-  extern __shared__ float sm[];
-  const int tw = wc + 2;
-  float* stok = sm;                // 3 * (wc + 2) * C
-  float* sprob = sm + 3 * tw * C;  // W * 9
+constexpr int kThreads = 256;  // threads a block, at most
 
-  const int y = blockIdx.x % H;
-  const long n = blockIdx.x / H;
-  const int i = y / up_h;
-  for (int e = threadIdx.x; e < 3 * tw * C; e += blockDim.x) {
-    const int r = e / (tw * C);
-    const int rem = e - r * tw * C;
-    const int jj = rem / C;
-    const int c = rem - jj * C;
-    const int ti = i + r - 1, tj = jj - 1;
-    stok[e] = (ti >= 0 && ti < hc && tj >= 0 && tj < wc) ? tok[((n * hc + ti) * wc + tj) * C + c]
-                                                         : 0.f;
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
+  } else if constexpr (VEC == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    r[0] = x.x, r[1] = x.y;
+  } else {
+    r[0] = __ldg(p);
   }
-  const float* prow = prob + (n * H + y) * (long)W * 9;
-  for (int e = threadIdx.x; e < W * 9; e += blockDim.x) sprob[e] = prow[e];
-  __syncthreads();
+}
 
-  float* orow = out + (n * H + y) * (long)W * C;
-  for (int e = threadIdx.x; e < W * C; e += blockDim.x) {
-    const int x = e / C;
-    const int c = e - x * C;
-    const int j = x / up_w;
-    const float* pp = sprob + x * 9;
-    float acc = 0.f;
+template <int VEC>
+__device__ __forceinline__ void store_vec_streaming(float* __restrict__ p, const float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(r[0], r[1]));
+  } else {
+    __stcs(p, r[0]);
+  }
+}
+
+// blockDim.x threads share a pixel and split its channel vectors; blockDim.y
+// pixels of the cell (row-major) are in flight at once.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+upfeat_kernel(const float* __restrict__ tok, const float* __restrict__ tok_scale,
+              const float* __restrict__ prob, float* __restrict__ out, int hc, int wc, int C,
+              int up_h, int up_w) {
+  const int cell = blockIdx.x;
+  const int j = cell % wc;
+  const int i = (cell / wc) % hc;
+  const long long n = cell / (wc * hc);
+  const int W = wc * up_w;
+  const long long pix0 = ((n * hc + i) * up_h) * W + (long long)j * up_w;  // the cell's first pixel
+  const int step_y = blockDim.y / up_w, step_x = blockDim.y % up_w;
+
+  for (int c = threadIdx.x * VEC; c < C; c += blockDim.x * VEC) {
+    float tk[9][VEC];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
+    for (int d = 0; d < 9; ++d) {
+      const int ti = i + d / 3 - 1, tj = j + d % 3 - 1;
+      if (ti >= 0 && ti < hc && tj >= 0 && tj < wc) {
+        const long long at = (n * hc + ti) * wc + tj;
+        load_vec<VEC>(tok + at * C + c, tk[d]);
+        if (tok_scale != nullptr) {
+          const float s = __ldg(tok_scale + at);
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        acc = fmaf(pp[dy * 3 + dx], stok[(dy * tw + j + dx) * C + c], acc);
+          for (int e = 0; e < VEC; ++e) tk[d][e] *= s;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) tk[d][e] = 0.f;
       }
     }
-    orow[e] = acc;
+    int py = threadIdx.y / up_w, px = threadIdx.y % up_w;
+    while (py < up_h) {
+      const long long pix = pix0 + (long long)py * W + px;
+      const float* pp = prob + pix * 9;
+      float p[9];
+#pragma unroll
+      for (int d = 0; d < 9; ++d) p[d] = __ldg(pp + d);
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = p[0] * tk[0][e];
+#pragma unroll
+      for (int d = 1; d < 9; ++d) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p[d], tk[d][e], acc[e]);
+      }
+      store_vec_streaming<VEC>(out + pix * C + c, acc);
+      px += step_x, py += step_y;
+      if (px >= up_w) px -= up_w, ++py;
+    }
   }
+}
+
+template <int VEC>
+int launch(const float* tok, const float* tok_scale, const float* prob, float* out, int n, int hc,
+           int wc, int c, int up_h, int up_w, cudaStream_t stream) {
+  const int cv = c / VEC;
+  const int bx = cv < kThreads ? cv : kThreads;
+  int by = kThreads / bx;
+  if (by > up_h * up_w) by = up_h * up_w;
+  upfeat_kernel<VEC><<<n * hc * wc, dim3(bx, by), 0, stream>>>(tok, tok_scale, prob, out, hc, wc, c,
+                                                               up_h, up_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int disco_upfeat(const float* tok, const float* prob, float* out, int n, int hc, int wc,
-                            int c, int up_h, int up_w, void* stream) {
-  const int h = hc * up_h, w = wc * up_w;
-  if ((long)n * h == 0) return 0;
-  const size_t smem = sizeof(float) * (3 * (size_t)(wc + 2) * c + (size_t)w * 9);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(upfeat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  upfeat_kernel<<<n * h, 256, smem, (cudaStream_t)stream>>>(tok, prob, out, h, w, c, up_h, up_w, hc,
-                                                            wc);
-  return (int)cudaGetLastError();
+// tok (n,hc,wc,c), tok_scale (n,hc,wc) or null, prob (n,hc*up_h,wc*up_w,9),
+// out (n,hc*up_h,wc*up_w,c); all f32 and contiguous.
+extern "C" int disco_upfeat(const float* tok, const float* tok_scale, const float* prob, float* out,
+                            int n, int hc, int wc, int c, int up_h, int up_w, void* stream) {
+  if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
+  const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;  // the vector loads and stores
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c % 4 == 0 && bits % 16 == 0) return launch<4>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+  if (c % 2 == 0 && bits % 8 == 0) return launch<2>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+  return launch<1>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
 }

@@ -41,9 +41,10 @@ _F = ctypes.c_float
 # kernel name -> (source file, C entry point, argtypes); every entry point
 # returns cudaGetLastError() as an int and takes the stream last
 KERNELS = {
-    "pool_stats": ("pool_stats.cu", "disco_pool_stats", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pool_stats": ("pool_stats.cu", "disco_pool_stats", [*[_P] * 5, *[_I] * 6, _F, _P]),
     "affinity_head": ("affinity_head.cu", "disco_affinity_head", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "upfeat": ("upfeat.cu", "disco_upfeat", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "upfeat": ("upfeat.cu", "disco_upfeat", [*[_P] * 4, *[_I] * 6, _P]),
+    "shift_add": ("shift_add.cu", "disco_shift_add", [*[_P] * 6, *[_I] * 4, _P]),
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
@@ -114,7 +115,8 @@ def build(names=None) -> dict[str, float]:
 def launch(name: str, *args) -> None:
     """Run kernel ``name`` on the current CUDA stream; count it; raise on error.
 
-    Tensor arguments are passed as device pointers, ints as C ints. The
+    Tensor arguments are passed as device pointers (None as a null pointer),
+    ints as C ints, floats as C floats. The
     launch is asynchronous; a temporary the caller drops right after it stays
     safe, because the caching allocator reuses memory in stream order on the
     same stream.

@@ -5,8 +5,9 @@ the CPU suite holds the plain versions against the JAX package). On a card:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
-Shapes here are small and ragged (odd widths, sp=8, rectangular grids,
-head widths 8..64, odd pixel counts for kernel E, ties between bins);
+Shapes here are small and ragged (every channel-vector width, sp=8 and a
+6x10 cell, rectangular grids, views at odd offsets, head widths 8..64, odd
+pixel counts for kernel E, ties between bins);
 ``chip_smoke.py`` covers the paths' shapes. Tolerances as there: 1e-5
 absolute (1e-6 for kernel E; the autograd functions' gradients 1e-5 of their
 largest entry).
@@ -34,21 +35,85 @@ def _rand(dev, *shape, seed=0):
     return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev)
 
 
-@pytest.mark.parametrize("n,h,w,c,s", [(2, 64, 64, 66, 16), (1, 32, 48, 5, 8), (1, 48, 32, 130, 16)])
-def test_pool_stats_kernel(cuda, n, h, w, c, s):
+# (n, hc, wc, c, sp_h, sp_w): every vector width (C % 4, C % 2, odd C), cells 8
+# and 16, a 6x10 cell whose rows are not 16-byte multiples, non-square grids
+SUPERPIXEL_CASES = [(2, 4, 4, 66, 16, 16), (1, 4, 6, 5, 8, 8), (1, 3, 2, 130, 16, 16), (1, 2, 3, 64, 16, 16),
+                    (1, 3, 5, 1, 8, 8), (2, 1, 2, 2, 16, 16), (1, 2, 2, 3, 8, 8), (1, 2, 3, 5, 6, 10),
+                    (1, 1, 1, 64, 8, 8), (3, 5, 3, 66, 8, 8)]
+
+
+def _tied_prob(dev, n, h, w):
+    """Affinities with two-way and nine-way ties in the 9-way max."""
+    logits = _rand(dev, n, h, w, 9, seed=1)
+    logits[..., 5] = logits[..., 2]
+    logits[:, ::3, ::2] = 0.5
+    return torch.softmax(logits, -1).contiguous()
+
+
+def _odd_view(x, offset):
+    """A contiguous view of x's values ``offset`` floats into a fresh buffer:
+    4-byte aligned only for offset 1, 8-byte for offset 2."""
+    buf = torch.empty(x.numel() + offset, device=x.device, dtype=x.dtype)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
+
+
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES)
+def test_pool_stats_kernel(cuda, n, hc, wc, c, sh, sw):
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
-    feat = _rand(cuda, n, h, w, c)
-    logits = _rand(cuda, n, h, w, 9, seed=1)
-    logits[..., 5] = logits[..., 2]
-    prob = torch.softmax(logits, -1).contiguous()
-    out = sp.pool_stats(feat, prob, s, s)
-    ref = sp.pool_stats_plain(feat, prob, s, s)
+    h, w = hc * sh, wc * sw
+    feat, prob = _rand(cuda, n, h, w, c), _tied_prob(cuda, n, h, w)
+    out = sp.pool_stats(feat, prob, sh, sw)
+    ref = sp.pool_stats_plain(feat, prob, sh, sw)
     for a, b in zip(out[:2], ref[:2]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
-    assert torch.equal(out[2], ref[2])
-    t, mass, hard = sp.pool_stats(feat, prob, s, s, with_hard=False)
-    assert hard is None and torch.equal(t, out[0])
+    assert torch.equal(out[2], ref[2])  # exact winner counts, ties included
+    assert float(ref[2].sum(-1).max()) > 1.0  # ties really occurred: some pixel has several winners
+    again = sp.pool_stats(feat, prob, sh, sw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # the same bits twice
+    t, mass, hard = sp.pool_stats(feat, prob, sh, sw, with_hard=False)
+    assert hard is None and torch.equal(t, out[0]) and torch.equal(mass, out[1])
+
+
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES)
+def test_pool_stats_kernel_scale_and_no_mass(cuda, n, hc, wc, c, sh, sw):
+    """What unpooling's backward asks for: unscaled sums, t alone. The sums of
+    sh*sw products reach tens in size: 1e-5 of the largest entry."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    h, w = hc * sh, wc * sw
+    feat, prob = _rand(cuda, n, h, w, c), _tied_prob(cuda, n, h, w)
+    t, mass, hard = sp.pool_stats(feat, prob, sh, sw, with_hard=False, with_mass=False, scale=1.0)
+    ref = sp.pool_stats_plain(feat, prob, sh, sw, with_hard=False, with_mass=False, scale=1.0)[0]
+    assert mass is None and hard is None
+    torch.testing.assert_close(t, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+    t3, m3, h3 = sp.pool_stats(feat, prob, sh, sw, scale=3.0)
+    r3 = sp.pool_stats_plain(feat, prob, sh, sw, scale=3.0)
+    torch.testing.assert_close(t3, r3[0], atol=1e-5 * float(r3[0].abs().max()), rtol=0)
+    torch.testing.assert_close(m3, r3[1], atol=1e-5 * float(r3[1].abs().max()), rtol=0)
+    assert torch.equal(h3, r3[2])
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("c", [64, 66, 5])
+def test_superpixel_kernels_take_views_at_odd_offsets(cuda, offset, c):
+    """Contiguous views whose storage offset breaks the 16-byte (offset 2) or
+    the 8-byte (offset 1) alignment of the vector paths: the entry points pick
+    a narrower width from the pointers."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n, hc, wc, s = 2, 2, 3, 16
+    prob = _tied_prob(cuda, n, hc * s, wc * s)
+    feat, tok = _odd_view(_rand(cuda, n, hc * s, wc * s, c), offset), _odd_view(_rand(cuda, n, hc, wc, c, seed=2), offset)
+    scale = _odd_view(_rand(cuda, n, hc, wc, seed=3).abs() + 0.5, offset)
+    assert feat.is_contiguous() and feat.data_ptr() % 16 != 0
+    for a, b in zip(sp.pool_stats(feat, prob, s, s), sp.pool_stats_plain(feat, prob, s, s)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(sp._upfeat(tok, prob, s, s, scale), sp.upfeat_plain(tok, prob, s, s, scale), atol=1e-5, rtol=0)
+    t, mass, hard = (_odd_view(x, offset) for x in sp.pool_stats_plain(feat, prob, s, s))
+    for a, b in zip(sp.shift_add(t, mass, hard), sp.shift_add_plain(t, mass, hard)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("n,h,w,c", [(2, 17, 33, 16), (1, 64, 64, 16), (1, 8, 8, 3)])
@@ -60,13 +125,61 @@ def test_affinity_head_kernel(cuda, n, h, w, c):
     torch.testing.assert_close(affinity.affinity_head(x, k, b), affinity.affinity_head_plain(x, k, b), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("n,hc,wc,c,s", [(2, 4, 4, 64, 16), (1, 3, 5, 7, 8)])
-def test_upfeat_kernel(cuda, n, hc, wc, c, s):
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES + [(2, 4, 4, 64, 16, 16), (1, 3, 5, 7, 8, 8)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_upfeat_kernel(cuda, n, hc, wc, c, sh, sw, scaled):
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
     tok = _rand(cuda, n, hc, wc, c)
-    prob = torch.softmax(_rand(cuda, n, hc * s, wc * s, 9, seed=1), -1).contiguous()
-    torch.testing.assert_close(sp.upfeat(tok, prob, s, s), sp.upfeat_plain(tok, prob, s, s), atol=1e-5, rtol=0)
+    prob = torch.softmax(_rand(cuda, n, hc * sh, wc * sw, 9, seed=1), -1).contiguous()
+    tok_scale = (_rand(cuda, n, hc, wc, seed=2).abs() + 0.5) if scaled else None
+    out = sp._upfeat(tok, prob, sh, sw, tok_scale)
+    torch.testing.assert_close(out, sp.upfeat_plain(tok, prob, sh, sw, tok_scale), atol=1e-5, rtol=0)
+    assert torch.equal(out, sp._upfeat(tok, prob, sh, sw, tok_scale))  # the same bits twice
+    if not scaled:
+        assert torch.equal(out, sp.upfeat(tok, prob, sh, sw)) and torch.equal(out, sp.upfeat_fused(tok, prob, sh, sw))
+
+
+@pytest.mark.parametrize("n,hc,wc,c", [(1, 1, 1, 3), (2, 1, 5, 66), (1, 3, 5, 7), (2, 16, 16, 64), (1, 16, 16, 66), (1, 5, 1, 300)])
+def test_shift_add_kernel(cuda, n, hc, wc, c):
+    """Kernel F adds its 9 terms in the plain version's order: the sums are
+    equal bit for bit; the division by mass + 1e-8 is held to 1e-6 relative to
+    the largest entry (one correctly rounded f32 division each side)."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    t = _rand(cuda, n, hc, wc, 9, c)
+    mass = _rand(cuda, n, hc, wc, 9, seed=1).abs() + 0.01
+    hard = torch.round(_rand(cuda, n, hc, wc, 9, seed=2).abs() * 8) / 16
+    out, mass_sum, sizes = sp.shift_add(t, mass, hard)
+    ref, ref_mass, ref_sizes = sp.shift_add_plain(t, mass, hard)
+    assert out.shape == (n, hc, wc, c) and mass_sum.shape == sizes.shape == (n, hc, wc, 1)
+    assert torch.equal(mass_sum, ref_mass) and torch.equal(sizes, ref_sizes)
+    torch.testing.assert_close(out, ref, atol=1e-6 * float(ref.abs().max()), rtol=0)
+    no_hard = sp.shift_add(t, mass)
+    assert no_hard[2] is None and torch.equal(no_hard[0], out) and torch.equal(no_hard[1], mass_sum)
+    alone = sp.shift_add(t)
+    assert alone[1] is None and alone[2] is None and torch.equal(alone[0], sp._shift_add(t))
+
+
+def test_superpixel_functions_launch_their_kernels(cuda):
+    """pool_and_sizes is kernels A and F, its backward kernel C alone; upfeat is
+    kernel C, its backward kernels A and F."""
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n, hc, wc, c, s = 2, 3, 4, 66, 16
+    prob = _tied_prob(cuda, n, hc * s, wc * s)
+    feat, tok = _rand(cuda, n, hc * s, wc * s, c).requires_grad_(), _rand(cuda, n, hc, wc, c, seed=2).requires_grad_()
+    ours = ("pool_stats", "upfeat", "shift_add")
+    counts = []
+    for run in (lambda: sp.pool_and_sizes(feat, prob, s, s)[0], lambda: sp.upfeat(tok, prob, s, s)):
+        kernels.reset_launch_counts()
+        out = run()
+        counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
+        kernels.reset_launch_counts()
+        out.sum().backward()
+        counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
+    assert counts == [(1, 0, 1), (0, 1, 0), (0, 1, 0), (1, 0, 1)]
 
 
 @pytest.mark.parametrize("n,t,d,nhead", [(2, 256, 64, 8), (1, 50, 64, 4), (3, 17, 128, 2), (1, 9, 32, 1)])
@@ -249,7 +362,7 @@ def test_superpixel_function_gradients(cuda, s):
 
     def plain_pool(f):
         t, mass, _ = sp.pool_stats_plain(f, prob, s, s, with_hard=False)
-        return sp._shift_add(t) / (sp._shift_add(mass)[..., None] + 1e-8)
+        return sp.shift_add_plain(t, mass)[0]
 
     cases = [
         (lambda f: sp.pool_and_sizes(f, prob, s, s)[0], plain_pool, (n, hc * s, wc * s, c), (n, hc, wc, c)),

@@ -2,7 +2,9 @@
 
 Held against ``ops/superpixel.py`` (XLA) and ``ops/pallas_superpixel.py`` in
 interpret mode, at sp=16 and sp=8, square and rectangular grids, and on an
-input with exact ties in the 9-way max. Tolerance 1e-5 absolute: f32 sums of
+input with exact ties in the 9-way max; the plain versions of what the
+kernels take beside their inputs (a per-token factor, a scale, no mass) and
+of the fused shift-add too. Tolerance 1e-5 absolute: f32 sums of
 at most 256 products taken in another order; winner-take-all sizes are small
 integer counts over a power of two and must agree exactly.
 """
@@ -112,3 +114,53 @@ def test_plain_versions_are_f32_on_jax_default():
     t, mass, hard = tsp.pool_stats_plain(torch.from_numpy(feat), torch.from_numpy(prob), 16, 16)
     assert t.shape == (1, 1, 1, 9, 2) and mass.shape == hard.shape == (1, 1, 1, 9)
     assert t.dtype == mass.dtype == hard.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n,h,w,c,s", CASES)
+def test_upfeat_with_token_scale_matches_jax(n, h, w, c, s):
+    """Kernel C's per-token factor (plain version) is upfeat of the scaled tokens."""
+    rng = np.random.default_rng(7)
+    _, prob = _inputs(7, n, h, w, c)
+    tok = rng.normal(size=(n, h // s, w // s, c)).astype(np.float32)
+    factor = rng.uniform(0.5, 2.0, size=(n, h // s, w // s)).astype(np.float32)
+    ours = tsp._upfeat(torch.from_numpy(tok), torch.from_numpy(prob), s, s, torch.from_numpy(factor))
+    _close([ours], [sp.upfeat(jnp.asarray(tok * factor[..., None]), jnp.asarray(prob), s, s)])
+    _close([ours], [psp.upfeat(jnp.asarray(tok * factor[..., None]), jnp.asarray(prob), s, s)])
+
+
+@pytest.mark.parametrize("n,h,w,c,s", CASES)
+def test_pool_stats_scale_and_no_mass_match_pallas(n, h, w, c, s):
+    """Kernel A's plain version with ``scale`` and without ``mass``: the Pallas
+    sums (each over s*s pixels, divided by s*s) times s*s*scale. The unscaled
+    sums reach tens in size: 1e-5 of the largest entry."""
+    feat, prob = _inputs(8, n, h, w, c, ties=True)
+    rt, rmass, rhard = (np.asarray(x) for x in psp.pool_stats(jnp.asarray(feat), jnp.asarray(prob), s, s))
+    for scale in (1.0, 0.3):
+        t, mass, hard = tsp.pool_stats(torch.from_numpy(feat), torch.from_numpy(prob), s, s, scale=scale)
+        for ours, ref in ((t, rt), (mass, rmass), (hard, rhard)):
+            ref = ref * (s * s * scale)
+            np.testing.assert_allclose(_np(ours), ref, atol=ATOL * np.abs(ref).max(), rtol=0)
+        only_t = tsp.pool_stats(torch.from_numpy(feat), torch.from_numpy(prob), s, s, with_hard=False, with_mass=False, scale=scale)
+        assert only_t[1] is None and only_t[2] is None
+        np.testing.assert_array_equal(_np(only_t[0]), _np(t))
+
+
+@pytest.mark.parametrize("n,h,w,c,s", CASES)
+def test_fused_shift_add_matches_jax(n, h, w, c, s):
+    """Kernel F's plain version on kernel A's: pooled, mass and sizes as the
+    XLA formulation and the Pallas pool_and_sizes give them; and its second
+    use, the bare 9-direction sum, against the JAX package's shifted slices."""
+    feat, prob = _inputs(9, n, h, w, c, ties=True)
+    t, mass, hard = tsp.pool_stats_plain(torch.from_numpy(feat), torch.from_numpy(prob), s, s)
+    ours = tsp.shift_add(t, mass, hard)
+    _close(ours, sp.pool_and_sizes(jnp.asarray(feat), jnp.asarray(prob), s, s, backend="xla"))
+    _close(ours, psp.pool_and_sizes(jnp.asarray(feat), jnp.asarray(prob), s, s))
+    np.testing.assert_array_equal(_np(ours[2]), np.asarray(sp.get_spixel_size(jnp.asarray(prob), s, s)))
+    no_hard = tsp.shift_add(t, mass)
+    assert no_hard[2] is None
+    np.testing.assert_array_equal(_np(no_hard[0]), _np(ours[0]))
+    bare, none_a, none_b = tsp.shift_add(t)
+    assert none_a is None and none_b is None
+    # pooled * (mass + 1e-8) undoes the division
+    np.testing.assert_allclose(_np(bare), _np(ours[0] * (ours[1] + 1e-8)), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(_np(bare), _np(tsp._shift_add(t)))

@@ -8,6 +8,9 @@ package's XLA formulation (``ops/superpixel.py``) and through its Pallas
 functions (``_pool_and_sizes_fused``/``_upfeat_fused``, interpret mode),
 and ``upfeat_fused`` (K6's entry) against ``pallas_superpixel.upfeat_fused``.
 Tolerance 1e-5 absolute: f32 sums of at most 256 products in another order.
+``NON_POW2`` adds a 6x10 cell, where 1 / (sp_h*sp_w) is inexact in f32 and its
+place in the arithmetic (on the tokens before unpooling; nowhere in
+unpooling's backward) shows: the same 1e-5, relative to the largest entry.
 """
 
 import jax
@@ -22,16 +25,18 @@ from disentangledcolorization_tpu_torch.ops import superpixel as tsp
 
 # (n, h, w, c, sp)
 CASES = [(2, 64, 64, 66, 16), (1, 32, 48, 5, 8)]
+# (n, h, w, c, sp_h, sp_w)
+NON_POW2 = [(2, 18, 40, 7, 6, 10), (1, 24, 20, 66, 6, 10)]
 ATOL = 1e-5
 
 
-def _inputs(seed, n, h, w, c, s):
+def _inputs(seed, n, h, w, c, s, sw=None):
     rng = np.random.default_rng(seed)
     feat = rng.normal(size=(n, h, w, c)).astype(np.float32)
     logits = rng.normal(size=(n, h, w, 9)).astype(np.float32)
     e = np.exp(logits - logits.max(-1, keepdims=True))
     prob = (e / e.sum(-1, keepdims=True)).astype(np.float32)
-    g_tok = rng.normal(size=(n, h // s, w // s, c)).astype(np.float32)
+    g_tok = rng.normal(size=(n, h // s, w // (sw or s), c)).astype(np.float32)
     return feat, prob, g_tok
 
 
@@ -81,23 +86,46 @@ def test_upfeat_fused_matches_pallas(n, h, w, c, s):
 
 
 def test_backward_goes_through_the_kernel_wrappers(monkeypatch):
-    """The pooling gradient is an unpooling (kernel C's wrapper), the
-    unpooling gradient a pooling without hard counts (kernel A's wrapper):
-    the composition the card runs, here with the plain versions."""
+    """The pooling gradient is an unpooling with a per-token factor (kernel
+    C's wrapper alone), the unpooling gradient a pooling of unscaled sums
+    without mass or hard counts (kernel A's wrapper) and its shift-add (kernel
+    F's): the composition the card runs, here with the plain versions."""
     feat, prob, tok = _inputs(4, 1, 32, 32, 3, 16)
     calls = []
-    up, pool = tsp._upfeat, tsp.pool_stats
-    monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append("upfeat") or up(*a))
-    monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append(("pool_stats", k.get("with_hard", True))) or pool(*a, **k))
+    up, pool, add = tsp._upfeat, tsp.pool_stats, tsp.shift_add
+    monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append(("upfeat", len(a) == 5 and a[4] is not None)) or up(*a))
+    monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append(
+        ("pool_stats", k.get("with_hard", True), k.get("with_mass", True), k.get("scale"))) or pool(*a, **k))
+    monkeypatch.setattr(tsp, "shift_add", lambda *a: calls.append(("shift_add", len(a))) or add(*a))
     f, t, p = torch.from_numpy(feat).requires_grad_(), torch.from_numpy(tok).requires_grad_(), torch.from_numpy(prob)
     pooled = tsp.pool_and_sizes(f, p, 16, 16)[0]
     out = tsp.upfeat(t, p, 16, 16)
+    assert calls == [("pool_stats", True, True, None), ("shift_add", 3), ("upfeat", False)]
     assert type(pooled.grad_fn).__name__ == "_PoolBackward" and type(out.grad_fn).__name__ == "_UpfeatBackward"
     calls.clear()
     pooled.sum().backward()
     out.sum().backward()
-    assert calls == ["upfeat", ("pool_stats", False)]
+    assert calls == [("upfeat", True), ("pool_stats", False, False, 1.0), ("shift_add", 1)]
     assert f.grad.abs().sum() > 0 and t.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("n,h,w,c,sh,sw", NON_POW2)
+def test_gradients_at_a_cell_that_is_no_power_of_two(n, h, w, c, sh, sw):
+    feat, prob, g = _inputs(6, n, h, w, c, sh, sw)
+    jp, jg = jnp.asarray(prob), jnp.asarray(g)
+    f = torch.from_numpy(feat).requires_grad_()
+    pooled, _, _ = tsp.pool_and_sizes(f, torch.from_numpy(prob), sh, sw)
+    np.testing.assert_allclose(pooled.detach().numpy(), np.asarray(sp.pool_and_sizes(jnp.asarray(feat), jp, sh, sw, backend="xla")[0]),
+                               atol=ATOL, rtol=0)
+    (pooled * torch.from_numpy(g)).sum().backward()
+    ref = np.asarray(jax.grad(lambda x: jnp.sum(sp.pool_and_sizes(x, jp, sh, sw, backend="xla")[0] * jg))(jnp.asarray(feat)))
+    np.testing.assert_allclose(f.grad.numpy(), ref, atol=ATOL * np.abs(ref).max(), rtol=0)
+
+    tok, g_pix = g, feat  # tokens (n, hc, wc, c) and a pixel cotangent (n, h, w, c)
+    t = torch.from_numpy(tok).requires_grad_()
+    (tsp.upfeat(t, torch.from_numpy(prob), sh, sw) * torch.from_numpy(g_pix)).sum().backward()
+    ref = np.asarray(jax.grad(lambda x: jnp.sum(sp.upfeat(x, jp, sh, sw) * jnp.asarray(g_pix)))(jnp.asarray(tok)))
+    np.testing.assert_allclose(t.grad.numpy(), ref, atol=ATOL * np.abs(ref).max(), rtol=0)
 
 
 def test_prob_gradient_raises_until_stage_one():

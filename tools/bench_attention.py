@@ -1,28 +1,46 @@
-"""Device time of the port's two attention kernels, and of variants of their sources, on the card.
+"""Device time of the port's hand-written kernels, of variants of their sources, and of another checkout, on the card.
 
-Builds ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` as they are
-("base") and once per variant, a variant being a list of text substitutions
-``[file, old, new]`` applied to a temporary copy of ``csrc/``. After a warm-up
-that brings the card to its clocks, it measures every build in turns, three
-rounds, so that a difference between two builds is read inside one process on
-one card: the kernels' durations from ``torch.profiler`` over 20 calls, at the
-main path's shapes (T=256, d=64, 8 heads, f32): the backward at batch 24 with
-a keep-mask and saved statistics (``bwd_dq``, ``bwd_dkv``), kernel D at batch 24
-with keep-mask and statistics (``fwd_train``) and at batch 8 without
-(``fwd_serve``). Each build is also held against the plain versions. One JSON
-line per build with ptxas' registers and spill bytes of the hd=8 instances,
-then one per build and round. Needs a CUDA device and nvcc:
+Two kernel sets, ``--set attention`` (the default) and ``--set superpixel``.
+A set's kernels are built from ``csrc/`` as they are ("base") and once per
+variant, a variant being a list of text substitutions ``[file, old, new]``
+applied to a temporary copy of ``csrc/``. ``--before DIR`` adds the build
+"before": the package of another checkout (say the parent commit, unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists), imported
+under another name and driven through its own wrappers. After a warm-up that
+brings the card to its clocks, every build is measured in turns, three rounds,
+so that a difference between two builds is read inside one process on one
+card: device time from ``torch.profiler`` over 20 calls (``*_ms``) and, for
+the superpixel set, whose loss is partly the host's, the time by CUDA events
+around 20 calls too (``*_events_ms``). Each build is also held against the
+plain versions. One JSON line per build with ptxas' registers and spill
+bytes, then one per build and round. Needs a CUDA device and nvcc:
 
-    python tools/bench_attention.py                       # base and the built-in variant
-    python tools/bench_attention.py --variants my.json     # {"name": [[file, old, new], ...], ...}
+    python tools/bench_attention.py                        # attention: base and the built-in variant
+    python tools/bench_attention.py --variants my.json      # {"name": [[file, old, new], ...], ...}
+    python tools/bench_attention.py --set superpixel --before _archive/parent
 
-The built-in variant gives every thread one row of the tile instead of two
-(256-thread blocks): the design before the register tile.
+attention, at the main path's shapes (T=256, d=64, 8 heads, f32): the backward
+at batch 24 with a keep-mask and saved statistics (``bwd_dq``, ``bwd_dkv``),
+kernel D at batch 24 with keep-mask and statistics (``fwd_train``) and at
+batch 8 without (``fwd_serve``). The built-in variant gives every thread one
+row of the tile instead of two (256-thread blocks): the design before the
+register tile.
+
+superpixel, 256x256 images and 16x16 cells, f32: kernel A at (8,256,256,66)
+with counts (``a_serve``) and at (24,256,256,64) as unpooling's backward asks
+for it (``a_k5``); kernel C at (8,16,16,64) (``c_serve``) and (24,16,16,66)
+(``c_66``); pooling's and unpooling's backward at batch 24 (``pool_bwd`` at
+C=66, ``up_bwd`` at C=64) and ``pool_and_sizes`` at batch 8, C=66
+(``pool_fwd``), these three with the names of the kernels they launched in the
+first round. The built-in variants: kernel C with plain instead of streaming
+stores, kernel A with two instead of four loads in flight.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import inspect
 import json
 import os
 import re
@@ -33,24 +51,57 @@ import tempfile
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from disentangledcolorization_tpu_torch.ops import attention, kernels  # noqa: E402
+import disentangledcolorization_tpu_torch as port  # noqa: E402
+import disentangledcolorization_tpu_torch.ops  # noqa: E402,F401  (port.ops)
+from chip_smoke import device_ms, kernel_label, max_err, time_ms  # noqa: E402
 
-VARIANTS = {
-    "one_row_a_thread": [
-        ["attention_common.cuh", "rows = HD <= 8 ? 2 : 1;", "rows = 1;"],
-        ["attention_common.cuh", "min_blocks = HD <= 8 ? 4 : 1;", "min_blocks = HD <= 8 ? 2 : 1;"],
-    ],
+SETS = {
+    "attention": {
+        "kernels": ("attention", "attention_bwd"),
+        "variants": {
+            "one_row_a_thread": [
+                ["attention_common.cuh", "rows = HD <= 8 ? 2 : 1;", "rows = 1;"],
+                ["attention_common.cuh", "min_blocks = HD <= 8 ? 4 : 1;", "min_blocks = HD <= 8 ? 2 : 1;"],
+            ],
+        },
+        "instances": lambda args: args[:1] == ["8"],  # the main path's head width
+    },
+    "superpixel": {
+        "kernels": ("pool_stats", "upfeat", "shift_add"),
+        "variants": {
+            "c_plain_stores": [["upfeat.cu", "__stcs(", "__stwb("]],
+            "a_two_loads_in_flight": [["pool_stats.cu", "kUnroll = 4;", "kUnroll = 2;"]],
+        },
+        "instances": lambda args: True,
+    },
 }
-NAMES = ("attention", "attention_bwd")
 
 
-def build(subs) -> tuple[dict, dict]:
-    """The two kernels from a copy of ``csrc/`` with ``subs`` applied: the
-    loaded libraries and {instance: [registers, spill-store bytes]} at hd=8."""
-    tmp = tempfile.mkdtemp(prefix="attention_variant_")
-    src = os.path.join(os.path.dirname(os.path.abspath(kernels.__file__)), "..", "..", "csrc")
+def ptxas_table(build_log: dict, keep) -> dict:
+    """{kernel<template arguments>: [registers, spill-store bytes]} from what
+    ``nvcc -Xptxas -v`` printed, for the instances ``keep`` accepts."""
+    regs = {}
+    for text in build_log.values():
+        for blk in text.split("Function properties for ")[1:]:
+            label = kernel_label(blk.split()[0])
+            if keep(label[label.index("<") + 1:-1].split(",") if "<" in label else []):
+                regs[label] = [
+                    int(re.search(r"Used (\d+) registers", blk).group(1)),
+                    int(re.search(r"(\d+) bytes spill stores", blk).group(1)),
+                ]
+    return regs
+
+
+def build(pkg, names, subs, keep, ptxas_logs: dict) -> tuple[dict, dict]:
+    """``names`` of package ``pkg`` from a copy of its ``csrc/`` with ``subs``
+    applied: the loaded libraries and their :func:`ptxas_table`. ``ptxas_logs``
+    (library path -> what ptxas printed when it was built) is kept across calls."""
+    kernels = pkg.ops.kernels
+    tmp = tempfile.mkdtemp(prefix="kernel_variant_")
+    src = os.path.join(os.path.dirname(os.path.abspath(pkg.__file__)), "csrc")
     for f in os.listdir(src):
         shutil.copy(os.path.join(src, f), tmp)
     for f, old, new in subs:
@@ -62,87 +113,147 @@ def build(subs) -> tuple[dict, dict]:
         with open(path, "w") as fh:
             fh.write(text.replace(old, new))
     kernels.CSRC = tmp
-    for n in NAMES:
+    for n in names:
         kernels._LIBS.pop(n, None)
-    kernels.build(NAMES)
-    regs = {}
-    for n in NAMES:
-        for blk in kernels.BUILD_LOG[n].split("Function properties for ")[1:]:
-            m = re.search(r"\d+attention_(\w*?kernel\w*?)ILi8ELb([01])E", blk.split()[0])
-            if m:
-                regs[f"{m.group(1)}<8,{'keep' if m.group(2) == '1' else 'no keep'}>"] = [
-                    int(re.search(r"Used (\d+) registers", blk).group(1)),
-                    int(re.search(r"(\d+) bytes spill stores", blk).group(1)),
-                ]
-    return {n: kernels._LIBS[n] for n in NAMES}, regs
+        kernels.BUILD_LOG.pop(n, None)
+    kernels.build(names)
+    logs = {}
+    for n in names:  # a library reused from an earlier build (same source, same hash) prints nothing anew
+        lib = kernels._lib_path(kernels.KERNELS[n][0])
+        logs[n] = ptxas_logs.setdefault(lib, kernels.BUILD_LOG.get(n, ""))
+    return {n: kernels._LIBS[n] for n in names}, ptxas_table(logs, keep)
 
 
-def device_ms(fn, iters: int = 20) -> dict:
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0))
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            by[e.key] = us / 1e3 / iters
-    if not by:
-        sys.exit("bench_attention: the profiler shows no device time")
-    return by
+def import_checkout(path: str):
+    """The port's package of another checkout, under a name of its own."""
+    pkg_dir = os.path.join(os.path.abspath(path), port.__name__)
+    spec = importlib.util.spec_from_file_location("port_before", os.path.join(pkg_dir, "__init__.py"),
+                                                  submodule_search_locations=[pkg_dir])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["port_before"] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module("port_before.ops")
+    return mod
+
+
+def attention_cases(dev):
+    g = torch.Generator().manual_seed(0)
+    n, t, d, nhead, rate = 24, 256, 64, 8, 0.1
+    q, k, v, dout = (torch.randn(n, t, d, generator=g).to(dev) for _ in range(4))
+    keep = (torch.rand(n, nhead, t, t, generator=g) >= rate).to(dev)
+    q8, k8, v8 = (x[:8].contiguous() for x in (q, k, v))
+    ref_bwd = port.ops.attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate)
+    ref_fwd = port.ops.attention.attention_plain(q8, k8, v8, nhead)
+
+    def measure(pkg, first_round):
+        att = pkg.ops.attention
+        out, stats = att._attention(q, k, v, nhead, None, keep, rate, with_stats=True)
+        grads = att.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats)
+        _, bwd = device_ms(lambda: att.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats))
+        return {
+            "max_abs_err_bwd": max_err(grads, ref_bwd),
+            "max_abs_err_fwd": max_err(att.attention(q8, k8, v8, nhead), ref_fwd),
+            "bwd_dq_ms": sum(ms for key, ms in bwd.items() if "kernel_dq" in key),
+            "bwd_dkv_ms": sum(ms for key, ms in bwd.items() if "kernel_dkv" in key),
+            "fwd_train_ms": device_ms(lambda: att._attention(q, k, v, nhead, None, keep, rate, with_stats=True))[0],
+            "fwd_serve_ms": device_ms(lambda: att.attention(q8, k8, v8, nhead))[0],
+        }
+
+    return measure
+
+
+def superpixel_cases(dev):
+    g = torch.Generator().manual_seed(0)
+    n, n8, hw, s, d = 24, 8, 256, 16, 64
+    feat66 = torch.randn(n, hw, hw, d + 2, generator=g).to(dev)
+    feat64 = feat66[..., :d].contiguous()
+    prob = torch.softmax(torch.randn(n, hw, hw, 9, generator=g), dim=-1).to(dev)
+    tok66 = torch.randn(n, hw // s, hw // s, d + 2, generator=g).to(dev)
+    tok64 = tok66[..., :d].contiguous()
+    feat66_8, prob8, tok64_8 = feat66[:n8].contiguous(), prob[:n8].contiguous(), tok64[:n8].contiguous()
+    plain = port.ops.superpixel
+    ref_a = plain.pool_stats_plain(feat66_8, prob8, s, s)
+    ref_c = plain.upfeat_plain(tok64_8, prob8, s, s)
+
+    def backward_of(fn, x, cotangent):
+        x = x.detach().requires_grad_()
+        out = fn(x)
+        return lambda: torch.autograd.grad(out, x, cotangent, retain_graph=True)[0]
+
+    def measure(pkg, first_round):
+        sp = pkg.ops.superpixel
+        if "with_mass" in inspect.signature(sp.pool_stats).parameters:
+            a_k5 = lambda: sp.pool_stats(feat64, prob, s, s, with_hard=False, with_mass=False, scale=1.0)  # noqa: E731
+        else:  # a checkout from before kernel A took a scale
+            a_k5 = lambda: sp.pool_stats(feat64, prob, s, s, with_hard=False)  # noqa: E731
+        pool_bwd = backward_of(lambda f: sp.pool_and_sizes(f, prob, s, s)[0], feat66, tok66)
+        up_bwd = backward_of(lambda t: sp.upfeat(t, prob, s, s), tok64, feat64)
+        res = {
+            "max_abs_err_a": max_err(sp.pool_stats(feat66_8, prob8, s, s), ref_a),
+            "max_abs_err_c": max_err(sp.upfeat(tok64_8, prob8, s, s), ref_c),
+        }
+        with torch.no_grad():
+            cases = {
+                "a_serve": lambda: sp.pool_stats(feat66_8, prob8, s, s),
+                "a_k5": a_k5,
+                "c_serve": lambda: sp.upfeat(tok64_8, prob8, s, s),
+                "c_66": lambda: sp._upfeat(tok66, prob, s, s),
+                "pool_bwd": pool_bwd,
+                "up_bwd": up_bwd,
+                "pool_fwd": lambda: sp.pool_and_sizes(feat66_8, prob8, s, s),
+            }
+            for name, fn in cases.items():
+                res[f"{name}_ms"], by_kernel = device_ms(fn)
+                res[f"{name}_events_ms"] = time_ms(fn, dev)
+                if first_round and name in ("pool_bwd", "up_bwd", "pool_fwd"):
+                    res[f"{name}_kernels"] = {k: round(ms, 5) for k, ms in by_kernel.items()}
+        return res
+
+    return measure
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", help="JSON file {name: [[file, old, new], ...]}; default: the built-in variant")
+    ap.add_argument("--set", choices=sorted(SETS), default="attention", dest="kernel_set")
+    ap.add_argument("--variants", help="JSON file {name: [[file, old, new], ...]}; default: the set's built-in variants")
+    ap.add_argument("--before", help="root of another checkout whose package is measured as the build 'before'")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_attention: needs a CUDA device")
-    variants = VARIANTS
+    kset = SETS[args.kernel_set]
+    variants = kset["variants"]
     if args.variants:
         with open(args.variants) as fh:
             variants = json.load(fh)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(0)
-    n, t, d, nhead, rate = 24, 256, 64, 8, 0.1
-    q, k, v, dout = (torch.randn(n, t, d, generator=g).to(dev) for _ in range(4))
-    keep = (torch.rand(n, nhead, t, t, generator=g) >= rate).to(dev)
-    q8, k8, v8 = (x[:8].contiguous() for x in (q, k, v))
-    ref_bwd = attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate)
-    ref_fwd = attention.attention_plain(q8, k8, v8, nhead)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    measure = {"attention": attention_cases, "superpixel": superpixel_cases}[args.kernel_set](dev)
 
-    built = {}
-    for name, subs in [("base", [])] + list(variants.items()):
-        built[name], regs = build(subs)
-        print(json.dumps({"card": card, "build": name, "registers_spills_hd8": regs}), flush=True)
+    built = {}  # build name -> (package, its libraries)
+    todo = [("base", port, [])] + [(name, port, subs) for name, subs in variants.items()]
+    if args.before:
+        before = import_checkout(args.before)
+        todo.insert(0, ("before", before, []))
+    ptxas_logs = {}
+    for name, pkg, subs in todo:
+        names = [n for n in kset["kernels"] if n in pkg.ops.kernels.KERNELS]
+        libs, regs = build(pkg, names, subs, kset["instances"], ptxas_logs)
+        built[name] = (pkg, libs)
+        print(json.dumps({"card": card, "set": args.kernel_set, "build": name, "registers_spills": regs}), flush=True)
 
     warm = torch.randn(8192, 8192, device=dev)
     for _ in range(60):
         warm @ warm
     torch.cuda.synchronize()
     for rnd in range(args.rounds):
-        for name, libs in built.items():
-            kernels._LIBS.update(libs)
-            out, stats = attention._attention(q, k, v, nhead, None, keep, rate, with_stats=True)
-            grads = attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats)
-            bwd = device_ms(lambda: attention.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats))
-            res = {
-                "card": card, "round": rnd, "build": name,
-                "max_abs_err_bwd": max(float((a - b).abs().max()) for a, b in zip(grads, ref_bwd)),
-                "max_abs_err_fwd": float((attention.attention(q8, k8, v8, nhead) - ref_fwd).abs().max()),
-                "bwd_dq_ms": sum(ms for key, ms in bwd.items() if "kernel_dq" in key),
-                "bwd_dkv_ms": sum(ms for key, ms in bwd.items() if "kernel_dkv" in key),
-                "fwd_train_ms": sum(device_ms(
-                    lambda: attention._attention(q, k, v, nhead, None, keep, rate, with_stats=True)).values()),
-                "fwd_serve_ms": sum(device_ms(lambda: attention.attention(q8, k8, v8, nhead)).values()),
-            }
-            print(json.dumps(res), flush=True)
+        for name, (pkg, libs) in built.items():
+            pkg.ops.kernels._LIBS.update(libs)
+            res = measure(pkg, rnd == 0)
+            print(json.dumps({"card": card, "round": rnd, "build": name, **res}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ device time. Needs a CUDA device:
 
     python tools/profile_port.py [--batch 8] [--size 256] [--iters 5]
     python tools/profile_port.py --train [--batch 24] [--iters 3]
+    python tools/profile_port.py --cat [--batch 24]
+
+``--cat`` times one op of the model alone, the concatenation of the 64
+features and the 2 ab channels that pooling reads (``models/disco.py``,
+``torch.cat([pred_feats, input_colors])``): its forward, its backward (views,
+no kernel) and the copy that makes the features' sliced gradient contiguous
+for the convolution's backward.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 
 OURS = {
     "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head", "upfeat_kernel": "upfeat",
-    "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd", "encode_ab2ind_kernel": "encode_ab2ind",
+    "shift_add_kernel": "shift_add", "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
+    "encode_ab2ind_kernel": "encode_ab2ind",
 }
 
 
@@ -91,6 +99,26 @@ def profile(run, batch: int, iters: int, tf32: bool) -> dict:
     }
 
 
+def profile_cat(batch: int, size: int, iters: int = 20) -> dict:
+    """Device ms of the proxy concatenation at (batch, size, size, 64 + 2), of
+    its backward, and of the contiguous copy of the features' gradient."""
+    from chip_smoke import device_ms
+
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(batch, size, size, 64, generator=g).cuda().requires_grad_()
+    colors = torch.randn(batch, size, size, 2, generator=g).cuda()
+    cotangent = torch.randn(batch, size, size, 66, generator=g).cuda()
+    out = torch.cat([feats, colors], dim=-1)
+    fwd, fwd_by = device_ms(lambda: torch.cat([feats, colors], dim=-1), iters)
+    bwd, bwd_by = device_ms(lambda: torch.autograd.grad(out, feats, cotangent, retain_graph=True), iters)
+    copy, copy_by = device_ms(lambda: cotangent[..., :64].contiguous(), iters)
+    moved = (feats.numel() + colors.numel() + out.numel()) * 4
+    return {"shape": [batch, size, size, 66], "cat_forward_ms": fwd, "cat_forward_kernels": fwd_by,
+            "cat_backward_ms": bwd or 0.0, "cat_backward_kernels": bwd_by,
+            "sliced_gradient_contiguous_ms": copy, "sliced_gradient_contiguous_kernels": copy_by,
+            "forward_bytes": moved, "forward_bound_ms": moved / 3.35e12 * 1e3}
+
+
 def trainer(batch: int, size: int):
     """The recipe's trainer on 240 synthetic images held on the card; returns
     a function that takes one step."""
@@ -119,7 +147,8 @@ def trainer(batch: int, size: int):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true", help="profile the colorizer training step")
-    ap.add_argument("--batch", type=int, default=None, help="default 8 (forward) or 24 (--train)")
+    ap.add_argument("--cat", action="store_true", help="time the proxy concatenation alone")
+    ap.add_argument("--batch", type=int, default=None, help="default 8 (forward) or 24 (--train, --cat)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args()
@@ -127,6 +156,9 @@ def main() -> None:
         sys.exit("profile_port: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.cat:
+        print(json.dumps({"card": smi, "what": "proxy_cat", **profile_cat(args.batch or 24, args.size)}), flush=True)
+        return
     if args.train:
         batch = args.batch or 24
         run = trainer(batch, args.size)

@@ -16,7 +16,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      autograd of the plain versions. Kernels A, C and F (pooling statistics,
      unpooling, the 9-direction shift-add) also at C = 64, 66 and 5, with a
      scale and without mass, with a per-token factor, and twice for bitwise
-     equality. The two attention kernels also with a
+     equality. Kernel B (the affinity head) also at C = 3 on a ragged
+     17x33 image and twice for bitwise equality, and its guard: an input
+     that requires grad raises under autograd; the SASS of its C=16
+     instance (``cuobjdump``) says how it reads its weights. Kernel E (soft
+     labels) also at K = 9 (its warp kernel) and twice for bitwise equality.
+     The two attention kernels also with a
      fully masked image, with the forward's saved statistics and without,
      twice for bitwise equality, and timed in turns with
      ``scaled_dot_product_attention`` (library, kernel, kernel, library) both
@@ -203,6 +208,42 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
                 f"{spills[0]} bytes spill stores, {spills[1]} bytes spill loads")
 
 
+def sass_weight_reads(kernels) -> dict | None:
+    """How kernel B's C=16 instance (``affinity_head_pipe_kernel``) reads its
+    weights, from ``cuobjdump -sass`` of the built library: FFMAs in all and
+    those that take a constant-bank operand of the __constant__ array (bank
+    3), uniform constant loads from it (ULDC), and the per-thread loads by
+    kind (LDC, LDS, LDG). None where cuobjdump is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = kernels._lib_path(kernels.KERNELS["affinity_head"][0])
+    try:
+        text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    for part in text.split("Function : ")[1:]:
+        if "affinity_head_pipe_kernel" not in part.split()[0]:
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", ln.split("*/")[1].strip())  # drop a predicate
+               for ln in part.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+        count = lambda pat, bank3=False: sum(  # noqa: E731
+            re.match(pat, o) is not None and (not bank3 or "c[0x3]" in o) for o in ops)
+        return {
+            "instructions": len(ops),
+            "ffma": count(r"FFMA\b"),
+            "ffma_with_bank3_operand": count(r"FFMA\b", bank3=True),
+            "uldc_bank3": count(r"ULDC\b", bank3=True),
+            "ldc": count(r"LDC\b"),
+            "ldc_bank3": count(r"LDC\b", bank3=True),
+            "lds_128": count(r"LDS\.128\b"),
+            "lds_other": count(r"LDS\b") - count(r"LDS\.128\b"),
+            "ldg": count(r"LDG\b"),
+            "ldgsts": count(r"LDGSTS\b"),
+        }
+    return None
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -324,22 +365,40 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
             f"device {dev_ms:.4f}: {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}")
     del t24, bare, t_in, mass_in, hard_in
 
-    # B: affinity head, 16 -> 9
+    # B: affinity head, 16 -> 9; also at C = 3 (the chunked instance) on a
+    # ragged 17x33 image, twice each for bitwise equality, and the guard that
+    # keeps autograd from differentiating through it
     x = rand(n, h, w, 16)
     kernel, bias = rand(3, 3, 16, 9) * 0.2, rand(9) * 0.1
     out = affinity.affinity_head(x, kernel, bias)
-    ref = affinity.affinity_head_plain(x, kernel, bias)
+    err = max_err(out, affinity.affinity_head_plain(x, kernel, bias))
+    if not torch.equal(out, affinity.affinity_head(x, kernel, bias)):
+        raise AssertionError("affinity_head: two runs on the same inputs are not bitwise equal")
+    for c in (16, 3):
+        xr, kr, br = rand(2, 17, 33, c), rand(3, 3, c, 9) * 0.3, rand(9)
+        o_r = affinity.affinity_head(xr, kr, br)
+        err = max(err, max_err(o_r, affinity.affinity_head_plain(xr, kr, br)))
+        if not torch.equal(o_r, affinity.affinity_head(xr, kr, br)):
+            raise AssertionError(f"affinity_head, C={c}, 17x33: two runs are not bitwise equal")
+    try:
+        affinity.affinity_head(xr.requires_grad_(), kr, br)
+        raise AssertionError("affinity_head: an input that requires grad did not raise under autograd")
+    except NotImplementedError as e:
+        log(f"affinity_head under autograd raises, as it must until stage-1 training: {str(e)[:60]}...")
+    log("affinity_head at C=16, 256x256 and 17x33, and at C=3, 17x33: bitwise equal twice")
     x_cl = x.permute(0, 3, 1, 2)  # channels_last NCHW view, no copy
     w_oihw = kernel.permute(3, 2, 0, 1).contiguous()
     b_ms, b_by = bound(nbytes(x, kernel, bias, out), n * h * w * (2.0 * 81 * 16 + 9 * 4))
+    with torch.no_grad():
+        turns = time_in_turns(f"affinity_head (kernel B), batch {n}, C=16, vs conv2d + softmax",
+                              lambda: torch.softmax(F.conv2d(x_cl, w_oihw, bias, padding=1), dim=1),
+                              lambda: affinity.affinity_head(x, kernel, bias), device)
     rows.append(dict(
         name="affinity_head", source="disentangledcolorization_tpu_torch/csrc/affinity_head.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_affinity.py:139",
-        max_abs_err=max_err(out, ref),
-        ms=time_ms(lambda: affinity.affinity_head(x, kernel, bias), device),
+        max_abs_err=err,
         plain_ms=time_ms(lambda: affinity.affinity_head_plain(x, kernel, bias), device),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.softmax(F.conv2d(x_cl, w_oihw, bias, padding=1), dim=1), device),
+        bound_ms=b_ms, bound_by=b_by, **turns,
     ))
 
     # C: upfeat of the 16x16 token grid at d = 64
@@ -488,18 +547,25 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
     extras["pool_stats_without_mass_and_hard"] = dict(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by)
     del feat64, prob5, k5_out
 
-    # E: soft labels at the token grid of a training batch and at full resolution
-    errs, pattern_ok = [], True
+    # E: soft labels at the token grid of a training batch and at full
+    # resolution, K = 5 (the register top-K kernel) and K = 9 (the warp kernel)
+    errs, pattern_ok, again_ok = [], True, True
     for shape in ((16, 16, 16), (4, 256, 256)):
         ab = (torch.rand(*shape, 2, generator=g) * 1.2 - 0.6).to(device)
         ab.view(-1, 2)[:4] = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.0], [-0.5, 0.5]], device=device)  # exact ties
-        out, ref = colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)
-        errs.append(max_err(out, ref))
-        pattern_ok &= bool(torch.equal(out > 0, ref > 0))
-        log(f"encode_ab2ind {tuple(ab.shape)}: max|d|={errs[-1]:.3e} "
-            f"ms={time_ms(lambda: colorlabel.encode_ab2ind(ab), device):.4f}")
+        for k in (5, 9):
+            out, ref = colorlabel.encode_ab2ind(ab, k), colorlabel.encode_ab2ind_plain(ab, k)
+            errs.append(max_err(out, ref))
+            pattern_ok &= bool(torch.equal(out > 0, ref > 0))
+            again_ok &= bool(torch.equal(out, colorlabel.encode_ab2ind(ab, k)))
+            log(f"encode_ab2ind {tuple(ab.shape)}, K={k}: max|d|={errs[-1]:.3e} "
+                f"ms={time_ms(lambda: colorlabel.encode_ab2ind(ab, k), device):.4f} "
+                f"device {device_ms(lambda: colorlabel.encode_ab2ind(ab, k))[0]:.4f}")
+        del out, ref
     if not pattern_ok:
-        raise AssertionError("encode_ab2ind: the top-5 bin sets differ from the plain version")
+        raise AssertionError("encode_ab2ind: the top-K bin sets differ from the plain version")
+    if not again_ok:
+        raise AssertionError("encode_ab2ind: two runs on the same inputs are not bitwise equal")
     m = ab.numel() // 2
     b_ms, b_by = bound(nbytes(ab) + 313 * 2 * 4 + m * 313 * 4, m * 313 * 10.0)
     rows.append(dict(
@@ -507,6 +573,7 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
         replaces="disentangledcolorization_tpu/ops/pallas_colorlabel.py:63",
         max_abs_err=max(errs),
         ms=time_ms(lambda: colorlabel.encode_ab2ind(ab), device),
+        device_ms=device_ms(lambda: colorlabel.encode_ab2ind(ab))[0],
         plain_ms=time_ms(lambda: colorlabel.encode_ab2ind_plain(ab), device, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
@@ -849,10 +916,13 @@ def main() -> int:
     secs = kernels.build()
     log(f"build: {len(secs)} kernels in {time.perf_counter() - t0:.2f} s wall ({json.dumps({k: round(v, 2) for k, v in secs.items()})})")
     report_ptxas(kernels.BUILD_LOG)
+    sass = sass_weight_reads(kernels)
+    log(f"kernel B, C=16 instance (two pixels a thread), SASS: {json.dumps(sass) if sass else 'not measured (no cuobjdump)'}")
 
     # 3. kernels against their plain versions
     rows = compare_kernels(device)
     training_rows, extras = compare_training_kernels(device)
+    extras["affinity_head_c16_sass"] = sass
     rows += training_rows
 
     # 4. serving path

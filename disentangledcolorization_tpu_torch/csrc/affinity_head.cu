@@ -2,79 +2,317 @@
 //
 // Replaces disentangledcolorization_tpu/ops/pallas_affinity.py::fused_affinity_head.
 // x (N,H,W,C) f32 NHWC, kernel (3,3,C,9) HWIO f32, bias (9,) -> out (N,H,W,9) f32,
-// zero padding, f32 accumulation, max-subtracted softmax.
+// zero padding, f32 accumulation, max-subtracted softmax with expf.
 //
-// Bound: bytes. It reads x once and writes 9 floats per pixel (about 6.6 MB per
-// 256x256 image at C=16); 162*C flops per pixel are far below the card's f32
-// rate. Design: one thread per pixel keeps its 9 sums in registers; the 81*C
-// weights and the bias sit in shared memory and every warp reads them as
-// broadcasts; the 3x3 halo comes from L1/L2, since neighbouring threads read
-// neighbouring pixels.
+// Bound: operations. 81*C multiply-adds per pixel (1,296 at C=16, the model's
+// head) against 4*C bytes read and 36 written: at C=16 the FFMAs take about
+// 0.021 ms at batch 8 on an H100 at its f32 peak, the bytes about 0.016. So
+// the FMA pipe has to set the pace, and every other instruction is overhead
+// on it. Design:
+//  - the weights sit in the constant bank, not in memory the threads load:
+//    the wrapper's HWIO kernel is copied into a __constant__ array on the
+//    launch stream (cudaMemcpyToSymbolAsync, device to device, stream-ordered,
+//    no host sync). The C=16 instance unrolls taps, channels and outputs, so
+//    every weight offset is a compile-time constant. ptxas reads them in pairs
+//    into uniform registers (ULDC.64) rather than as FFMA operands; a thread
+//    owns kRows = 2 pixels of a column and spends each pair on both, which
+//    halves the uniform loads a pixel. Other C run a loop over 16-channel
+//    chunks whose weights are uniform loads at run-time offsets. The 9 biases
+//    are read once per thread. The array is one per device: calls on two
+//    streams with different weights would race; the port launches on one.
+//  - a tile is (8*kRows) rows x 32 columns (a warp's lanes are the 32
+//    columns) and is staged with its 1-pixel halo in shared memory: each tile
+//    row is one contiguous run of 34 pixels in NHWC. A pixel takes 20 floats
+//    (80 bytes), so the 8 lanes of a quarter-warp reading float4s of 8
+//    neighbouring pixels hit 8 distinct 4-bank groups (a 64-byte stride would
+//    make that a 4-way conflict): 24 LDS.128 a pixel against 1,296 FFMAs.
+//  - at C=16 with x 16-byte aligned, persistent blocks walk the tiles; every
+//    16-byte vector of the next tile is a cp.async (zero-filled outside the
+//    image) into the second of two buffers while the block computes the
+//    current one. Any other C (or an unaligned x) takes one tile a block and
+//    16-channel chunks by plain loads.
+//  - the softmax runs in registers; the 9 probabilities of every pixel are
+//    staged in shared memory (in the tile's space) and each tile row's 32*9
+//    consecutive floats are written by consecutive threads, as float4s where
+//    the rows start at 16-byte boundaries.
+// On the card the unrolled block runs its FFMAs at about 70% of the rate a
+// cuBLAS f32 product reaches; the uniform weight loads and the staging and
+// stores that the pipeline does not hide take the rest (PERF.md).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void affinity_head_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
-                                     const float* __restrict__ bias, float* __restrict__ out,
-                                     int N, int H, int W, int C) {
-  extern __shared__ float sw[];  // 81 * C weights, then 9 biases
-  for (int e = threadIdx.x; e < 81 * C; e += blockDim.x) sw[e] = wgt[e];
-  if (threadIdx.x < 9) sw[81 * C + threadIdx.x] = bias[threadIdx.x];
-  __syncthreads();
+constexpr int kMaxC = 128;                  // the wrapper raises above (pallas_affinity.py:74)
+constexpr int kThreads = 256;
+constexpr int kRows = 2;                    // output rows a thread of the C=16 instance
+constexpr int kTileW = 32;                  // a warp's columns
+constexpr int kChunk = 16;                  // channels staged at once
+constexpr int kPix = kChunk + 4;            // floats a staged pixel takes
 
-  const long pix = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= (long)N * H * W) return;
-  const int xq = (int)(pix % W);
-  const int yq = (int)((pix / W) % H);
-  const long n = pix / ((long)W * H);
+__constant__ float c_wgt[81 * kMaxC];       // HWIO: ((dy*3 + dx)*C + ci)*9 + o
 
-  float acc[9];
+template <int R>
+struct Tile {
+  static constexpr int kH = kThreads / kTileW * R, kHaloH = kH + 2, kHaloW = kTileW + 2;
+  static constexpr int kFloats = kHaloH * kHaloW * kPix;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(kH * kTileW * 9 <= kFloats, "the output stage reuses the tile");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool inside) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(inside ? 16 : 0));
+}
+
+// C=16, x 16-byte aligned: issue every 16-byte vector of the halo tile whose
+// top-left pixel is (y0 - 1, x0 - 1) as a cp.async (zeros outside the image),
+// none through registers; the caller commits and waits.
+template <int R>
+__device__ __forceinline__ void issue16(const float* __restrict__ x, float* tile, long n, int y0, int x0, int H,
+                                        int W) {
+  using T = Tile<R>;
+  for (int e = threadIdx.x; e < T::kHaloH * T::kHaloW * 4; e += kThreads) {
+    const int r = e / (T::kHaloW * 4), p = (e / 4) % T::kHaloW, q = e % 4;
+    const int yy = y0 - 1 + r, xx = x0 - 1 + p;
+    const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
+    cp_async16(tile + (e / 4) * kPix + 4 * q, inside ? x + ((n * H + yy) * W + xx) * 16 + 4 * q : x, inside);
+  }
+}
+
+// Any C: channels [c0, c0 + cw) of the halo tile whose top-left pixel is
+// (y0 - 1, x0 - 1); zeros outside the image.
+template <int R>
+__device__ __forceinline__ void stage(const float* __restrict__ x, float* tile, long n, int y0, int x0, int H,
+                                      int W, int c, int c0, int cw, bool vec) {
+  using T = Tile<R>;
+  if (vec) {  // cw % 4 == 0: a float4 never crosses a pixel
+    const int per_pix = cw / 4, per_row = T::kHaloW * per_pix;
+    for (int e = threadIdx.x; e < T::kHaloH * per_row; e += kThreads) {
+      const int r = e / per_row, rem = e - r * per_row;
+      const int p = rem / per_pix, q = rem - p * per_pix;
+      const int yy = y0 - 1 + r, xx = x0 - 1 + p;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (yy >= 0 && yy < H && xx >= 0 && xx < W)
+        v = __ldg(reinterpret_cast<const float4*>(x + ((n * H + yy) * W + xx) * c + c0) + q);
+      *reinterpret_cast<float4*>(tile + (r * T::kHaloW + p) * kPix + 4 * q) = v;
+    }
+  } else {
+    const int per_row = T::kHaloW * cw;
+    for (int e = threadIdx.x; e < T::kHaloH * per_row; e += kThreads) {
+      const int r = e / per_row, rem = e - r * per_row;
+      const int p = rem / cw, ci = rem - p * cw;
+      const int yy = y0 - 1 + r, xx = x0 - 1 + p;
+      float v = 0.f;
+      if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = __ldg(x + ((n * H + yy) * W + xx) * c + c0 + ci);
+      tile[(r * T::kHaloW + p) * kPix + ci] = v;
+    }
+  }
+}
+
+// A full 16-channel chunk, tap by tap: the 4 channel vectors of the tap for
+// each of the thread's R pixels, then each weight into the R sums it feeds.
+// With CT > 0 (C known) every weight index is a compile-time constant. (A
+// loop over the taps makes the weight offsets per-thread LDCs: slower.)
+template <int CT, int R>
+__device__ __forceinline__ void accumulate_chunk(const float* tile, int ry, int lane, int c, int c0,
+                                                 float (&acc)[R][9]) {
+  using T = Tile<R>;
+  const int cc = CT > 0 ? CT : c;
 #pragma unroll
-  for (int o = 0; o < 9; ++o) acc[o] = sw[81 * C + o];
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = yq + dy - 1;
-    if (yy < 0 || yy >= H) continue;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = xq + dx - 1;
-      if (xx < 0 || xx >= W) continue;
-      const float* xp = x + ((n * H + yy) * W + xx) * C;
-      const float* wp = sw + (dy * 3 + dx) * C * 9;
-      for (int ci = 0; ci < C; ++ci) {
-        const float v = xp[ci];
+  for (int ty = 0; ty < 3; ++ty) {
 #pragma unroll
-        for (int o = 0; o < 9; ++o) acc[o] = fmaf(v, wp[ci * 9 + o], acc[o]);
+    for (int tx = 0; tx < 3; ++tx) {
+#pragma unroll
+      for (int q = 0; q < kChunk / 4; ++q) {
+        float v[R][4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(tile + ((ry + i + ty) * T::kHaloW + lane + tx) * kPix + 4 * q);
+          v[i][0] = v4.x, v[i][1] = v4.y, v[i][2] = v4.z, v[i][3] = v4.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* w = c_wgt + ((ty * 3 + tx) * cc + c0 + 4 * q + j) * 9;
+#pragma unroll
+          for (int o = 0; o < 9; ++o) {
+#pragma unroll
+            for (int i = 0; i < R; ++i) acc[i][o] = fmaf(v[i][j], w[o], acc[i][o]);
+          }
+        }
       }
     }
   }
-  float m = acc[0];
+}
+
+// A partial chunk (the last cw < 16 channels of a generic C): scalar reads.
+template <int R>
+__device__ __forceinline__ void accumulate_partial(const float* tile, int ry, int lane, int c, int c0, int cw,
+                                                   float (&acc)[R][9]) {
+  using T = Tile<R>;
 #pragma unroll
-  for (int o = 1; o < 9; ++o) m = fmaxf(m, acc[o]);
-  float s = 0.f;
+  for (int ty = 0; ty < 3; ++ty) {
 #pragma unroll
-  for (int o = 0; o < 9; ++o) {
-    acc[o] = expf(acc[o] - m);
-    s += acc[o];
+    for (int tx = 0; tx < 3; ++tx) {
+      for (int ci = 0; ci < cw; ++ci) {
+        const float* w = c_wgt + ((ty * 3 + tx) * c + c0 + ci) * 9;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float v = tile[((ry + i + ty) * T::kHaloW + lane + tx) * kPix + ci];
+#pragma unroll
+          for (int o = 0; o < 9; ++o) acc[i][o] = fmaf(v, w[o], acc[i][o]);
+        }
+      }
+    }
   }
-  float* op = out + pix * 9;
+}
+
+// Softmax of the R pixels' sums in registers, the probabilities staged in the
+// tile's space (every thread must be done reading the tile), then each tile
+// row's 32*9 floats written by consecutive threads.
+template <int R>
+__device__ __forceinline__ void finish(float (&acc)[R][9], float* tile, float* __restrict__ out, long n, int y0,
+                                       int x0, int H, int W, int ry, int lane) {
 #pragma unroll
-  for (int o = 0; o < 9; ++o) op[o] = acc[o] / s;
+  for (int i = 0; i < R; ++i) {
+    float m = acc[i][0];
+#pragma unroll
+    for (int o = 1; o < 9; ++o) m = fmaxf(m, acc[i][o]);
+    float s = 0.f;
+#pragma unroll
+    for (int o = 0; o < 9; ++o) {
+      acc[i][o] = expf(acc[i][o] - m);
+      s += acc[i][o];
+    }
+    float* st = tile + ((ry + i) * kTileW + lane) * 9;
+#pragma unroll
+    for (int o = 0; o < 9; ++o) st[o] = acc[i][o] / s;
+  }
+  __syncthreads();
+  constexpr int kRow = kTileW * 9;  // floats of a full tile row
+  if (x0 + kTileW <= W && W % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    // every output row starts at a 16-byte boundary: float4 stores
+    for (int e = threadIdx.x; e < Tile<R>::kH * kRow / 4; e += kThreads) {
+      const int r = e / (kRow / 4), k = e - r * (kRow / 4);
+      if (y0 + r < H)
+        reinterpret_cast<float4*>(out + ((n * H + y0 + r) * W + x0) * 9)[k] = reinterpret_cast<const float4*>(tile)[e];
+    }
+  } else {
+    const int valid = min(kTileW, W - x0) * 9;  // floats of a tile row inside the image
+    for (int e = threadIdx.x; e < Tile<R>::kH * kRow; e += kThreads) {
+      const int r = e / kRow, k = e - r * kRow;
+      if (y0 + r < H && k < valid) out[((n * H + y0 + r) * W + x0) * 9 + k] = tile[e];
+    }
+  }
+}
+
+// The model's head, C=16 with x 16-byte aligned: persistent blocks walk the
+// tiles (R rows a thread), and while a block computes one tile, its
+// cp.asyncs fill the other of two buffers with the next. Staging, compute
+// and the stores of different tiles so overlap even when every block of an
+// SM is in the same phase.
+template <int R>
+__global__ void __launch_bounds__(kThreads, R == 1 ? 4 : 2)
+    affinity_head_pipe_kernel(const float* __restrict__ x, const float* __restrict__ bias,
+                              float* __restrict__ out, int H, int W, int tiles_x, int tiles_y, long tiles) {
+  using T = Tile<R>;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, ry = (threadIdx.x >> 5) * R;
+  float b[9];
+#pragma unroll
+  for (int o = 0; o < 9; ++o) b[o] = __ldg(bias + o);
+  auto origin = [&](long t, long& n, int& y0, int& x0) {
+    x0 = (int)(t % tiles_x) * kTileW;
+    y0 = (int)((t / tiles_x) % tiles_y) * T::kH;
+    n = t / ((long)tiles_x * tiles_y);
+  };
+  long t = blockIdx.x, n;  // the grid has no more blocks than tiles
+  int y0, x0;
+  origin(t, n, y0, x0);
+  issue16<R>(x, smem, n, y0, x0, H, W);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int k = 0; t < tiles; ++k, t += gridDim.x) {
+    float* tile = smem + (k & 1) * T::kFloats;
+    if (t + gridDim.x < tiles) {  // the next tile into the other buffer
+      long nn;
+      int yy, xx;
+      origin(t + gridDim.x, nn, yy, xx);
+      issue16<R>(x, smem + ((k + 1) & 1) * T::kFloats, nn, yy, xx, H, W);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's copies have landed
+    __syncthreads();
+    origin(t, n, y0, x0);
+    float acc[R][9];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int o = 0; o < 9; ++o) acc[i][o] = b[o];
+    accumulate_chunk<16, R>(tile, ry, lane, 16, 0, acc);
+    __syncthreads();
+    finish<R>(acc, tile, out, n, y0, x0, H, W, ry, lane);
+    __syncthreads();  // the stores have read the stage before the buffer is filled again
+  }
+}
+
+// Any C <= kMaxC (and C=16 at an unaligned x): one tile a block, one row a
+// thread, 16-channel chunks staged by plain loads.
+__global__ void __launch_bounds__(kThreads, 4)
+    affinity_head_kernel(const float* __restrict__ x, const float* __restrict__ bias, float* __restrict__ out,
+                         int H, int W, int C, int tiles_x, int tiles_y, bool vec) {
+  extern __shared__ __align__(16) float tile[];
+  const int x0 = (int)(blockIdx.x % tiles_x) * kTileW, y0 = (int)((blockIdx.x / tiles_x) % tiles_y) * Tile<1>::kH;
+  const long n = blockIdx.x / ((long)tiles_x * tiles_y);
+  const int lane = threadIdx.x & 31, ry = threadIdx.x >> 5;
+
+  float acc[1][9];
+#pragma unroll
+  for (int o = 0; o < 9; ++o) acc[0][o] = __ldg(bias + o);
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    const int cw = min(kChunk, C - c0);
+    if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
+    stage<1>(x, tile, n, y0, x0, H, W, C, c0, cw, vec);
+    __syncthreads();
+    if (cw == kChunk)
+      accumulate_chunk<0, 1>(tile, ry, lane, C, c0, acc);
+    else
+      accumulate_partial<1>(tile, ry, lane, C, c0, cw, acc);
+  }
+  __syncthreads();
+  finish<1>(acc, tile, out, n, y0, x0, H, W, ry, lane);
 }
 
 }  // namespace
 
 extern "C" int disco_affinity_head(const float* x, const float* wgt, const float* bias, float* out,
                                    int n, int h, int w, int c, void* stream) {
-  const long pixels = (long)n * h * w;
-  if (pixels == 0) return 0;
-  const int threads = 256;
-  const long blocks = (pixels + threads - 1) / threads;
-  const size_t smem = sizeof(float) * (81 * (size_t)c + 9);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(affinity_head_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if ((long)n * h * w == 0) return 0;
+  if (c < 1 || c > kMaxC) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemcpyToSymbolAsync(c_wgt, wgt, sizeof(float) * 81 * (size_t)c, 0,
+                                          cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (c == 16 && vec) {
+    using T = Tile<kRows>;
+    const auto kernel = affinity_head_pipe_kernel<kRows>;
+    const int smem = 2 * (int)T::kBytes;
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
     if (e != cudaSuccess) return (int)e;
+    const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + T::kH - 1) / T::kH;
+    const long tiles = (long)n * tiles_x * tiles_y;
+    const long blocks = tiles < (long)per_sm * sms ? tiles : (long)per_sm * sms;
+    kernel<<<(unsigned)blocks, kThreads, smem, s>>>(x, bias, out, h, w, tiles_x, tiles_y, tiles);
+    return (int)cudaGetLastError();
   }
-  affinity_head_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(x, wgt, bias,
-                                                                                  out, n, h, w, c);
+  const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + Tile<1>::kH - 1) / Tile<1>::kH;
+  const long blocks = (long)n * tiles_x * tiles_y;
+  affinity_head_kernel<<<(unsigned)blocks, kThreads, Tile<1>::kBytes, s>>>(x, bias, out, h, w, c, tiles_x, tiles_y,
+                                                                           vec);
   return (int)cudaGetLastError();
 }

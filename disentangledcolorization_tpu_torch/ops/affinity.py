@@ -2,7 +2,11 @@
 
 Counterpart of ``disentangledcolorization_tpu/ops/pallas_affinity.py``
 (``fused_affinity_head`` and its XLA formulation ``_xla_affinity_head``).
-Kernel B (``csrc/affinity_head.cu``) computes it for CUDA tensors.
+Kernel B (``csrc/affinity_head.cu``) computes it for CUDA tensors, forward
+only: its gradient (K1's ``custom_vjp`` in the JAX package) comes with stage-1
+SpixelNet training, so a CUDA call that autograd would differentiate raises
+rather than return an output with no ``grad_fn``. The CPU plain version keeps
+its gradients.
 """
 
 from __future__ import annotations
@@ -11,6 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from .kernels import check_cuda, launch
+
+# kernel B keeps the 81*C weights in a __constant__ array sized for this many
+# channels (the JAX kernel's own eligibility limit, pallas_affinity.py:74)
+MAX_CHANNELS = 128
 
 
 def affinity_head_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -23,9 +31,19 @@ def affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     """Kernel B for CUDA tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return affinity_head_plain(x, kernel, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        raise NotImplementedError(
+            "affinity_head: no gradient through kernel B; it comes with the stage-1 "
+            "(SpixelNet training) slice of the port (ROADMAP.md). Call it under "
+            "torch.no_grad() or with inputs that do not require grad."
+        )
     kernel = kernel.contiguous()
     check_cuda("affinity_head", {"x": x, "kernel": kernel, "bias": bias})
     n, h, w, c = x.shape
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(
+            f"affinity_head: C={c} is not in [1, {MAX_CHANNELS}] (kernel B's constant bank holds 81*{MAX_CHANNELS} weights)"
+        )
     if kernel.shape != (3, 3, c, 9) or bias.shape != (9,):
         raise ValueError(
             f"affinity_head: kernel {tuple(kernel.shape)} / bias {tuple(bias.shape)} "

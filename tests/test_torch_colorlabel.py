@@ -2,10 +2,11 @@
 
 ``encode_ab2ind`` (kernel E's plain version on the CPU) is held against both
 JAX paths, ``colorlabel.encode_ab2ind(backend="xla")`` and the Pallas kernel
-``pallas_colorlabel.encode_ab2ind`` (interpret mode), within 1e-6: the
-weights are exp of f32 distances over at most five terms, renormalized. The
-input holds points exactly equidistant from several bins at the fifth-place
-cut, and the top-5 sets must be the same (ties go to the lower bin index).
+``pallas_colorlabel.encode_ab2ind`` (interpret mode), within 1e-6, at K = 1,
+5, 8 (kernel E's register top-K) and 9, 12 (its warp kernel): the weights are
+exp of f32 distances over at most K terms, renormalized. The input holds
+points exactly equidistant from several bins at the cut, and the top-K sets
+must be the same (ties go to the lower bin index).
 ``decode_ind2ab`` (T=0, 1, 0.38), ``get_classweights`` and the backward of
 ``rebalance_gradient`` are held against their JAX counterparts.
 """
@@ -33,15 +34,20 @@ def _ab(seed=0, n=2, h=6, w=5):
     return ab
 
 
-def test_encode_ab2ind_matches_both_jax_paths():
+@pytest.mark.parametrize("neighbours", [1, 5, 8, 9, 12])  # both sides of kernel E's K <= 8 / K > 8 split
+@pytest.mark.parametrize("sigma", [5.0, 8.0])  # weights far above f32 subnormals at K=12
+def test_encode_ab2ind_matches_both_jax_paths(neighbours, sigma):
     ab = _ab()
-    ours = cl.encode_ab2ind(torch.from_numpy(ab)).numpy()
-    for ref in (jcl.encode_ab2ind(jnp.asarray(ab), backend="xla"), pcl.encode_ab2ind(jnp.asarray(ab))):
+    ours = cl.encode_ab2ind(torch.from_numpy(ab), neighbours, sigma).numpy()
+    for ref in (
+        jcl.encode_ab2ind(jnp.asarray(ab), neighbours, sigma, backend="xla"),
+        pcl.encode_ab2ind(jnp.asarray(ab), neighbours=neighbours, sigma=sigma),
+    ):
         ref = np.asarray(ref)
         assert ours.shape == ref.shape == (2, 6, 5, 313)
         np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
-        np.testing.assert_array_equal(ours > 0, ref > 0)  # identical top-5 sets
-    assert ((ours > 0).sum(-1) == 5).all()
+        np.testing.assert_array_equal(ours > 0, ref > 0)  # identical top-K sets
+    assert ((ours > 0).sum(-1) == neighbours).all()
     np.testing.assert_allclose(ours.sum(-1), 1.0, atol=1e-6)
 
 

@@ -7,7 +7,8 @@ the CPU suite holds the plain versions against the JAX package). On a card:
 
 Shapes here are small and ragged (every channel-vector width, sp=8 and a
 6x10 cell, rectangular grids, views at odd offsets, head widths 8..64, odd
-pixel counts for kernel E, ties between bins);
+pixel counts and K on both sides of kernel E's two kernels, ties between bins,
+kernel B's ragged tiles and channel chunks);
 ``chip_smoke.py`` covers the paths' shapes. Tolerances as there: 1e-5
 absolute (1e-6 for kernel E; the autograd functions' gradients 1e-5 of their
 largest entry).
@@ -116,13 +117,58 @@ def test_superpixel_kernels_take_views_at_odd_offsets(cuda, offset, c):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("n,h,w,c", [(2, 17, 33, 16), (1, 64, 64, 16), (1, 8, 8, 3)])
+# kernel B's tiles are 8 rows x 32 columns: ragged in both (17x33, 9x40), one
+# exact tile (8x32), a single pixel; C=16 is the unrolled instance, the others
+# run 16-channel chunks (3 and 20 end in a partial chunk, 128 is the limit)
+AFFINITY_CASES = [(2, 17, 33, 16), (1, 64, 64, 16), (1, 8, 8, 3), (1, 8, 32, 16), (3, 1, 1, 16), (1, 9, 40, 20),
+                  (2, 16, 33, 128), (1, 17, 31, 4)]
+
+
+@pytest.mark.parametrize("n,h,w,c", AFFINITY_CASES)
 def test_affinity_head_kernel(cuda, n, h, w, c):
     from disentangledcolorization_tpu_torch.ops import affinity
 
     x = _rand(cuda, n, h, w, c)
     k, b = _rand(cuda, 3, 3, c, 9, seed=1) * 0.3, _rand(cuda, 9, seed=2)
-    torch.testing.assert_close(affinity.affinity_head(x, k, b), affinity.affinity_head_plain(x, k, b), atol=1e-5, rtol=0)
+    out = affinity.affinity_head(x, k, b)
+    torch.testing.assert_close(out, affinity.affinity_head_plain(x, k, b), atol=1e-5, rtol=0)
+    assert torch.equal(out, affinity.affinity_head(x, k, b))  # the same bits twice
+
+
+@pytest.mark.parametrize("c", [16, 3])
+def test_affinity_head_kernel_takes_views_at_odd_offsets(cuda, c):
+    """x at a storage offset of 1 float (scalar staging loads), the weights as
+    the model passes them: a permuted view of the OIHW conv weight."""
+    from disentangledcolorization_tpu_torch.ops import affinity
+
+    x = _odd_view(_rand(cuda, 2, 11, 37, c), 1)
+    w_oihw = _rand(cuda, 9, c, 3, 3, seed=1) * 0.3
+    k, b = w_oihw.permute(2, 3, 1, 0), _rand(cuda, 9, seed=2)
+    assert x.data_ptr() % 16 != 0 and not k.is_contiguous()
+    out = affinity.affinity_head(x, k, b)
+    torch.testing.assert_close(out, affinity.affinity_head_plain(x, k, b), atol=1e-5, rtol=0)
+    assert torch.equal(out, affinity.affinity_head(x.contiguous(), k.contiguous(), b))
+
+
+def test_affinity_head_rejects_what_kernel_b_does_not_take(cuda):
+    """C above the constant bank's 128 channels raises before any launch, and so
+    does a call that autograd would differentiate (no gradient through kernel
+    B until stage-1 training); under no_grad the same call runs."""
+    from disentangledcolorization_tpu_torch.ops import affinity, kernels
+
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="C=129"):
+        affinity.affinity_head(_rand(cuda, 1, 4, 4, 129), _rand(cuda, 3, 3, 129, 9), _rand(cuda, 9))
+    x, k, b = _rand(cuda, 1, 8, 8, 16).requires_grad_(), _rand(cuda, 3, 3, 16, 9), _rand(cuda, 9)
+    with pytest.raises(NotImplementedError, match="stage-1"):
+        affinity.affinity_head(x, k, b)
+    with pytest.raises(NotImplementedError, match="stage-1"):
+        affinity.affinity_head(x.detach(), k.requires_grad_(), b)
+    assert kernels.LAUNCHES["affinity_head"] == 0
+    with torch.no_grad():
+        out = affinity.affinity_head(x, k, b)
+    assert out.grad_fn is None and kernels.LAUNCHES["affinity_head"] == 1
+    torch.testing.assert_close(out, affinity.affinity_head_plain(x.detach(), k.detach(), b), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES + [(2, 4, 4, 64, 16, 16), (1, 3, 5, 7, 8, 8)])
@@ -338,17 +384,23 @@ def test_attention_kernels_take_views_at_odd_offsets(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(1, 3, 5), (2, 7, 11), (16, 16, 16), (1, 1, 1)])
-def test_encode_ab2ind_kernel(cuda, shape):
+# pixel counts: 1, 3, 4k+1, 129 and the token grid go to the warp kernel (too
+# few pixels to fill the card); 8,633 = 4k+1 (the scalar tail of the last
+# block's span) and the full-resolution label batch to the top-K kernel
+@pytest.mark.parametrize("shape", [(1, 3, 5), (2, 7, 11), (16, 16, 16), (1, 1, 1), (1, 1, 3), (1, 3, 43), (1, 97, 89),
+                                   (4, 256, 256)])
+@pytest.mark.parametrize("neighbours", [1, 5, 8, 9, 12])  # K <= 8: the register top-K kernel; above: the warp kernel
+def test_encode_ab2ind_kernel(cuda, shape, neighbours):
     from disentangledcolorization_tpu_torch.ops import colorlabel
 
     ab = (torch.rand(*shape, 2, generator=torch.Generator().manual_seed(0)) * 1.2 - 0.6).to(cuda)
-    ties = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.0], [-0.5, 0.5]], device=cuda)
+    ties = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.0], [-0.5, 0.5], [0.25, -0.5], [0.0, 0.5]], device=cuda)
     m = min(len(ties), ab.numel() // 2)
     ab.view(-1, 2)[:m] = ties[:m]
-    out, ref = colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)
+    out, ref = colorlabel.encode_ab2ind(ab, neighbours), colorlabel.encode_ab2ind_plain(ab, neighbours)
     torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
-    assert torch.equal(out > 0, ref > 0)
+    assert torch.equal(out > 0, ref > 0)  # identical top-K sets, ties included
+    assert torch.equal(out, colorlabel.encode_ab2ind(ab, neighbours))  # the same bits twice
 
 
 @pytest.mark.parametrize("s", [8, 16])

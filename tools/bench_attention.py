@@ -1,13 +1,16 @@
 """Device time of the port's hand-written kernels, of variants of their sources, and of another checkout, on the card.
 
-Two kernel sets, ``--set attention`` (the default) and ``--set superpixel``.
+Three kernel sets, ``--set attention`` (the default), ``--set superpixel`` and
+``--set head_labels``.
 A set's kernels are built from ``csrc/`` as they are ("base") and once per
 variant, a variant being a list of text substitutions ``[file, old, new]``
 applied to a temporary copy of ``csrc/``. ``--before DIR`` adds the build
 "before": the package of another checkout (say the parent commit, unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists), imported
 under another name and driven through its own wrappers. After a warm-up that
-brings the card to its clocks, every build is measured in turns, three rounds,
+brings the card to its clocks (and times one f32 8192^3 product with TF32 off,
+the f32 rate the card reaches at its power limit), every build is measured in
+turns, three rounds,
 so that a difference between two builds is read inside one process on one
 card: device time from ``torch.profiler`` over 20 calls (``*_ms``) and, for
 the superpixel set, whose loss is partly the host's, the time by CUDA events
@@ -18,6 +21,7 @@ bytes, then one per build and round. Needs a CUDA device and nvcc:
     python tools/bench_attention.py                        # attention: base and the built-in variant
     python tools/bench_attention.py --variants my.json      # {"name": [[file, old, new], ...], ...}
     python tools/bench_attention.py --set superpixel --before _archive/parent
+    python tools/bench_attention.py --set head_labels --before _archive/parent
 
 attention, at the main path's shapes (T=256, d=64, 8 heads, f32): the backward
 at batch 24 with a keep-mask and saved statistics (``bwd_dq``, ``bwd_dkv``),
@@ -34,6 +38,18 @@ C=66, ``up_bwd`` at C=64) and ``pool_and_sizes`` at batch 8, C=66
 (``pool_fwd``), these three with the names of the kernels they launched in the
 first round. The built-in variants: kernel C with plain instead of streaming
 stores, kernel A with two instead of four loads in flight.
+
+head_labels, f32: kernel B (the affinity head, C=16) at batch 8 (``b_serve``)
+and 24 (``b_train``) of 256x256, kernel E (soft labels, K=5) at
+(4,256,256,2) (``e_full``), (1,256,256,2) (``e_64k``), (1,128,128,2)
+(``e_16k``), (1,64,128,2) (``e_8k``) and the token grid (16,16,16,2)
+(``e_tokens``): the last two take E's warp kernel, too few pixels to fill
+the card with its top-K kernel. Each case with the device time of every
+kernel and copy it launched in the first round (kernel B's weights go to
+the constant bank by a device-to-device copy). The built-in variants: kernel
+B with one output row a thread instead of two (8x32 tiles instead of
+16x32), with one tile a block (a grid of every tile, so no block prefetches
+a next one), and with 128-thread blocks; kernel E with 256-pixel blocks.
 """
 
 from __future__ import annotations
@@ -74,6 +90,17 @@ SETS = {
         "variants": {
             "c_plain_stores": [["upfeat.cu", "__stcs(", "__stwb("]],
             "a_two_loads_in_flight": [["pool_stats.cu", "kUnroll = 4;", "kUnroll = 2;"]],
+        },
+        "instances": lambda args: True,
+    },
+    "head_labels": {
+        "kernels": ("affinity_head", "encode_ab2ind"),
+        "variants": {
+            "b_one_row_a_thread": [["affinity_head.cu", "kRows = 2;", "kRows = 1;"]],
+            "b_one_tile_a_block": [["affinity_head.cu", "const long blocks = tiles < (long)per_sm * sms ? tiles : (long)per_sm * sms;",
+                                    "const long blocks = tiles;"]],
+            "b_128_threads": [["affinity_head.cu", "kThreads = 256;", "kThreads = 128;"]],
+            "e_256_pixels": [["encode_ab2ind.cu", "kPixels = 128;", "kPixels = 256;"]],
         },
         "instances": lambda args: True,
     },
@@ -212,6 +239,46 @@ def superpixel_cases(dev):
     return measure
 
 
+def head_label_cases(dev):
+    g = torch.Generator().manual_seed(0)
+    x24 = torch.randn(24, 256, 256, 16, generator=g).to(dev)
+    x8 = x24[:8].contiguous()
+    kernel, bias = (torch.randn(3, 3, 16, 9, generator=g) * 0.2).to(dev), (torch.randn(9, generator=g) * 0.1).to(dev)
+    ab = (torch.rand(4, 256, 256, 2, generator=g) * 1.2 - 0.6).to(dev)
+    ab_tok = (torch.rand(16, 16, 16, 2, generator=g) * 1.2 - 0.6).to(dev)
+    ab_8k, ab_16k, ab_64k = ab[0, :64, :128].contiguous(), ab[0, :128, :128].contiguous(), ab[0].contiguous()
+    plain_b, plain_e = port.ops.affinity.affinity_head_plain, port.ops.colorlabel.encode_ab2ind_plain
+    ref_b, ref_e = plain_b(x8, kernel, bias), plain_e(ab)
+
+    def measure(pkg, first_round):
+        aff, cl = pkg.ops.affinity, pkg.ops.colorlabel
+        with torch.no_grad():
+            out_e = cl.encode_ab2ind(ab)
+            res = {
+                "max_abs_err_b": max_err(aff.affinity_head(x8, kernel, bias), ref_b),
+                "max_abs_err_e": max_err(out_e, ref_e),
+                "e_same_sets": bool(torch.equal(out_e > 0, ref_e > 0)),
+            }
+            del out_e
+            cases = {
+                "b_serve": lambda: aff.affinity_head(x8, kernel, bias),
+                "b_train": lambda: aff.affinity_head(x24, kernel, bias),
+                "e_full": lambda: cl.encode_ab2ind(ab),
+                "e_64k": lambda: cl.encode_ab2ind(ab_64k),
+                "e_16k": lambda: cl.encode_ab2ind(ab_16k),
+                "e_8k": lambda: cl.encode_ab2ind(ab_8k),
+                "e_tokens": lambda: cl.encode_ab2ind(ab_tok),
+            }
+            for name, fn in cases.items():
+                res[f"{name}_ms"], by_kernel = device_ms(fn)
+                res[f"{name}_events_ms"] = time_ms(fn, dev)
+                if first_round:
+                    res[f"{name}_kernels"] = {k: round(ms, 5) for k, ms in by_kernel.items()}
+        return res
+
+    return measure
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--set", choices=sorted(SETS), default="attention", dest="kernel_set")
@@ -231,7 +298,8 @@ def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    measure = {"attention": attention_cases, "superpixel": superpixel_cases}[args.kernel_set](dev)
+    measure = {"attention": attention_cases, "superpixel": superpixel_cases,
+               "head_labels": head_label_cases}[args.kernel_set](dev)
 
     built = {}  # build name -> (package, its libraries)
     todo = [("base", port, [])] + [(name, port, subs) for name, subs in variants.items()]
@@ -249,6 +317,9 @@ def main() -> None:
     for _ in range(60):
         warm @ warm
     torch.cuda.synchronize()
+    # the card's reachable f32 rate (TF32 off): one 8192^3 product, timed after the warm-up
+    sgemm_ms = time_ms(lambda: warm @ warm, dev, warmup=1, iters=10)
+    print(json.dumps({"card": card, "sgemm_f32_tflops": 2 * 8192**3 / sgemm_ms / 1e9}), flush=True)
     for rnd in range(args.rounds):
         for name, (pkg, libs) in built.items():
             pkg.ops.kernels._LIBS.update(libs)

@@ -36,9 +36,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 
 OURS = {
-    "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head", "upfeat_kernel": "upfeat",
+    "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head",
+    "affinity_head_pipe_kernel": "affinity_head", "upfeat_kernel": "upfeat",
     "shift_add_kernel": "shift_add", "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
-    "encode_ab2ind_kernel": "encode_ab2ind",
+    "encode_ab2ind_kernel": "encode_ab2ind", "encode_ab2ind_warp_kernel": "encode_ab2ind",
 }
 
 

@@ -17,8 +17,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      unpooling, the 9-direction shift-add) also at C = 64, 66 and 5, with a
      scale and without mass, with a per-token factor, and twice for bitwise
      equality. Kernel B (the affinity head) also at C = 3 on a ragged
-     17x33 image and twice for bitwise equality, and its guard: an input
-     that requires grad raises under autograd; the SASS of its C=16
+     17x33 image and twice for bitwise equality; the SASS of its C=16
      instance (``cuobjdump``) says how it reads its weights. Kernel E (soft
      labels) also at K = 9 (its warp kernel) and twice for bitwise equality.
      The two attention kernels also with a
@@ -39,12 +38,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      pool_stats 2, upfeat 2, shift_add 2, attention 12, attention_bwd 12; then 5 steps
      with TF32 on. One step at batch 2, 32x32, dropout 0, pinned anchors is
      held against the same step on the CPU;
-  6. label path: ``encode_ab2ind`` soft-encodes training colors (kernel E).
+  6. label path: ``encode_ab2ind`` soft-encodes training colors (kernel E);
+  7. stage-1 (SpixelNet) training: kernel G (the affinity map's gradient)
+     against its plain version at (128,256,256,4) with and without its beta
+     term, at C=5, and on a ragged 48x80 image at 16x16 and 6x10 cells, twice
+     for bitwise equality, timed by CUDA events and by device time; the
+     affinity head's backward (softmax backward, cuDNN convolution gradients)
+     against autograd of the plain head at (8,256,256,16) and on a ragged
+     17x33 image at C=3; a seeded random-weight ``SpixelSeg`` trained at the
+     recipe's configuration (batch 128, 256x256, psize 16, feat ab, Adam
+     2e-4 poly) for 10 steps on 128 synthetic images held on the card (one
+     batch, so the loss must fall), then 5 steps with TF32 on; launches per step:
+     affinity_head 1, pool_stats 2, shift_add 2, upfeat 1, prob_grad 2. One
+     step at batch 2, 64x64, conditioned weights, is held against the same
+     step on the CPU.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
 All f32 work runs with TF32 off for both cuDNN and matmuls, except the
-5 steps that measure TF32 on.
+5 steps of each trainer that measure TF32 on.
 """
 
 from __future__ import annotations
@@ -84,6 +96,9 @@ TOLERANCES = {
     "attention_bwd": 2e-5,
     # exp of bitwise-equal f32 distances over <= 5 terms, renormalized
     "encode_ab2ind": 1e-6,
+    # dot products of C <= 66 f32 products in the order of c against the
+    # plain einsum's order, then one addition of beta; entries reach about 10
+    "prob_grad": 1e-5,
 }
 # kernel D's saved softmax statistics against the plain version's: the row max
 # (a depth-8 dot, or exactly -1e9) absolutely, the row sum of up to 256
@@ -93,6 +108,12 @@ STATS_TOL = 1e-5
 # of the plain versions, relative to the largest entry: the unpooling
 # gradient sums 256 products per token and reaches tens in size
 FUNCTION_TOL = 1e-5
+# the affinity head's gradients against autograd of the plain head (cuDNN's
+# conv2d + softmax on the card), relative to each gradient's largest entry:
+# kernel B's forward within 1e-5 of the plain one, then sums over up to
+# 524,288 pixels in another order (8.8e-7 at most on an H100; the bias
+# gradient's terms cancel, and two orders of its sum differ by 6.7e-6 on the CPU)
+HEAD_BWD_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -366,8 +387,7 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     del t24, bare, t_in, mass_in, hard_in
 
     # B: affinity head, 16 -> 9; also at C = 3 (the chunked instance) on a
-    # ragged 17x33 image, twice each for bitwise equality, and the guard that
-    # keeps autograd from differentiating through it
+    # ragged 17x33 image, twice each for bitwise equality
     x = rand(n, h, w, 16)
     kernel, bias = rand(3, 3, 16, 9) * 0.2, rand(9) * 0.1
     out = affinity.affinity_head(x, kernel, bias)
@@ -380,11 +400,6 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
         err = max(err, max_err(o_r, affinity.affinity_head_plain(xr, kr, br)))
         if not torch.equal(o_r, affinity.affinity_head(xr, kr, br)):
             raise AssertionError(f"affinity_head, C={c}, 17x33: two runs are not bitwise equal")
-    try:
-        affinity.affinity_head(xr.requires_grad_(), kr, br)
-        raise AssertionError("affinity_head: an input that requires grad did not raise under autograd")
-    except NotImplementedError as e:
-        log(f"affinity_head under autograd raises, as it must until stage-1 training: {str(e)[:60]}...")
     log("affinity_head at C=16, 256x256 and 17x33, and at C=3, 17x33: bitwise equal twice")
     x_cl = x.permute(0, 3, 1, 2)  # channels_last NCHW view, no copy
     w_oihw = kernel.permute(3, 2, 0, 1).contiguous()
@@ -695,7 +710,9 @@ def card_vs_cpu(col, size: int = 256, atol: float = 1e-3):
     return errs
 
 
-TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "shift_add": 2, "attention": 12, "attention_bwd": 12}
+# the frozen segnet's affinity map needs no gradient: no prob_grad launch
+TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "shift_add": 2, "attention": 12, "attention_bwd": 12,
+                  "prob_grad": 0}
 
 
 def drive_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 24, size: int = 256, n_images: int = 240):
@@ -778,6 +795,17 @@ def drive_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 24
     return counts
 
 
+def centering_shift(out, gap: float):
+    """Per-channel shift (dim 1 of an NCHW ``out``) that moves each channel's
+    mean to about 0.5 std and, where one of 50 candidates allows, keeps every
+    entry at least ``gap`` std from 0 (else the first candidate)."""
+    mean, std = out.mean(dim=(0, 2, 3)), out.std(dim=(0, 2, 3))
+    shifts = (0.5 + 0.01 * torch.arange(50.0, device=out.device))[:, None] * std - mean  # (candidates, C)
+    dist = torch.stack([(out + sh[None, :, None, None]).abs().amin(dim=(0, 2, 3)) for sh in shifts])
+    first = torch.argmax((dist >= gap * std).int(), dim=0)  # the first candidate with the gap (else 0)
+    return shifts[first, torch.arange(out.shape[1], device=out.device)]
+
+
 def _center_conv_biases(model, gray, color, gap: float = 1e-3):
     """Shift each trainable conv's bias so its output channels have mean about
     0.5 std on this batch, and no output lies within ``gap`` std of 0.
@@ -797,12 +825,7 @@ def _center_conv_biases(model, gray, color, gap: float = 1e-3):
 
     def center(mod, inp, out):
         with torch.no_grad():
-            base = out + partner.pop(mod, 0.0)
-            mean, std = base.mean(dim=(0, 2, 3)), base.std(dim=(0, 2, 3))
-            shifts = (0.5 + 0.01 * torch.arange(50.0))[:, None] * std - mean  # (candidates, C)
-            dist = torch.stack([(base + sh[None, :, None, None]).abs().amin(dim=(0, 2, 3)) for sh in shifts])
-            first = torch.argmax((dist >= gap * std).int(), dim=0)  # the first candidate with the gap (else 0)
-            shift = shifts[first, torch.arange(out.shape[1])]
+            shift = centering_shift(out + partner.pop(mod, 0.0), gap)
             mod.bias += shift
             return out + shift[None, :, None, None]
 
@@ -815,6 +838,34 @@ def _center_conv_biases(model, gray, color, gap: float = 1e-3):
     buffers = {k: v.clone() for k, v in model.named_buffers()}
     with torch.no_grad():
         model(gray, color, test_mode=False, train=True)
+    for h in hooks:
+        h.remove()
+    model.load_state_dict({**model.state_dict(), **buffers})
+
+
+def condition_spixelnet(model, gray, gap: float = 1e-4):
+    """The same for a ``SpixelSeg`` in training mode: shift each BatchNorm's
+    and each deconvolution's bias, whose outputs are the LeakyReLU(0.1)
+    inputs, to mean about 0.5 std with no output within ``gap`` std of 0 on
+    this batch. An input within rounding of 0 takes the other side of the kink
+    on another device or in another framework, and each such flip moves a
+    weight gradient by about 1/sqrt(pixels) of its size. 1e-4 and not 1e-3:
+    the 64x64 levels hold 8,192 entries a channel at batch 2, and a gap that
+    wide leaves no candidate free of them. The running statistics keep their
+    values."""
+    from disentangledcolorization_tpu_torch.models.layers import BatchNorm
+
+    def center(mod, inp, out):
+        with torch.no_grad():
+            shift = centering_shift(out, gap)
+            mod.bias += shift
+            return out + shift[None, :, None, None]
+
+    hooks = [m.register_forward_hook(center) for m in model.modules()
+             if isinstance(m, (BatchNorm, torch.nn.ConvTranspose2d))]
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    with torch.no_grad():
+        model(gray, train=True)
     for h in hooks:
         h.remove()
     model.load_state_dict({**model.state_dict(), **buffers})
@@ -889,6 +940,207 @@ def drive_labels(device):
     return counts
 
 
+def compare_stage_one(device, n: int = 128, size: int = 256, sp_size: int = 16, c: int = 4):
+    """Phase 7, kernels: kernel G against its plain version at stage 1's
+    shape in both forms (pooling's, with beta; unpooling's, without), at C=5,
+    and on a ragged 48x80 image (a 3x5 grid of 16x16 cells; 6x10 cells at C=4
+    and 66), twice for bitwise equality; timed by CUDA events and by device
+    time. Then the affinity head's backward against autograd of the plain head."""
+    from disentangledcolorization_tpu_torch.ops import affinity, superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    hc = size // sp_size
+    x, tok, beta = rand(n, size, size, c), rand(n, hc, hc, c), rand(n, hc, hc)
+    cases = [(x, tok, beta, sp_size, sp_size), (x, tok, None, sp_size, sp_size),
+             (rand(8, size, size, 5), rand(8, hc, hc, 5), rand(8, hc, hc), sp_size, sp_size)]
+    for (sh, sw), cc in (((16, 16), 4), ((6, 10), 4), ((6, 10), 66)):
+        cases.append((rand(2, 48, 80, cc), rand(2, 48 // sh, 80 // sw, cc), rand(2, 48 // sh, 80 // sw), sh, sw))
+    err = 0.0
+    for xx, tt, bb, sh, sw in cases:
+        out = superpixel.prob_grad(xx, tt, bb, sh, sw)
+        if not torch.equal(out, superpixel.prob_grad(xx, tt, bb, sh, sw)):
+            raise AssertionError(f"prob_grad {tuple(xx.shape)}, {sh}x{sw}: two runs on the same inputs are not bitwise equal")
+        err = max(err, max_err(out, superpixel.prob_grad_plain(xx, tt, bb, sh, sw)))
+        del out
+    log(f"prob_grad (kernel G) at (128,256,256,4) with and without beta, C=5, 48x80 at 16x16 and 6x10 cells (C=4, 66): "
+        f"bitwise equal twice, max|d| {err:.3e}")
+    timed = {}
+    for label, bb in (("with beta (pooling)", beta), ("without beta (unpooling)", None)):
+        fn = lambda bb=bb: superpixel.prob_grad(x, tok, bb, sp_size, sp_size)  # noqa: E731
+        b_ms, b_by = bound(nbytes(x, tok, bb) + n * size * size * 9 * 4, n * size * size * 9 * (2.0 * c + 1))
+        timed[label] = dict(ms=time_ms(fn, device), device_ms=device_ms(fn)[0], bound_ms=b_ms, bound_by=b_by,
+                            plain_ms=time_ms(lambda bb=bb: superpixel.prob_grad_plain(x, tok, bb, sp_size, sp_size),
+                                             device, warmup=1, iters=5))
+        log(f"prob_grad {label}, batch {n}, C={c}: ms={timed[label]['ms']:.4f} device {timed[label]['device_ms']:.4f} "
+            f"plain_ms={timed[label]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
+    row = dict(
+        name="prob_grad", route="cuda", source="disentangledcolorization_tpu_torch/csrc/prob_grad.cu",
+        replaces="disentangledcolorization_tpu/ops/superpixel.py:40 (no Pallas kernel: XLA autodiff of poolfeat "
+                 ":40-91 and upfeat :95-129 w.r.t. prob)",
+        max_abs_err=err, library_ms=None, **timed["with beta (pooling)"],
+    )
+    log(f"kernel prob_grad: max|d|={err:.3e} (tol {TOLERANCES['prob_grad']:.0e}) ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) library_ms=None")
+    if not err <= TOLERANCES["prob_grad"]:
+        raise AssertionError(f"prob_grad: max|d| {err} above {TOLERANCES['prob_grad']}")
+    del x, tok, beta, cases
+    extras = {"prob_grad_without_beta": timed["without beta (unpooling)"]}
+
+    # the head's backward: the softmax's, then cuDNN's conv gradients, against
+    # autograd of conv2d + softmax; the weight as the model passes it
+    worst = {}
+    for shape in ((8, 256, 256, 16), (2, 17, 33, 3)):
+        nn_, hh, ww, cc = shape
+        xh, w_oihw, bh, gh = rand(*shape), rand(9, cc, 3, 3) * 0.2, rand(9) * 0.1, rand(nn_, hh, ww, 9)
+        grads = []
+        for fn in (affinity.affinity_head, affinity.affinity_head_plain):
+            xs = [t.clone().requires_grad_() for t in (xh, w_oihw, bh)]
+            grads.append(torch.autograd.grad(fn(xs[0], xs[1].permute(2, 3, 1, 0), xs[2]), xs, gh))
+        for name, a, r in zip(("x", "kernel", "bias"), *grads):
+            worst[f"{shape}:{name}"] = max_err(a, r) / float(r.abs().max())
+    log(f"affinity_head backward vs autograd of the plain head, max|d|/max|g|: {json.dumps(worst)} (tol {HEAD_BWD_TOL:.0e})")
+    if not all(v <= HEAD_BWD_TOL for v in worst.values()):
+        raise AssertionError(f"affinity_head backward: {worst} above {HEAD_BWD_TOL}")
+    xh, w_oihw, bh, gh = rand(8, 256, 256, 16), rand(9, 16, 3, 3) * 0.2, rand(9) * 0.1, rand(8, 256, 256, 9)
+    xs = [t.clone().requires_grad_() for t in (xh, w_oihw, bh)]
+    out = affinity.affinity_head(xs[0], xs[1].permute(2, 3, 1, 0), xs[2])
+    back = lambda: torch.autograd.grad(out, xs, gh, retain_graph=True)  # noqa: E731
+    dev, by_kernel = device_ms(back)
+    extras["affinity_head_backward_b8"] = dict(ms=time_ms(back, device), device_ms=dev, kernels=by_kernel)
+    log(f"affinity_head backward alone, batch 8, C=16: ms={extras['affinity_head_backward_b8']['ms']:.4f} "
+        f"device {dev:.4f}: {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}")
+    extras["affinity_head_backward_max_rel_err"] = worst
+    return row, extras
+
+
+# stage 1: the head, pooling (A + F) and unpooling (C) forward; unpooling's
+# token gradient (A + F) and both affinity-map gradients (G); the features
+# need no gradient, so pooling's backward runs no kernel C
+SPIXEL_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "shift_add": 2, "upfeat": 1, "prob_grad": 2, "attention": 0,
+                   "attention_bwd": 0, "encode_ab2ind": 0}
+
+
+def drive_spixel_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 128, size: int = 256,
+                          n_images: int = 128, psize: int = 16):
+    """Phase 7: stage-1 training at the recipe's configuration
+    (``scripts/spixelseg_ab16.sh``) on a device-resident synthetic set:
+    ``steps`` steps with TF32 off, then ``tf32_steps`` with it on. The set is
+    one batch, shuffled every epoch, so each step sees the same images and the
+    loss must fall from the first step to the last. Returns the launch counts
+    of the TF32-off steps and the measurements."""
+    from disentangledcolorization_tpu_torch.models import SpixelSeg
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.train import data, optim, state, steps as steps_lib
+
+    torch.manual_seed(130)
+    model = SpixelSeg().to(device)
+    st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 20, n_images // batch))
+    if len(st.optimizer.params) != len(list(model.parameters())):
+        raise AssertionError("stage 1: some SpixelSeg parameter is left out of the optimizer")
+    train_step = steps_lib.make_spixel_train_step(psize)
+    ds = data.synthetic_spixel_dataset(n_images, size, device, seed=2)
+    log(f"stage-1 training set: {n_images} images {size}x{size} on the card, "
+        f"{nbytes(ds['gray'], ds['feat']) / 1e6:.1f} MB (+ one {size}x{size} coordinate grid)")
+    loader = data.DeviceIndexLoader(n_images, batch, shuffle=True, seed=0)
+
+    def batches():
+        epoch = 0
+        while True:
+            loader.set_epoch(epoch)
+            for idx in loader:
+                idx = torch.as_tensor(idx, device=device)
+                yield {k: v[idx] for k, v in ds.items()}
+            epoch += 1
+
+    it = batches()
+
+    def run(n_steps):
+        secs, metrics = [], []
+        for _ in range(n_steps):
+            b = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(train_step(st, b, 130))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs, [{k: float(v) for k, v in m.items()} for m in metrics]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    secs, metrics = run(steps)
+    counts = dict(kernels.LAUNCHES)
+    log(f"stage-1 training path: launch counts {json.dumps(counts)} over {steps} steps")
+    for kname, per in SPIXEL_PER_STEP.items():
+        if counts[kname] != per * steps:
+            raise AssertionError(f"stage 1, {kname}: {counts[kname]} launches, expected {per} per step x {steps}")
+    total = [m["totalLoss"] for m in metrics]
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite stage-1 losses: {metrics}")
+    log("stage-1 losses (totalLoss, featLoss, posLoss per step): "
+        + json.dumps([[round(m[k], 5) for k in ("totalLoss", "featLoss", "posLoss")] for m in metrics]))
+    if not total[-1] < total[0]:
+        raise AssertionError(f"stage 1: the loss did not fall over {steps} steps: {total}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = secs[1:]
+    off = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady))
+    log(f"stage-1 step, TF32 off: s per step {[round(x, 4) for x in secs]} (first includes cuDNN warm-up); "
+        f"steady {off['s_per_step']:.4f} s/step, {off['images_per_s']:.2f} images/s at batch {batch}, {size}x{size}; "
+        f"peak device memory {peak:.2f} GB")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    secs_on, metrics_on = run(tf32_steps)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steady = secs_on[1:]
+    on = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady))
+    log(f"stage-1 step, TF32 on: s per step {[round(x, 4) for x in secs_on]}; steady {on['s_per_step']:.4f} s/step, "
+        f"{on['images_per_s']:.2f} images/s; losses {[round(m['totalLoss'], 5) for m in metrics_on]}")
+    return counts, {"tf32_off": off, "tf32_on": on, "peak_memory_gb": peak, "losses": total}
+
+
+def spixel_card_vs_cpu(device, size: int = 64, batch: int = 2, tol: float = 1e-3):
+    """One stage-1 step on the card against the same step on the CPU (plain
+    versions), conditioned weights, SGD: losses relative, gradients per tensor
+    against its largest entry, BatchNorm running statistics absolutely."""
+    from disentangledcolorization_tpu_torch.models import SpixelSeg
+    from disentangledcolorization_tpu_torch.train import data, state, steps as steps_lib
+
+    torch.manual_seed(9)
+    model = SpixelSeg()
+    b = data.synthetic_spixel_dataset(batch, size, "cpu", seed=10)
+    with torch.backends.mkldnn.flags(enabled=False):
+        condition_spixelnet(model, b["gray"])
+    sd = model.state_dict()
+    results = []
+    for dev in (device, torch.device("cpu")):
+        m = SpixelSeg()
+        m.load_state_dict(sd)
+        m.to(dev)
+        st = state.TrainState.create(m, name="sgd", schedule=0.1, momentum=0.0)
+        grads, apply = {}, st.optimizer.step
+        st.optimizer.step = lambda m=m, apply=apply: grads.update(
+            {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters() if p.grad is not None}) or apply()
+        with torch.backends.mkldnn.flags(enabled=False):  # oneDNN's f32 CPU convs round less exactly
+            metrics = steps_lib.make_spixel_train_step(16)(st, {k: v.to(dev) for k, v in b.items()}, 0)
+        stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        results.append(({k: float(v) for k, v in metrics.items()}, grads, stats))
+    (m_dev, g_dev, s_dev), (m_cpu, g_cpu, s_cpu) = results
+    loss_err = max(abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    grad_err = {k: float((g_dev[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu}
+    stat_err = max(max_err(s_dev[k], s_cpu[k]) for k in s_cpu)
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    log(f"stage-1 step card vs CPU ({batch}x{size}x{size}): losses rel {loss_err:.3e}; gradients max|d|/max|g| "
+        f"worst {json.dumps(worst)} over {len(grad_err)} tensors; running statistics max|d| {stat_err:.3e}")
+    if sorted(g_dev) != sorted(g_cpu) or not loss_err <= tol or not all(v <= tol for v in grad_err.values()) \
+            or not stat_err <= tol:
+        raise AssertionError(f"stage-1 step: card and CPU disagree beyond {tol}")
+    return {"losses_rel": loss_err, "gradients_worst": worst, "running_stats": stat_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -899,6 +1151,8 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing beside this script: {e}", file=sys.stderr)
         return 3
     device = torch.device("cuda")
+    start = time.perf_counter()
+    mark = lambda phase: log(f"phase {phase} done at {time.perf_counter() - start:.1f} s")  # noqa: E731
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -918,16 +1172,18 @@ def main() -> int:
     report_ptxas(kernels.BUILD_LOG)
     sass = sass_weight_reads(kernels)
     log(f"kernel B, C=16 instance (two pixels a thread), SASS: {json.dumps(sass) if sass else 'not measured (no cuobjdump)'}")
+    mark(2)
 
     # 3. kernels against their plain versions
     rows = compare_kernels(device)
     training_rows, extras = compare_training_kernels(device)
     extras["affinity_head_c16_sass"] = sass
     rows += training_rows
+    mark(3)
 
     # 4. serving path
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
-    per_forward = {"pool_stats": 1, "shift_add": 1, "affinity_head": 1, "upfeat": 1, "attention": 12}
+    per_forward = {"pool_stats": 1, "shift_add": 1, "affinity_head": 1, "upfeat": 1, "attention": 12, "prob_grad": 0}
     log(f"main path: launch counts {json.dumps(counts)} over {forwards} forwards")
     for k, per in per_forward.items():
         if counts[k] != per * forwards:
@@ -938,15 +1194,26 @@ def main() -> int:
         f"steady {8 * len(steady) / sum(steady):.1f} images/s at batch 8, 256x256, f32, TF32 off")
     card_vs_cpu(col)
     del col
+    mark(4)
 
     # 5. training path
     train_counts = drive_training(device)
     train_card_vs_cpu(device)
+    mark(5)
 
     # 6. label path
     label_counts = drive_labels(device)
+    mark(6)
 
-    paths = {"serving": counts, "training": train_counts, "labels": label_counts}
+    # 7. stage-1 (SpixelNet) training
+    g_row, stage_one = compare_stage_one(device)
+    rows.append(g_row)
+    extras.update(stage_one)
+    spixel_counts, extras["spixel_training"] = drive_spixel_training(device)
+    extras["spixel_card_vs_cpu"] = spixel_card_vs_cpu(device)
+    mark(7)
+
+    paths = {"serving": counts, "training": train_counts, "labels": label_counts, "spixel_training": spixel_counts}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -1,12 +1,16 @@
 """SpixelNet's affinity head: 3x3 SAME conv C -> 9, bias, softmax over the 9. NHWC.
 
 Counterpart of ``disentangledcolorization_tpu/ops/pallas_affinity.py``
-(``fused_affinity_head`` and its XLA formulation ``_xla_affinity_head``).
-Kernel B (``csrc/affinity_head.cu``) computes it for CUDA tensors, forward
-only: its gradient (K1's ``custom_vjp`` in the JAX package) comes with stage-1
-SpixelNet training, so a CUDA call that autograd would differentiate raises
-rather than return an output with no ``grad_fn``. The CPU plain version keeps
-its gradients.
+(``fused_affinity_head``, its XLA formulation ``_xla_affinity_head`` and the
+``custom_vjp`` ``affinity_head``). Kernel B (``csrc/affinity_head.cu``)
+computes the forward for CUDA tensors, the plain version for CPU tensors.
+Where autograd needs a gradient, :class:`_AffinityHead` carries it: the
+forward saves the NHWC input and the softmax output, and the backward is the
+softmax's, ``dlogit = prob * (g - sum_d prob * g)``, then the convolution's
+input and weight gradients (cuDNN on the card) and the sum of ``dlogit`` for
+the bias. That is the JAX package's own choice (its backward is ``jax.vjp`` of
+the XLA conv plus softmax, ``pallas_affinity.py:129-133``), and the same
+function runs on the CPU with the plain forward.
 """
 
 from __future__ import annotations
@@ -27,16 +31,10 @@ def affinity_head_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tenso
     return torch.softmax(y, dim=1).permute(0, 2, 3, 1).contiguous()
 
 
-def affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Kernel B for CUDA tensors, the plain version for CPU tensors."""
+def _affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Kernel B for CUDA tensors, the plain version for CPU tensors; no autograd."""
     if x.device.type == "cpu":
         return affinity_head_plain(x, kernel, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
-        raise NotImplementedError(
-            "affinity_head: no gradient through kernel B; it comes with the stage-1 "
-            "(SpixelNet training) slice of the port (ROADMAP.md). Call it under "
-            "torch.no_grad() or with inputs that do not require grad."
-        )
     kernel = kernel.contiguous()
     check_cuda("affinity_head", {"x": x, "kernel": kernel, "bias": bias})
     n, h, w, c = x.shape
@@ -52,3 +50,43 @@ def affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     out = torch.empty((n, h, w, 9), device=x.device, dtype=torch.float32)
     launch("affinity_head", x, kernel, bias, out, n, h, w, c)
     return out
+
+
+def softmax_backward(prob: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The logits' gradient from the softmax output and its gradient, (N,H,W,9)."""
+    return prob * (g - (prob * g).sum(-1, keepdim=True))
+
+
+class _AffinityHead(torch.autograd.Function):
+    """Kernel B forward; the softmax's backward, then the convolution's
+    gradients (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        prob = _affinity_head(x, kernel, bias)
+        ctx.save_for_backward(x, kernel, prob)
+        return prob
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, prob = ctx.saved_tensors
+        dlogit = softmax_backward(prob, g)
+        dl = dlogit.permute(0, 3, 1, 2)  # NCHW views of the NHWC tensors
+        x_nchw = x.float().permute(0, 3, 1, 2)
+        g_x = g_kernel = g_bias = None
+        if ctx.needs_input_grad[0]:
+            w_oihw = kernel.float().permute(3, 2, 0, 1)
+            g_x = torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dl, padding=1).permute(0, 2, 3, 1)
+        if ctx.needs_input_grad[1]:
+            g_kernel = torch.nn.grad.conv2d_weight(x_nchw, (9, x.shape[-1], 3, 3), dl, padding=1).permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[2]:
+            g_bias = dlogit.sum(dim=(0, 1, 2))
+        return g_x, g_kernel, g_bias
+
+
+def affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Kernel B for CUDA tensors, the plain version for CPU tensors, with the
+    gradients w.r.t. all three inputs where autograd asks for them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        return _AffinityHead.apply(x, kernel, bias)
+    return _affinity_head(x, kernel, bias)

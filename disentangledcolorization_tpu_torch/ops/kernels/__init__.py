@@ -48,6 +48,7 @@ KERNELS = {
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
+    "prob_grad": ("prob_grad.cu", "disco_prob_grad", [*[_P] * 4, *[_I] * 6, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

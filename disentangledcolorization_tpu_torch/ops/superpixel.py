@@ -10,18 +10,26 @@ Pallas kernels in ``ops/pallas_superpixel.py``:
 Direction order d=0..8 is (top-left, top, top-right, left, center, right,
 bottom-left, bottom, bottom-right): off_d spans (-1,-1)..(1,1) row-major.
 
-Both ops carry autograd to their feature/token input, through the same
-kernels (the JAX package's ``custom_vjp``s at ``superpixel.py:200-223`` and
-``:269-286`` differentiate the XLA formulation instead):
+Both ops carry autograd to both inputs, through kernels (the JAX package's
+``custom_vjp``s at ``superpixel.py:200-223`` and ``:269-286`` differentiate
+the XLA formulation instead):
 
   pooled = shift_add(t) / (mass + 1e-8)  =>  d feat   = upfeat(g * s, prob),  s = 1 / ((mass + 1e-8) * sp_h*sp_w)
   out    = upfeat(tokens, prob)           =>  d tokens = shift_add(pool_stats(g, prob, scale=1).t)
 
 (``shift_add`` and upfeat's zero-padded neighbour read are adjoint.) The
 per-token factor ``s`` rides into kernel C as ``tok_scale`` and unpooling's
-backward asks kernel A for unscaled sums, so neither backward pass touches
-the pixels outside its kernel. The affinity ``prob`` gets no gradient:
-stage-2 training freezes it, and a ``prob`` that requires grad raises.
+backward asks kernel A for unscaled sums. The affinity map's gradient has one
+form in both ops, since pixel p of cell q feeds token q+off_d in direction d:
+
+  d prob[n,p,d] = sum_c x[n,p,c] * T[n,q+off_d,c] + beta[n,q+off_d]      (kernel G)
+
+  pooling:    x = feat, T = g * s, beta = -s * sum_c g * pooled + g_mass / (sp_h*sp_w)
+  unpooling:  x = g,    T = tokens, beta = 0
+
+with T and beta zero off the grid; T and beta are torch ops on the token grid.
+Every gradient is computed only where its input needs one, so no backward
+pass touches the pixels outside a kernel.
 """
 
 from __future__ import annotations
@@ -130,44 +138,93 @@ def shift_add(t, mass=None, hard=None):
     return out, mass_sum, sizes
 
 
-def _check_prob(name: str, prob: torch.Tensor) -> None:
-    if prob.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name}: no gradient w.r.t. the affinity map; it comes with the stage-1 "
-            "(SpixelNet training) slice of the port (ROADMAP.md). Detach prob."
-        )
+# shared floats kernel G may take a block: the card's 227 KB
+_PROB_GRAD_SMEM_FLOATS = 232448 // 4
+
+
+def _neighbours(x: torch.Tensor) -> torch.Tensor:
+    """(N, hc, wc, ...) -> (N, hc, wc, 9, ...): direction d holds token
+    (i, j) + off_d, zero outside the grid."""
+    n, hc, wc = x.shape[:3]
+    xp = x.new_zeros((n, hc + 2, wc + 2) + tuple(x.shape[3:]))
+    xp[:, 1:-1, 1:-1] = x
+    return torch.stack([xp[:, 1 + dy : 1 + dy + hc, 1 + dx : 1 + dx + wc] for dy, dx in _OFFSETS], dim=3)
+
+
+def prob_grad_plain(x, tokens, beta=None, sp_h: int = 16, sp_w: int = 16):
+    """Plain version of kernel G: x (N,H,W,C), tokens T (N,hc,wc,C), beta
+    (N,hc,wc) or None -> (N,H,W,9) f32, d prob[n,p,d] = x[n,p] . T[n,q+off_d]
+    + beta[n,q+off_d] for pixel p of cell q, zero terms off the grid."""
+    n, hc, wc, c = tokens.shape
+    xb = _block(x.float(), sp_h, sp_w)
+    out = torch.einsum("nhpwqc,nhwdc->nhpwqd", xb, _neighbours(tokens.float()))
+    if beta is not None:
+        out = out + _neighbours(beta.float())[:, :, None, :, None, :]
+    return out.reshape(n, hc * sp_h, wc * sp_w, 9)
+
+
+def prob_grad(x, tokens, beta=None, sp_h: int = 16, sp_w: int = 16):
+    """Kernel G (``csrc/prob_grad.cu``) for CUDA tensors, the plain version for
+    CPU tensors. Same output as :func:`prob_grad_plain`."""
+    given = {"x": x, "tokens": tokens} | ({} if beta is None else {"beta": beta})
+    if all(v.device.type == "cpu" for v in given.values()):
+        return prob_grad_plain(x, tokens, beta, sp_h, sp_w)
+    check_cuda("prob_grad", given)
+    n, h, w, c = x.shape
+    if h % sp_h or w % sp_w:
+        raise ValueError(f"prob_grad: {h}x{w} is not a multiple of the {sp_h}x{sp_w} cell")
+    hc, wc = h // sp_h, w // sp_w
+    if tokens.shape != (n, hc, wc, c) or (beta is not None and beta.shape != (n, hc, wc)):
+        raise ValueError(f"prob_grad: tokens {tuple(tokens.shape)} / beta {None if beta is None else tuple(beta.shape)} "
+                         f"do not fit x {tuple(x.shape)} at a {sp_h}x{sp_w} cell")
+    rows = min(max(1, 256 // sp_w), sp_h)  # the kernel's pass: whole rows of the cell
+    if 9 * (c + 1 + rows * sp_w) > _PROB_GRAD_SMEM_FLOATS:  # tokens, beta, the pass's output
+        raise ValueError(f"prob_grad: C={c} at a {sp_h}x{sp_w} cell needs more shared memory than a block has")
+    out = torch.empty((n, h, w, 9), device=x.device, dtype=torch.float32)
+    launch("prob_grad", x, tokens, beta, out, n, hc, wc, c, sp_h, sp_w)
+    return out
 
 
 class _Pool(torch.autograd.Function):
-    """Kernels A and F forward; the features-gradient is kernel C (module docstring)."""
+    """Kernels A and F forward; the features' gradient is kernel C, the
+    affinity map's kernel G (module docstring)."""
 
     @staticmethod
     def forward(ctx, feat, prob, sp_h, sp_w, with_hard):
         t, mass, hard = pool_stats(feat, prob, sp_h, sp_w, with_hard)
         pooled, mass_sum, sizes = shift_add(t, mass, hard)
-        ctx.save_for_backward(prob, mass_sum)
+        # the features and the pooled output enter only the affinity map's gradient
+        ctx.save_for_backward(prob, mass_sum, *((feat, pooled) if ctx.needs_input_grad[1] else ()))
         ctx.cell = (sp_h, sp_w)
-        ctx.mark_non_differentiable(*(x for x in (mass_sum, sizes) if x is not None))
-        ctx.set_materialize_grads(False)  # no zero-filled gradients for mass_sum and sizes
+        if sizes is not None:
+            ctx.mark_non_differentiable(sizes)  # winner-take-all: zero gradient, as in JAX
+        ctx.set_materialize_grads(False)  # no zero-filled gradients for unused outputs
         return pooled, mass_sum, sizes
 
     @staticmethod
     def backward(ctx, g_pooled, g_mass, g_sizes):
-        if g_pooled is None:
-            return None, None, None, None, None
-        prob, mass_sum = ctx.saved_tensors
+        prob, mass_sum, *saved = ctx.saved_tensors
         sp_h, sp_w = ctx.cell
         tok_scale = torch.reciprocal((mass_sum[..., 0] + 1e-8) * float(sp_h * sp_w))
-        return _upfeat(g_pooled.contiguous(), prob, sp_h, sp_w, tok_scale), None, None, None, None
+        g_feat = g_prob = None
+        if ctx.needs_input_grad[0] and g_pooled is not None:
+            g_feat = _upfeat(g_pooled.contiguous(), prob, sp_h, sp_w, tok_scale)
+        if ctx.needs_input_grad[1]:
+            feat, pooled = saved
+            g = torch.zeros_like(pooled) if g_pooled is None else g_pooled
+            beta = -tok_scale * (g * pooled).sum(-1)
+            if g_mass is not None:
+                beta = beta + g_mass[..., 0] / float(sp_h * sp_w)
+            g_prob = prob_grad(feat, (g * tok_scale[..., None]).contiguous(), beta.contiguous(), sp_h, sp_w)
+        return g_feat, g_prob, None, None, None
 
 
 def pool_and_sizes(feat, prob, sp_h: int = 16, sp_w: int = 16):
     """poolfeat(need_entry_prob=True) and get_spixel_size from one pass of kernel A.
 
     Returns (pooled (N,hc,wc,C), mass (N,hc,wc,1), sizes (N,hc,wc,1)); pooled
-    carries the gradient w.r.t. ``feat``.
+    and mass carry the gradients w.r.t. ``feat`` and ``prob``.
     """
-    _check_prob("pool_and_sizes", prob)
     pooled, mass_sum, sizes = _Pool.apply(feat, prob, sp_h, sp_w, True)
     return pooled.to(feat.dtype), mass_sum.to(feat.dtype), sizes.to(feat.dtype)
 
@@ -176,7 +233,6 @@ def poolfeat(feat, prob, sp_h: int = 16, sp_w: int = 16, need_entry_prob: bool =
     """Soft-pool pixel features (N,H,W,C) onto the token grid (N,hc,wc,C),
     optionally with the per-token soft mass (N,hc,wc,1). Kernel A without the
     hard counts."""
-    _check_prob("poolfeat", prob)
     pooled, mass_sum, _ = _Pool.apply(feat, prob, sp_h, sp_w, False)
     if need_entry_prob:
         return pooled.to(feat.dtype), mass_sum.to(feat.dtype)
@@ -194,11 +250,8 @@ def upfeat_plain(tokens, prob, up_h: int = 16, up_w: int = 16, tok_scale=None):
     ``tok_scale`` (N,hc,wc) where given, -> (N,H,W,C) pixels, f32."""
     n, hc, wc, c = tokens.shape
     scaled = tokens.float() if tok_scale is None else tokens.float() * tok_scale.float()[..., None]
-    tp = scaled.new_zeros((n, hc + 2, wc + 2, c))
-    tp[:, 1:-1, 1:-1] = scaled
-    s = torch.stack([tp[:, 1 + dy : 1 + dy + hc, 1 + dx : 1 + dx + wc] for dy, dx in _OFFSETS], dim=3)
     pb = _block(prob.float(), up_h, up_w)
-    out = torch.einsum("nhpwqd,nhwdc->nhpwqc", pb, s)
+    out = torch.einsum("nhpwqd,nhwdc->nhpwqc", pb, _neighbours(scaled))
     return out.reshape(n, hc * up_h, wc * up_w, c).to(tokens.dtype)
 
 
@@ -220,27 +273,33 @@ def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
 
 
 class _Upfeat(torch.autograd.Function):
-    """Kernel C forward; the tokens-gradient is kernels A and F (module docstring)."""
+    """Kernel C forward; the tokens' gradient is kernels A and F, the affinity
+    map's kernel G (module docstring)."""
 
     @staticmethod
     def forward(ctx, tokens, prob, up_h, up_w):
-        ctx.save_for_backward(prob)
+        ctx.save_for_backward(prob, tokens)
         ctx.cell = (up_h, up_w)
         return _upfeat(tokens, prob, up_h, up_w)
 
     @staticmethod
     def backward(ctx, g):
-        (prob,) = ctx.saved_tensors
+        prob, tokens = ctx.saved_tensors
         up_h, up_w = ctx.cell
-        t, _, _ = pool_stats(g.contiguous(), prob, up_h, up_w, with_hard=False, with_mass=False, scale=1.0)
-        return shift_add(t)[0], None, None, None
+        g = g.contiguous()
+        g_tok = g_prob = None
+        if ctx.needs_input_grad[0]:
+            t, _, _ = pool_stats(g, prob, up_h, up_w, with_hard=False, with_mass=False, scale=1.0)
+            g_tok = shift_add(t)[0]
+        if ctx.needs_input_grad[1]:
+            g_prob = prob_grad(g, tokens, None, up_h, up_w)
+        return g_tok, g_prob, None, None
 
 
 def upfeat(tokens, prob, up_h: int = 16, up_w: int = 16):
     """Soft-unpool tokens (N,hc,wc,C) to pixels (N,H,W,C): kernel C for CUDA
-    tensors, the plain version for CPU tensors, with the gradient w.r.t.
-    ``tokens``."""
-    _check_prob("upfeat", prob)
+    tensors, the plain version for CPU tensors, with the gradients w.r.t.
+    ``tokens`` and ``prob``."""
     return _Upfeat.apply(tokens, prob, up_h, up_w)
 
 
@@ -248,3 +307,18 @@ def upfeat_fused(tokens, prob, up_h: int = 16, up_w: int = 16):
     """Entry of ``pallas_superpixel.py::upfeat_fused`` (K6), the per-direction
     formulation of the same function as :func:`upfeat`: kernel C serves both."""
     return upfeat(tokens, prob, up_h, up_w)
+
+
+def init_spixel_grid(img_height: int, img_width: int, spixel_size: int = 16, device=None):
+    """The shifted superpixel-id grid and the (x, y) pixel coordinates, as JAX
+    ``ops/superpixel.py::init_spixel_grid``: spixel_ids (H, W, 9) and
+    coord_feat (H, W, 2), float32 on ``device``."""
+    n_h, n_w = img_height // spixel_size, img_width // spixel_size
+    sp_h, sp_w = img_height // n_h, img_width // n_w
+    ids = torch.arange(n_h * n_w, dtype=torch.float32).reshape(n_h, n_w)
+    padded = torch.nn.functional.pad(ids[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    shifted = torch.stack([padded[1 + dy : 1 + dy + n_h, 1 + dx : 1 + dx + n_w] for dy, dx in _OFFSETS], dim=-1)
+    spixel_ids = shifted.repeat_interleave(sp_h, dim=0).repeat_interleave(sp_w, dim=1)
+    ys, xs = torch.meshgrid(torch.arange(img_height), torch.arange(img_width), indexing="ij")
+    coord_feat = torch.stack([xs, ys], dim=-1).to(torch.float32)
+    return spixel_ids.to(device), coord_feat.to(device)

@@ -18,6 +18,8 @@ initialisation gives it, and ``weight_u`` is the ``spectral`` u.
 
 :func:`grads_from_jax` maps a gradient tree (shaped like ``params``) the same
 way: every transform above is a permutation, so it carries gradients too.
+:func:`spixel_from_jax_variables` and :func:`spixel_grads_from_jax` do both
+for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys).
 """
 
 from __future__ import annotations
@@ -178,7 +180,7 @@ def _hourglass(b: _StateDictBuilder, tprefix: str, path: tuple):
     b.conv(f"{tprefix}outConv", path + ("out_conv",))
 
 
-def _build(b: _StateDictBuilder) -> dict[str, torch.Tensor]:
+def _anchor_color_prob(b: _StateDictBuilder) -> None:
     _spixelnet(b, "segnet.net.", ("segnet", "net"))
     _colorprobnet(b, "repnet.", ("repnet",))
     _encoder(b, "wildpath.", ("wildpath",))
@@ -186,6 +188,14 @@ def _build(b: _StateDictBuilder) -> dict[str, torch.Tensor]:
     for name in ("mid_word_prj", "trg_word_emb", "trg_word_prj"):
         b.linear(name, (name,))
     _hourglass(b, "enhanceNet.", ("enhanceNet",))
+
+
+def _spixel_seg(b: _StateDictBuilder) -> None:
+    _spixelnet(b, "net.", ("net",))
+
+
+def _build(b: _StateDictBuilder, walker=_anchor_color_prob) -> dict[str, torch.Tensor]:
+    walker(b)
     return {k: torch.tensor(np.array(v)) for k, v in b.sd.items()}
 
 
@@ -205,6 +215,19 @@ def grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:
     parameter name -> gradient of that parameter (deconv flip, transposes and
     spectral-norm ``weight_orig`` as for the weights; no buffers)."""
     return _build(_StateDictBuilder({"params": grads}, sn_folded=False, buffers=False))
+
+
+def spixel_from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """SpixelSeg flax variables (params and batch_stats; as built by
+    ``convert_spixelseg_state_dict`` or ``model.init``, or a stage-1 train
+    state's) -> the port's SpixelSeg ``state_dict`` (``net.*`` keys)."""
+    return _build(_StateDictBuilder(variables, sn_folded=False), _spixel_seg)
+
+
+def spixel_grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:
+    """A gradient tree shaped like SpixelSeg's ``params`` -> port parameter
+    name -> gradient (deconv flip and transposes as for the weights)."""
+    return _build(_StateDictBuilder({"params": grads}, sn_folded=False, buffers=False), _spixel_seg)
 
 
 def fold_spectral_norm(state_dict: dict) -> dict:

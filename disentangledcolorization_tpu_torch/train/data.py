@@ -54,3 +54,26 @@ def synthetic_dataset(n: int, size: int = 256, device=None, seed: int = 0) -> di
     gen = torch.Generator(device=device).manual_seed(seed)
     lab = rgb2lab(torch.rand((n, size, size, 3), generator=gen, device=device))
     return {"gray": lab[..., :1].contiguous(), "color": lab[..., 1:].contiguous()}
+
+
+def synthetic_spixel_dataset(n: int, size: int = 256, device=None, seed: int = 0) -> dict:
+    """Stage 1's synthetic set (``--feat ab``): {'gray': (n, size, size, 1),
+    'feat': (n, size, size, 2) the ab channels, 'coord': (n, size, size, 2)}
+    normalized Lab, with ``coord`` the (x, y) grid of ``init_spixel_grid``
+    broadcast over the images (a view: no memory per image).
+
+    Each image is an 11 x 11 grid of random colours, upsampled by nearest
+    neighbour (at 256x256 the edges fall inside the 16x16 cells), plus
+    uniform noise of 0.05. White noise, as in
+    :func:`synthetic_dataset`, would leave nothing to learn: its pooled
+    reconstruction error is the same for every affinity map."""
+    from ..ops.superpixel import init_spixel_grid
+    from ..utils.color import rgb2lab
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    coarse = torch.rand((n, 3, 11, 11), generator=gen, device=device)
+    rgb = torch.nn.functional.interpolate(coarse, size=(size, size), mode="nearest").permute(0, 2, 3, 1)
+    rgb = (rgb + 0.05 * (torch.rand((n, size, size, 3), generator=gen, device=device) - 0.5)).clamp(0.0, 1.0)
+    lab = rgb2lab(rgb)
+    _, coord = init_spixel_grid(size, size, device=device)  # the (x, y) grid: no cell size enters it
+    return {"gray": lab[..., :1].contiguous(), "feat": lab[..., 1:].contiguous(), "coord": coord.expand(n, size, size, 2)}

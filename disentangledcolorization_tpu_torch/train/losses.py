@@ -1,11 +1,11 @@
-"""Colorizer training losses. NHWC.
+"""Training losses of both stages. NHWC.
 
-Counterpart of ``disentangledcolorization_tpu/train/losses.py`` (``:33-84``,
-``:103-186``): l1/l2/masked-l1/huber, cross entropy over bin indices, the
-Laplacian-gradient loss and ``AnchorColorProbLoss``. The VGG19 perceptual term
-waits for VGG19 weights in the repository: without them the JAX package falls
-back to a pixel L1 reconstruction term with a warning, and so does this port;
-passing weights raises. ``spixel_loss`` comes with stage-1 training.
+Counterpart of ``disentangledcolorization_tpu/train/losses.py`` (``:33-186``):
+l1/l2/masked-l1/huber, cross entropy over bin indices, the Laplacian-gradient
+loss, stage 1's ``spixel_loss`` and stage 2's ``AnchorColorProbLoss``. The
+VGG19 perceptual term waits for VGG19 weights in the repository: without them
+the JAX package falls back to a pixel L1 reconstruction term with a warning,
+and so does this port; passing weights raises.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import colorlabel as cl
+from ..ops import superpixel as sp
 
 EPS = 1e-7
 
@@ -65,6 +66,19 @@ def laplace_gradient_loss(pred_ab, target_ab):
         return y.permute(0, 2, 3, 1)
 
     return l1_loss(lap(target_ab), lap(pred_ab))
+
+
+def spixel_loss(pred_prob, labxy_feat, kernel_size: int = 16) -> dict:
+    """Stage-1 superpixel loss: pool the target features with the predicted
+    affinity (N,H,W,9), unpool them again, and take the mean L2 distance of the
+    reconstruction, features (all channels but the last two) and (x, y)
+    position (the last two, divided by the cell size) apart."""
+    pooled = sp.poolfeat(labxy_feat, pred_prob, kernel_size, kernel_size)
+    recon = sp.upfeat(pooled, pred_prob, kernel_size, kernel_size)
+    diff = recon - labxy_feat
+    feat_loss = torch.linalg.vector_norm(diff[..., :-2], dim=-1).mean()
+    pos_loss = torch.linalg.vector_norm(diff[..., -2:], dim=-1).mean() / kernel_size
+    return {"totalLoss": 10.0 * feat_loss + 0.003 * pos_loss, "featLoss": feat_loss, "posLoss": pos_loss}
 
 
 class AnchorColorProbLoss:

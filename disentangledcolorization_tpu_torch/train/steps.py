@@ -1,6 +1,6 @@
-"""Colorizer (stage 2) train and eval steps.
+"""Train and eval steps of both stages: SpixelNet (stage 1) and the colorizer (stage 2).
 
-Counterpart of ``disentangledcolorization_tpu/train/steps.py`` (``:44-215``).
+Counterpart of ``disentangledcolorization_tpu/train/steps.py`` (``:19-215``).
 A step updates the ``TrainState`` in place and returns the loss metrics as
 0-d tensors on the model's device (no host sync).
 
@@ -22,7 +22,27 @@ import numpy as np
 import torch
 
 from ..ops import colorlabel as cl
+from .losses import spixel_loss
 from .state import TrainState
+
+
+def make_spixel_train_step(kernel_size: int = 16):
+    """Stage-1 step: ``step(state, {'gray': (N,H,W,1), 'feat': (N,H,W,F),
+    'coord': (N,H,W,2)}, seed) -> metrics`` on a state over ``SpixelSeg``. ``feat`` is the reconstruction feature (ab or BGR), ``coord``
+    the (x, y) grid of ``init_spixel_grid``. BatchNorm uses and updates batch
+    statistics. The step draws no random numbers; ``seed`` keeps the stage-2
+    signature."""
+
+    def step(state: TrainState, batch: dict, seed: int = 0) -> dict:
+        state.optimizer.zero_grad()
+        prob = state.model(batch["gray"], train=True)
+        labxy = torch.cat([batch["feat"], batch["coord"]], dim=-1)
+        metrics = spixel_loss(prob, labxy, kernel_size)
+        metrics["totalLoss"].backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
 
 
 def step_generators(device, *entropy: int) -> tuple[torch.Generator, torch.Generator]:

@@ -4,9 +4,11 @@ Held against ``ops/pallas_affinity.py::fused_affinity_head`` in interpret mode
 and its XLA formulation ``_xla_affinity_head``. Tolerance 1e-5 absolute on
 softmax probabilities: f32 3x3 convs summed in another order. The shapes
 include what kernel B's tiles (8 rows x 32 columns) leave ragged and channel
-counts off its 16-channel chunks (3, 4, 20). On the CPU the head keeps its
-gradients: they are held against ``jax.vjp`` of the XLA formulation, which is
-K1's ``custom_vjp`` backward.
+counts off its 16-channel chunks (3, 4, 20). The gradients come from the
+port's autograd function (the softmax's backward, then the convolution's
+input and weight gradients and the bias sum), on the CPU around the plain
+forward; they are held against ``jax.vjp`` of the XLA formulation, which is
+K1's ``custom_vjp`` backward, 1e-5 of each gradient's largest entry.
 """
 
 import jax
@@ -54,3 +56,34 @@ def test_affinity_head_gradients_on_the_cpu_match_jax(shape):
     _, vjp = jax.vjp(pa._xla_affinity_head, jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias))
     for a, b in zip(ours, vjp(jnp.asarray(g))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False), (False, True, True), (False, False, True)])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 16), (1, 17, 33, 3), (1, 8, 8, 20)])
+def test_affinity_head_function_backward_matches_jax(shape, needs):
+    """The autograd function's hand-written backward, for the inputs that
+    need a gradient alone, with the weight as the model passes it (a permuted
+    view of the OIHW conv weight)."""
+    x, kernel, bias = _inputs(shape)
+    g = np.random.default_rng(8).normal(size=shape[:3] + (9,)).astype(np.float32)
+    w_oihw = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+    xs = [torch.from_numpy(x), w_oihw, torch.from_numpy(bias)]
+    for t, need in zip(xs, needs):
+        t.requires_grad_(need)
+    out = affinity.affinity_head(xs[0], xs[1].permute(2, 3, 1, 0), xs[2])
+    assert type(out.grad_fn).__name__ == "_AffinityHeadBackward"
+    out.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(pa._xla_affinity_head, jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias))
+    refs = [np.asarray(r) for r in vjp(jnp.asarray(g))]
+    refs[1] = refs[1].transpose(3, 2, 0, 1)  # HWIO -> the OIHW parameter's layout
+    for t, need, ref in zip(xs, needs, refs):
+        assert (t.grad is not None) == need
+        if need:
+            np.testing.assert_allclose(t.grad.numpy(), ref, atol=1e-5 * np.abs(ref).max(), rtol=0)
+
+
+def test_affinity_head_without_a_gradient_needs_no_function():
+    x, kernel, bias = (torch.from_numpy(a) for a in _inputs((1, 8, 8, 16)))
+    assert affinity.affinity_head(x, kernel, bias).grad_fn is None
+    with torch.no_grad():
+        assert affinity.affinity_head(x.requires_grad_(), kernel, bias).grad_fn is None

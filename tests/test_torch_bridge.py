@@ -164,13 +164,14 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
         (attention.attention(q, k, v, 8, None, keep, 0.1), attention.attention_plain(q, k, v, 8, None, keep, 0.1)),
         (attention.attention_bwd(q, k, v, v, 8), attention.attention_bwd_plain(q, k, v, v, 8)),
         (colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)),
+        (superpixel.prob_grad(feat, tok, tok[..., 0], 16, 16), superpixel.prob_grad_plain(feat, tok, tok[..., 0], 16, 16)),
     ]
     for a, b in pairs:
         for x_, y_ in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x_, y_)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
     assert set(kernels.LAUNCHES) == {
-        "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind"
+        "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind", "prob_grad"
     }
 
 

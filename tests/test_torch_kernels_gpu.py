@@ -8,7 +8,8 @@ the CPU suite holds the plain versions against the JAX package). On a card:
 Shapes here are small and ragged (every channel-vector width, sp=8 and a
 6x10 cell, rectangular grids, views at odd offsets, head widths 8..64, odd
 pixel counts and K on both sides of kernel E's two kernels, ties between bins,
-kernel B's ragged tiles and channel chunks);
+kernel B's ragged tiles and channel chunks, kernel G's cells up to rows wider
+than a block);
 ``chip_smoke.py`` covers the paths' shapes. Tolerances as there: 1e-5
 absolute (1e-6 for kernel E; the autograd functions' gradients 1e-5 of their
 largest entry).
@@ -151,24 +152,95 @@ def test_affinity_head_kernel_takes_views_at_odd_offsets(cuda, c):
 
 
 def test_affinity_head_rejects_what_kernel_b_does_not_take(cuda):
-    """C above the constant bank's 128 channels raises before any launch, and so
-    does a call that autograd would differentiate (no gradient through kernel
-    B until stage-1 training); under no_grad the same call runs."""
+    """C above the constant bank's 128 channels raises before any launch;
+    under autograd the same call as under no_grad runs kernel B once, and its
+    gradients (the softmax's backward, then cuDNN's convolution gradients)
+    match autograd of the plain version, 1e-5 of each gradient's largest
+    entry, for whichever inputs require grad."""
     from disentangledcolorization_tpu_torch.ops import affinity, kernels
 
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="C=129"):
         affinity.affinity_head(_rand(cuda, 1, 4, 4, 129), _rand(cuda, 3, 3, 129, 9), _rand(cuda, 9))
-    x, k, b = _rand(cuda, 1, 8, 8, 16).requires_grad_(), _rand(cuda, 3, 3, 16, 9), _rand(cuda, 9)
-    with pytest.raises(NotImplementedError, match="stage-1"):
-        affinity.affinity_head(x, k, b)
-    with pytest.raises(NotImplementedError, match="stage-1"):
-        affinity.affinity_head(x.detach(), k.requires_grad_(), b)
     assert kernels.LAUNCHES["affinity_head"] == 0
+    x, k, b = _rand(cuda, 1, 8, 8, 16), _rand(cuda, 3, 3, 16, 9, seed=1) * 0.3, _rand(cuda, 9, seed=2)
+    g = _rand(cuda, 1, 8, 8, 9, seed=3)
+    for needs in ((True, False, False), (False, True, True), (True, True, True)):
+        ours = [t.clone().requires_grad_(need) for t, need in zip((x, k, b), needs)]
+        ref = [t.clone().requires_grad_(need) for t, need in zip((x, k, b), needs)]
+        kernels.reset_launch_counts()
+        out = affinity.affinity_head(*ours)
+        assert type(out.grad_fn).__name__ == "_AffinityHeadBackward" and kernels.LAUNCHES["affinity_head"] == 1
+        out.backward(g)
+        affinity.affinity_head_plain(*ref).backward(g)
+        for a, r, need in zip(ours, ref, needs):
+            assert (a.grad is not None) == need
+            if need:
+                torch.testing.assert_close(a.grad, r.grad, atol=1e-5 * float(r.grad.abs().max()), rtol=0)
     with torch.no_grad():
-        out = affinity.affinity_head(x, k, b)
-    assert out.grad_fn is None and kernels.LAUNCHES["affinity_head"] == 1
-    torch.testing.assert_close(out, affinity.affinity_head_plain(x.detach(), k.detach(), b), atol=1e-5, rtol=0)
+        out = affinity.affinity_head(x.requires_grad_(), k, b)
+    assert out.grad_fn is None
+    torch.testing.assert_close(out, affinity.affinity_head_plain(x.detach(), k, b), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 17, 33, 3), (1, 64, 64, 16), (3, 9, 40, 20)])
+def test_affinity_head_gradients(cuda, n, h, w, c):
+    """The head's backward on ragged tiles and channel chunks against autograd
+    of the plain version (conv2d + softmax), with the weight as the model
+    passes it (a permuted view of the OIHW conv weight)."""
+    from disentangledcolorization_tpu_torch.ops import affinity
+
+    x, w_oihw, b = _rand(cuda, n, h, w, c), _rand(cuda, 9, c, 3, 3, seed=1) * 0.3, _rand(cuda, 9, seed=2)
+    g = _rand(cuda, n, h, w, 9, seed=3)
+    grads = []
+    for fn in (affinity.affinity_head, affinity.affinity_head_plain):
+        xs = [t.clone().requires_grad_() for t in (x, w_oihw, b)]
+        grads.append(torch.autograd.grad(fn(xs[0], xs[1].permute(2, 3, 1, 0), xs[2]), xs, g))
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()), rtol=0)
+
+
+# (n, hc, wc, c, sp_h, sp_w): stage 1's C=4 and C=5, every vector width, a
+# ragged grid, 6x10 and 8x8 cells, a cell wider than a block (rows of 300)
+PROB_GRAD_CASES = [(2, 4, 4, 4, 16, 16), (1, 3, 5, 5, 16, 16), (1, 8, 8, 4, 6, 10), (2, 3, 2, 66, 8, 8),
+                   (1, 2, 3, 2, 16, 16), (1, 1, 1, 7, 16, 16), (1, 2, 1, 130, 16, 16), (1, 2, 2, 3, 2, 300)]
+
+
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", PROB_GRAD_CASES)
+@pytest.mark.parametrize("with_beta", [False, True])
+def test_prob_grad_kernel(cuda, n, hc, wc, c, sh, sw, with_beta):
+    """Kernel G against its plain version, 1e-5 absolute (dot products of at
+    most 130 products in another order); the same bits twice."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    x, tok = _rand(cuda, n, hc * sh, wc * sw, c), _rand(cuda, n, hc, wc, c, seed=1)
+    beta = _rand(cuda, n, hc, wc, seed=2) if with_beta else None
+    out = sp.prob_grad(x, tok, beta, sh, sw)
+    torch.testing.assert_close(out, sp.prob_grad_plain(x, tok, beta, sh, sw), atol=1e-5, rtol=0)
+    assert torch.equal(out, sp.prob_grad(x, tok, beta, sh, sw))
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_prob_grad_kernel_takes_views_at_odd_offsets(cuda, offset):
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    x = _odd_view(_rand(cuda, 2, 32, 48, 4), offset)
+    tok, beta = _rand(cuda, 2, 2, 3, 4, seed=1), _rand(cuda, 2, 2, 3, seed=2)
+    assert x.data_ptr() % 16 != 0
+    torch.testing.assert_close(sp.prob_grad(x, tok, beta, 16, 16), sp.prob_grad_plain(x, tok, beta, 16, 16),
+                               atol=1e-5, rtol=0)
+
+
+def test_prob_grad_rejects_what_kernel_g_does_not_take(cuda):
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    x, tok = _rand(cuda, 1, 32, 32, 4), _rand(cuda, 1, 2, 2, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        sp.prob_grad(x, tok[..., :3].contiguous(), None, 16, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        sp.prob_grad(x[:, :30].contiguous(), tok, None, 16, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        sp.prob_grad(_rand(cuda, 1, 16, 16, 7000), _rand(cuda, 1, 1, 1, 7000), None, 16, 16)
 
 
 @pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES + [(2, 4, 4, 64, 16, 16), (1, 3, 5, 7, 8, 8)])
@@ -208,24 +280,31 @@ def test_shift_add_kernel(cuda, n, hc, wc, c):
 
 
 def test_superpixel_functions_launch_their_kernels(cuda):
-    """pool_and_sizes is kernels A and F, its backward kernel C alone; upfeat is
-    kernel C, its backward kernels A and F."""
+    """pool_and_sizes is kernels A and F, its backward kernel C for the
+    features and kernel G for the affinity map; upfeat is kernel C, its
+    backward kernels A and F for the tokens and kernel G for the affinity map.
+    Each backward kernel runs only where its input needs a gradient."""
     from disentangledcolorization_tpu_torch.ops import kernels
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
     n, hc, wc, c, s = 2, 3, 4, 66, 16
-    prob = _tied_prob(cuda, n, hc * s, wc * s)
-    feat, tok = _rand(cuda, n, hc * s, wc * s, c).requires_grad_(), _rand(cuda, n, hc, wc, c, seed=2).requires_grad_()
-    ours = ("pool_stats", "upfeat", "shift_add")
+    prob0 = _tied_prob(cuda, n, hc * s, wc * s)
+    ours = ("pool_stats", "upfeat", "shift_add", "prob_grad")
     counts = []
-    for run in (lambda: sp.pool_and_sizes(feat, prob, s, s)[0], lambda: sp.upfeat(tok, prob, s, s)):
-        kernels.reset_launch_counts()
-        out = run()
-        counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
-        kernels.reset_launch_counts()
-        out.sum().backward()
-        counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
-    assert counts == [(1, 0, 1), (0, 1, 0), (0, 1, 0), (1, 0, 1)]
+    for x_grad, p_grad in ((True, False), (False, True), (True, True)):
+        prob = prob0.clone().requires_grad_(p_grad)
+        feat = _rand(cuda, n, hc * s, wc * s, c).requires_grad_(x_grad)
+        tok = _rand(cuda, n, hc, wc, c, seed=2).requires_grad_(x_grad)
+        for run in (lambda: sp.pool_and_sizes(feat, prob, s, s)[0], lambda: sp.upfeat(tok, prob, s, s)):
+            kernels.reset_launch_counts()
+            out = run()
+            counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
+            kernels.reset_launch_counts()
+            out.sum().backward()
+            counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
+    assert counts == [(1, 0, 1, 0), (0, 1, 0, 0), (0, 1, 0, 0), (1, 0, 1, 0),
+                      (1, 0, 1, 0), (0, 0, 0, 1), (0, 1, 0, 0), (0, 0, 0, 1),
+                      (1, 0, 1, 0), (0, 1, 0, 1), (0, 1, 0, 0), (1, 0, 1, 1)]
 
 
 @pytest.mark.parametrize("n,t,d,nhead", [(2, 256, 64, 8), (1, 50, 64, 4), (3, 17, 128, 2), (1, 9, 32, 1)])
@@ -405,24 +484,31 @@ def test_encode_ab2ind_kernel(cuda, shape, neighbours):
 
 @pytest.mark.parametrize("s", [8, 16])
 def test_superpixel_function_gradients(cuda, s):
-    """The pooling gradient (kernel C) and the unpooling gradient (kernel A)
-    against autograd of the plain versions."""
+    """The pooling gradients (kernel C for the features, kernel G for the
+    affinity map, through pooled and mass) and the unpooling gradients
+    (kernels A and F for the tokens, kernel G) against autograd of the plain
+    versions, 1e-5 of each gradient's largest entry."""
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
     n, hc, wc, c = 2, 3, 5, 66
-    prob = torch.softmax(_rand(cuda, n, hc * s, wc * s, 9, seed=1), -1).contiguous()
+    prob0 = torch.softmax(_rand(cuda, n, hc * s, wc * s, 9, seed=1), -1).contiguous()
 
-    def plain_pool(f):
+    def plain_pool(f, prob):
         t, mass, _ = sp.pool_stats_plain(f, prob, s, s, with_hard=False)
-        return sp.shift_add_plain(t, mass)[0]
+        return sp.shift_add_plain(t, mass)[:2]
 
     cases = [
-        (lambda f: sp.pool_and_sizes(f, prob, s, s)[0], plain_pool, (n, hc * s, wc * s, c), (n, hc, wc, c)),
-        (lambda t: sp.upfeat(t, prob, s, s), lambda t: sp.upfeat_plain(t, prob, s, s), (n, hc, wc, c), (n, hc * s, wc * s, c)),
+        (lambda f, p: sp.pool_and_sizes(f, p, s, s)[:2], plain_pool, (n, hc * s, wc * s, c), [(n, hc, wc, c), (n, hc, wc, 1)]),
+        (lambda t, p: (sp.upfeat(t, p, s, s),), lambda t, p: (sp.upfeat_plain(t, p, s, s),), (n, hc, wc, c),
+         [(n, hc * s, wc * s, c)]),
     ]
-    for fn, plain, x_shape, g_shape in cases:
-        x, g = _rand(cuda, *x_shape, seed=2), _rand(cuda, *g_shape, seed=3)
-        xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-        ga = torch.autograd.grad(fn(xa), xa, g)[0]
-        gb = torch.autograd.grad(plain(xb), xb, g)[0]
-        torch.testing.assert_close(ga, gb, atol=1e-5 * float(gb.abs().max()), rtol=0)
+    for fn, plain, x_shape, g_shapes in cases:
+        x = _rand(cuda, *x_shape, seed=2)
+        gs = [_rand(cuda, *shape, seed=3 + i) for i, shape in enumerate(g_shapes)]
+        grads = []
+        for f in (fn, plain):
+            xa, pa = x.clone().requires_grad_(), prob0.clone().requires_grad_()
+            outs = f(xa, pa)
+            grads.append(torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, gs)), (xa, pa)))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)

@@ -8,6 +8,10 @@ package's XLA formulation (``ops/superpixel.py``) and through its Pallas
 functions (``_pool_and_sizes_fused``/``_upfeat_fused``, interpret mode),
 and ``upfeat_fused`` (K6's entry) against ``pallas_superpixel.upfeat_fused``.
 Tolerance 1e-5 absolute: f32 sums of at most 256 products in another order.
+The affinity map's gradient (kernel G's function, ``prob_grad``) of
+``poolfeat`` (with and without the mass), ``upfeat`` and ``pool_and_sizes`` is
+held against ``jax.vjp`` of the XLA formulation at C = 4, 5 and 66, on square
+and ragged grids and a 6x10 cell: 1e-5 of the gradient's largest entry.
 ``NON_POW2`` adds a 6x10 cell, where 1 / (sp_h*sp_w) is inexact in f32 and its
 place in the arithmetic (on the tokens before unpooling; nowhere in
 unpooling's backward) shows: the same 1e-5, relative to the largest entry.
@@ -128,12 +132,82 @@ def test_gradients_at_a_cell_that_is_no_power_of_two(n, h, w, c, sh, sw):
     np.testing.assert_allclose(t.grad.numpy(), ref, atol=ATOL * np.abs(ref).max(), rtol=0)
 
 
-def test_prob_gradient_raises_until_stage_one():
-    feat, prob, tok = _inputs(5, 1, 16, 16, 2, 16)
+# (n, h, w, sp_h, sp_w): a square grid, a ragged 3x5 grid, and a 6x10 cell
+PROB_GRIDS = [(2, 32, 32, 16, 16), (1, 48, 80, 16, 16), (1, 18, 40, 6, 10)]
+PROB_CASES = [(n, h, w, c, sh, sw) for c in (4, 5, 66) for n, h, w, sh, sw in PROB_GRIDS]
+
+
+def _prob_close(ours, ref):
+    """1e-5 of the reference gradient's largest entry."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(ours.detach().numpy(), ref, atol=ATOL * np.abs(ref).max(), rtol=0)
+
+
+def _prob_grad(fn, prob, *cotangents):
+    """The port's gradient w.r.t. ``prob`` of sum(outputs * cotangents)."""
     p = torch.from_numpy(prob).requires_grad_()
-    for call in (lambda: tsp.pool_and_sizes(torch.from_numpy(feat), p, 16, 16),
-                 lambda: tsp.upfeat(torch.from_numpy(tok), p, 16, 16)):
-        with pytest.raises(NotImplementedError, match="stage-1"):
-            call()
-    with torch.no_grad():
-        tsp.upfeat(torch.from_numpy(tok), p, 16, 16)
+    outs = fn(p)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(sum((o * torch.from_numpy(g)).sum() for o, g in zip(outs, cotangents)), p)[0]
+
+
+@pytest.mark.parametrize("need_entry_prob", [False, True])
+@pytest.mark.parametrize("n,h,w,c,sh,sw", PROB_CASES)
+def test_poolfeat_prob_grad_matches_jax(n, h, w, c, sh, sw, need_entry_prob):
+    """Kernel G's pooling form (T = g * s, beta = -s * g . pooled, plus the
+    mass's cotangent / (sp_h*sp_w)) against jax.vjp of the XLA poolfeat."""
+    feat, prob, g = _inputs(7, n, h, w, c, sh, sw)
+    gm = np.random.default_rng(8).normal(size=g.shape[:3] + (1,)).astype(np.float32)
+    cot = (g, gm) if need_entry_prob else (g,)
+    ours = _prob_grad(lambda p: tsp.poolfeat(torch.from_numpy(feat), p, sh, sw, need_entry_prob), prob, *cot)
+    _, vjp = jax.vjp(lambda p: sp.poolfeat(jnp.asarray(feat), p, sh, sw, need_entry_prob), jnp.asarray(prob))
+    ref = vjp(tuple(jnp.asarray(x) for x in cot) if need_entry_prob else jnp.asarray(g))[0]
+    _prob_close(ours, ref)
+
+
+@pytest.mark.parametrize("n,h,w,c,sh,sw", PROB_CASES)
+def test_upfeat_prob_grad_matches_jax(n, h, w, c, sh, sw):
+    """Kernel G's unpooling form (x = g, T = the tokens, no beta)."""
+    g_pix, prob, tok = _inputs(9, n, h, w, c, sh, sw)
+    ours = _prob_grad(lambda p: tsp.upfeat(torch.from_numpy(tok), p, sh, sw), prob, g_pix)
+    _, vjp = jax.vjp(lambda p: sp.upfeat(jnp.asarray(tok), p, sh, sw), jnp.asarray(prob))
+    _prob_close(ours, vjp(jnp.asarray(g_pix))[0])
+
+
+@pytest.mark.parametrize("n,h,w,c,sh,sw", PROB_CASES)
+def test_pool_and_sizes_prob_grad_matches_jax(n, h, w, c, sh, sw):
+    """pooled and mass carry the gradient; the winner-take-all sizes carry
+    none, in JAX (comparisons) as in the port (non-differentiable)."""
+    feat, prob, g = _inputs(10, n, h, w, c, sh, sw)
+    rng = np.random.default_rng(11)
+    gm, gs = (rng.normal(size=g.shape[:3] + (1,)).astype(np.float32) for _ in range(2))
+    ours = _prob_grad(lambda p: tsp.pool_and_sizes(torch.from_numpy(feat), p, sh, sw), prob, g, gm, gs)
+    _, vjp = jax.vjp(lambda p: sp._pool_and_sizes_xla(jnp.asarray(feat), p, sh, sw), jnp.asarray(prob))
+    _prob_close(ours, vjp((jnp.asarray(g), jnp.asarray(gm), jnp.asarray(gs)))[0])
+
+
+@pytest.mark.parametrize("feat_grad", [False, True])
+def test_prob_backward_goes_through_the_kernel_wrappers(monkeypatch, feat_grad):
+    """Both affinity-map gradients are kernel G's wrapper (pooling's with a
+    beta, unpooling's without); pooling's backward runs kernel C only when the
+    features need a gradient, and unpooling's kernels A and F only when the
+    tokens do."""
+    feat, prob, tok = _inputs(12, 1, 32, 32, 4, 16)
+    calls = []
+    up, pool, add, grad = tsp._upfeat, tsp.pool_stats, tsp.shift_add, tsp.prob_grad
+    monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append("upfeat") or up(*a))
+    monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append("pool_stats") or pool(*a, **k))
+    monkeypatch.setattr(tsp, "shift_add", lambda *a: calls.append("shift_add") or add(*a))
+    monkeypatch.setattr(tsp, "prob_grad", lambda *a: calls.append(("prob_grad", a[2] is not None)) or grad(*a))
+    f = torch.from_numpy(feat).requires_grad_(feat_grad)
+    t = torch.from_numpy(tok).requires_grad_(feat_grad)
+    p = torch.from_numpy(prob).requires_grad_()
+    pooled = tsp.poolfeat(f, p, 16, 16)
+    out = tsp.upfeat(t, p, 16, 16)
+    calls.clear()
+    pooled.sum().backward()
+    assert calls == (["upfeat"] if feat_grad else []) + [("prob_grad", True)]
+    calls.clear()
+    out.sum().backward()
+    assert calls == (["pool_stats", "shift_add"] if feat_grad else []) + [("prob_grad", False)]
+    assert p.grad.abs().sum() > 0 and (f.grad is not None) == feat_grad and (t.grad is not None) == feat_grad

@@ -41,6 +41,7 @@ from test_torch_bridge import random_state_dict, to_jax_variables  # noqa: E402
 from test_torch_superpixel import _inputs as sp_inputs  # noqa: E402
 import test_torch_attention_grad as agrad  # noqa: E402
 import test_torch_colorlabel as tcl  # noqa: E402
+import test_torch_spixel_train as tspixel  # noqa: E402
 import test_torch_train as ttrain  # noqa: E402
 
 
@@ -105,6 +106,7 @@ def main() -> None:
     ab = rng.uniform(-0.5, 0.5, (4, 3, 2)).astype(np.float32)
     res["colorize_hints_uint8_max_gap"] = err(col.colorize(img, hints=(hm, ab)), jcol.colorize(img, hints=(hm, ab)))
     res.update(training_parity())
+    res.update(spixel_parity())
     print(json.dumps(res))
 
 
@@ -152,6 +154,41 @@ def training_parity() -> dict:
                                            for n in ttrain.LOSSES)
     res["train_step_grads_max_rel_to_max"] = max(
         err(grads[n], ref["grads"][n]) / float(ref["grads"][n].abs().max()) for n in grads)
+    return res
+
+
+def spixel_parity() -> dict:
+    """Stage 1's comparisons: the affinity map's gradients of pooling and
+    unpooling (kernel G's function), the head's gradients, and one stage-1
+    step, on the tests' inputs; gradients relative to their largest entry."""
+    res = {}
+    feat, prob, tok = sp_inputs(0, 2, 64, 64, 4)[:2] + (np.random.default_rng(3).normal(size=(2, 4, 4, 4)).astype(np.float32),)
+    p = torch.from_numpy(prob).requires_grad_()
+    (tsp.poolfeat(torch.from_numpy(feat), p, 16, 16) * torch.from_numpy(tok)).sum().backward()
+    ref = jax.grad(lambda q: jnp.sum(sp.poolfeat(jnp.asarray(feat), q, 16, 16) * jnp.asarray(tok)))(jnp.asarray(prob))
+    res["poolfeat_prob_grad_vs_jax_rel"] = err(p.grad, ref) / float(np.abs(np.asarray(ref)).max())
+    p = torch.from_numpy(prob).requires_grad_()
+    (tsp.upfeat(torch.from_numpy(tok), p, 16, 16) * torch.from_numpy(feat)).sum().backward()
+    ref = jax.grad(lambda q: jnp.sum(sp.upfeat(jnp.asarray(tok), q, 16, 16) * jnp.asarray(feat)))(jnp.asarray(prob))
+    res["upfeat_prob_grad_vs_jax_rel"] = err(p.grad, ref) / float(np.abs(np.asarray(ref)).max())
+    rng = np.random.default_rng(7)
+    x, k = rng.normal(size=(2, 16, 24, 16)).astype(np.float32), (rng.normal(size=(3, 3, 16, 9)) * 0.2).astype(np.float32)
+    b, g = (rng.normal(size=(9,)) * 0.1).astype(np.float32), rng.normal(size=(2, 16, 24, 9)).astype(np.float32)
+    xs = [torch.from_numpy(a).requires_grad_() for a in (x, k, b)]
+    ours = torch.autograd.grad(affinity.affinity_head(*xs), xs, torch.from_numpy(g))
+    _, vjp = jax.vjp(pa._xla_affinity_head, jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    res["affinity_head_grads_vs_jax_rel"] = max(err(a, r) / float(np.abs(np.asarray(r)).max())
+                                                for a, r in zip(ours, vjp(jnp.asarray(g))))
+    with torch.backends.mkldnn.flags(enabled=False):
+        ref = tspixel.ref.__wrapped__()
+        port = tspixel.port.__wrapped__(ref)
+    res["spixel_step_losses_max_rel"] = max(abs(float(port["metrics"][n]) - ref["metrics"][n]) / abs(ref["metrics"][n])
+                                            for n in tspixel.LOSSES)
+    res["spixel_step_grads_max_rel_to_max"] = max(
+        err(port["grads"][n], ref["grads"][n]) / float(ref["grads"][n].abs().max()) for n in ref["grads"])
+    sd = port["model"].state_dict()
+    res["spixel_step_running_stats"] = max(err(sd[n], ref["after"][n]) for n in ref["after"]
+                                           if n.endswith(("running_mean", "running_var")))
     return res
 
 

@@ -1,16 +1,21 @@
-"""Where the PyTorch port's serving forward, or its training step, spends its time on the card.
+"""Where the PyTorch port's serving forward, or a training step, spends its time on the card.
 
 Runs the port's ``AnchorColorProb`` forward (seeded random weights, 6+6
-encoder layers, batch 8 at 256x256, f32), or with ``--train`` its colorizer
+encoder layers, batch 8 at 256x256, f32), with ``--train`` its colorizer
 training step (the recipe's configuration: dropout 0.1, Adam 2e-4 poly,
-batch 24 at 256x256 from 240 synthetic images held on the card), under
-``torch.profiler`` and prints one JSON line per TF32 setting: host ms per
-forward or step, device kernel ms, the device's busy share, the time of each
-hand-written kernel, of the convolutions (cuDNN), and the top kernels by
-device time. Needs a CUDA device:
+batch 24 at 256x256 from 240 synthetic images held on the card), or with
+``--spixel`` the stage-1 SpixelNet training step (``scripts/spixelseg_ab16.sh``:
+batch 128 at 256x256, psize 16, feat ab, Adam 2e-4 poly, on 128 synthetic
+images held on the card), under ``torch.profiler`` and prints one JSON line
+per TF32 setting: host ms per forward or step, device kernel ms, the
+device's busy share, the time of each hand-written kernel, of the
+convolutions (cuDNN) and their share of device time, and the top kernels by
+device time. ``--spixel`` adds the device time of the affinity head's softmax
+backward (its torch ops, at the step's shape, timed alone). Needs a CUDA device:
 
     python tools/profile_port.py [--batch 8] [--size 256] [--iters 5]
     python tools/profile_port.py --train [--batch 24] [--iters 3]
+    python tools/profile_port.py --spixel [--batch 128] [--iters 3]
     python tools/profile_port.py --cat [--batch 24]
 
 ``--cat`` times one op of the model alone, the concatenation of the 64
@@ -40,6 +45,7 @@ OURS = {
     "affinity_head_pipe_kernel": "affinity_head", "upfeat_kernel": "upfeat",
     "shift_add_kernel": "shift_add", "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
     "encode_ab2ind_kernel": "encode_ab2ind", "encode_ab2ind_warp_kernel": "encode_ab2ind",
+    "prob_grad_kernel": "prob_grad",
 }
 
 
@@ -96,6 +102,7 @@ def profile(run, batch: int, iters: int, tf32: bool) -> dict:
         "our_kernels_ms_per_call": ours,
         "our_kernels_share_of_device": sum(ours.values()) / total_ms,
         "conv_like_kernels_ms_per_call": conv_ms,
+        "conv_like_share_of_device": conv_ms / total_ms,
         "top_kernels_ms_per_call": [[n[:90], us / 1e3 / iters] for n, us in top],
     }
 
@@ -145,11 +152,40 @@ def trainer(batch: int, size: int):
     return run
 
 
+def spixel_trainer(batch: int, size: int):
+    """The stage-1 recipe's trainer on ``batch`` synthetic images held on the
+    card (one batch, as in ``chip_smoke.py``); returns a function that takes
+    one step."""
+    from disentangledcolorization_tpu_torch.models import SpixelSeg
+    from disentangledcolorization_tpu_torch.train import data, optim, state, steps
+
+    torch.manual_seed(130)
+    model = SpixelSeg().cuda()
+    st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 20, 1))
+    step = steps.make_spixel_train_step(16)
+    ds = data.synthetic_spixel_dataset(batch, size, "cuda", seed=2)
+    return lambda: step(st, ds, 130)
+
+
+def softmax_backward_ms(batch: int, size: int, iters: int = 20) -> dict:
+    """Device ms of the affinity head's softmax backward (``ops/affinity.py``)
+    at a step's (batch, size, size, 9), by kernel."""
+    from chip_smoke import device_ms
+    from disentangledcolorization_tpu_torch.ops import affinity
+
+    g = torch.Generator().manual_seed(0)
+    prob = torch.softmax(torch.randn(batch, size, size, 9, generator=g), -1).cuda()
+    grad = torch.randn(batch, size, size, 9, generator=g).cuda()
+    ms, by = device_ms(lambda: affinity.softmax_backward(prob, grad), iters)
+    return {"softmax_backward_ms": ms, "softmax_backward_kernels": by}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true", help="profile the colorizer training step")
+    ap.add_argument("--spixel", action="store_true", help="profile the stage-1 SpixelNet training step")
     ap.add_argument("--cat", action="store_true", help="time the proxy concatenation alone")
-    ap.add_argument("--batch", type=int, default=None, help="default 8 (forward) or 24 (--train, --cat)")
+    ap.add_argument("--batch", type=int, default=None, help="default 8 (forward), 24 (--train, --cat) or 128 (--spixel)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args()
@@ -159,6 +195,14 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     if args.cat:
         print(json.dumps({"card": smi, "what": "proxy_cat", **profile_cat(args.batch or 24, args.size)}), flush=True)
+        return
+    if args.spixel:
+        batch = args.batch or 128
+        run = spixel_trainer(batch, args.size)
+        for tf32 in (False, True):
+            res = profile(run, batch, args.iters, tf32)
+            res.update(softmax_backward_ms(batch, args.size))
+            print(json.dumps({"card": smi, "what": "spixel_train_step", **res}), flush=True)
         return
     if args.train:
         batch = args.batch or 24

@@ -52,6 +52,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      affinity_head 1, pool_stats 2, shift_add 2, upfeat 1, prob_grad 2. One
      step at batch 2, 64x64, conditioned weights, is held against the same
      step on the CPU.
+  8. training command lines: a random-init VGG19 npz (seed 0), then
+     ``cli.train_spixel.train`` at the recipe's configuration (batch 32 here)
+     on 64 in-memory synthetic images for 2 epochs (the epoch loss falls;
+     last/best written; ``--resume`` restores the saved step, Adam moments
+     and BatchNorm statistics bit for bit and continues at epoch 2), then
+     ``cli.train_colorizer.train`` at full width with ``--enhanced --vgg_npz``
+     and stage 1's run as ``--spixel_ckpt``, ``--device_data``, batch 24 on 96
+     synthetic images for 2 epochs with validation and dumps (no L1
+     fallback, finite losses, launches per step as in phase 5, images/s and
+     peak memory with TF32 off, then 5 steps with it on), whose best
+     checkpoint then serves one request through ``api.Colorizer``; one step
+     with remat against one without (losses and gradients within 1e-5 of
+     their largest entry, buffers equal, peak memory of each); the
+     perceptual term and its gradient on the card against the CPU at batch 2,
+     64x64 (VGG biases conditioned, the CPU's max pools pinned to the card's
+     winners), within 1e-3.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -62,6 +78,7 @@ All f32 work runs with TF32 off for both cuDNN and matmuls, except the
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -871,6 +888,26 @@ def condition_spixelnet(model, gray, gap: float = 1e-4):
     model.load_state_dict({**model.state_dict(), **buffers})
 
 
+def condition_vgg(vgg, rgb, gap: float = 1e-4):
+    """The same for a ``VGG19Features`` on the RGB batch ``rgb`` (N,H,W,3): shift
+    each conv's bias so its outputs, the ReLU inputs, have mean about 0.5 std
+    with none within ``gap`` std of 0. Two devices or frameworks round the
+    Lab->RGB conversion in front of the VGG apart by a few 1e-6, enough to move
+    a ReLU input near 0 to the other side (measured: the perceptual gradient 1%
+    apart between the packages on random weights)."""
+    def center(mod, inp, out):
+        with torch.no_grad():
+            shift = centering_shift(out, gap)
+            mod.bias += shift
+            return out + shift[None, :, None, None]
+
+    hooks = [m.register_forward_hook(center) for m in vgg.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        vgg(rgb)
+    for h in hooks:
+        h.remove()
+
+
 def train_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = 1e-3):
     """One training step on the card against the same step on the CPU (plain
     versions): full widths, dropout 0, pinned anchors, SGD. Losses relative,
@@ -1141,6 +1178,335 @@ def spixel_card_vs_cpu(device, size: int = 64, batch: int = 2, tol: float = 1e-3
     return {"losses_rel": loss_err, "gradients_worst": worst, "running_stats": stat_err}
 
 
+# phase 8: the launches of one validation batch and of one image dump, on top
+# of the train steps' (stage 2: the eval forward; the dump's forward and three
+# more unpoolings; stage 1: the eval forward and spixel_loss's pooling and unpooling)
+EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 12}
+DUMP_PER_EPOCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 4, "attention": 12}
+SPIXEL_EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1}
+# remat against plain: losses and gradients relative to their largest entry
+# (the recompute may take other cuDNN algorithms for the same convolutions)
+REMAT_TOL = 1e-5
+
+
+def per_step_launches(counts: dict, steps: int, extra: dict) -> dict:
+    """The launches of one train step: a run's counts less its validation and
+    dumps (``extra``: kernel -> launches outside the steps), over its steps."""
+    per = {}
+    for k, n in counts.items():
+        rest = n - extra.get(k, 0)
+        if rest % steps:
+            raise AssertionError(f"{k}: {n} launches, {extra.get(k, 0)} outside the {steps} steps, not a multiple")
+        per[k] = rest // steps
+    return per
+
+
+def states_equal(a, b) -> bool:
+    """Model buffers and parameters, optimizer state, count and step equal bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    moments = all(torch.equal(s[k], ob["optimizer"]["state"][i][k])
+                  for i, s in oa["optimizer"]["state"].items() for k in s)
+    return (a.step == b.step and oa["count"] == ob["count"] and sorted(sa) == sorted(sb)
+            and all(torch.equal(sa[k], sb[k]) for k in sa) and moments)
+
+
+def drive_spixel_cli(device, tmp: str, n_images: int = 64, n_val: int = 32, batch: int = 32, size: int = 256):
+    """Phase 8b: ``cli.train_spixel.train`` at the recipe's configuration on
+    in-memory synthetic images, 2 epochs; the loss falls; last/best written; a
+    ``--resume`` run restores the saved state and continues at epoch 2."""
+    from disentangledcolorization_tpu_torch.cli import train_spixel
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.train import data
+    from disentangledcolorization_tpu_torch.utils.config import spixel_argparser
+
+    sets = [data.synthetic_spixel_dataset(n, size, device, seed=s) for n, s in ((n_images, 4), (n_val, 5))]
+    train_ds, val_ds = (data.ArrayDataset.from_lab(s["gray"], s["feat"]) for s in sets)
+    argv = ["--save_dir", tmp, "--name", "spixel", "--batch_size", str(batch), "--input_size", str(size), "--psize", "16",
+            "--feat", "ab", "--lr", "2e-4", "--scheduler", "poly", "--seed", "130", "--num_workers", "4",
+            "--device", str(device)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train_spixel.train(spixel_argparser().parse_args(argv + ["--epochs", "2"]), train_ds, val_ds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    steps = len(run["step_losses"])
+    per = per_step_launches(counts, steps, {k: 2 * (n_val // batch) * v for k, v in SPIXEL_EVAL_PER_BATCH.items()})
+    log(f"stage-1 command line: {steps} steps in 2 epochs, {secs:.2f} s; launches per step {json.dumps(per)}")
+    if any(per[k] != v for k, v in SPIXEL_PER_STEP.items()):
+        raise AssertionError(f"stage-1 command line: launches per step {per}, expected {SPIXEL_PER_STEP}")
+    epochs = [h["train_loss"] for h in run["history"]]
+    log("stage-1 command line, losses per epoch (train, val): "
+        + json.dumps([[round(h["train_loss"], 5), round(h["val_loss"], 5)] for h in run["history"]]))
+    if not (all(np.isfinite(epochs)) and epochs[1] < epochs[0]):
+        raise AssertionError(f"stage-1 command line: the epoch loss did not fall: {epochs}")
+    ckpt_dir = os.path.join(run["run_dir"], "checkpts")
+    if sorted(os.listdir(ckpt_dir)) != ["model_best.pth.tar", "model_last.pth.tar"]:
+        raise AssertionError(f"stage-1 command line: checkpoints {os.listdir(ckpt_dir)}")
+    same = train_spixel.train(spixel_argparser().parse_args(argv + ["--epochs", "2", "--resume"]), train_ds, val_ds)
+    if same["start_epoch"] != 2 or same["step_losses"] or not states_equal(same["state"], run["state"]):
+        raise AssertionError("stage-1 --resume: the restored state differs from the saved one")
+    more = train_spixel.train(spixel_argparser().parse_args(argv + ["--epochs", "3", "--resume"]), train_ds, val_ds)
+    if [h["epoch"] for h in more["history"]] != [2] or more["state"].step != run["state"].step + steps // 2:
+        raise AssertionError(f"stage-1 --resume did not continue at epoch 2: {more['history']}")
+    log(f"stage-1 --resume: restored at epoch 2, step {same['state'].step}, Adam moments and BatchNorm statistics "
+        f"equal to the saved ones; continued to step {more['state'].step}, loss {more['history'][0]['train_loss']:.5f}")
+    return run["run_dir"], counts, {"seconds": secs, "epoch_losses": epochs, "steps": steps}
+
+
+def drive_colorizer_cli(device, tmp: str, npz: str, spixel_run: str, n_images: int = 96, n_val: int = 24,
+                        batch: int = 24, size: int = 256, tf32_steps: int = 5):
+    """Phase 8c: ``cli.train_colorizer.train`` at the recipe's full width with
+    the VGG19 term and stage 1's run as the frozen segnet, ``--device_data``,
+    2 epochs with validation and dumps; then ``tf32_steps`` steps with TF32
+    on; then the best checkpoint serves one request through ``api.Colorizer``."""
+    import warnings
+
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.cli import train_colorizer
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.train import data, steps as steps_lib
+    from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser
+
+    syn = data.synthetic_dataset(n_images + n_val, size, device, seed=6)
+    train_ds = data.ArrayDataset({k: v[:n_images] for k, v in syn.items()})
+    val_ds = data.ArrayDataset({k: v[n_images:] for k, v in syn.items()})
+    argv = ["--save_dir", tmp, "--name", "colorizer", "--batch_size", str(batch), "--input_size", str(size),
+            "--epochs", "2", "--enhanced", "--vgg_npz", npz, "--spixel_ckpt", spixel_run, "--device_data",
+            "--n_enc", "6", "--n_dec", "6", "--n_clusters", "8", "--lr", "2e-4", "--scheduler", "poly",
+            "--colorfulness", "0.5", "--seed", "130", "--device", str(device)]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run = train_colorizer.train(pcolor_argparser().parse_args(argv), train_ds, val_ds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak_off = torch.cuda.max_memory_allocated() / 1e9
+    if [w for w in caught if "falls back to pixel L1" in str(w.message)]:
+        raise AssertionError("stage-2 command line: the L1 fallback engaged despite --vgg_npz")
+    steps = len(run["step_losses"])
+    extra = {k: 2 * (n_val // batch) * EVAL_PER_BATCH.get(k, 0) + 2 * DUMP_PER_EPOCH.get(k, 0) for k in counts}
+    per = per_step_launches(counts, steps, extra)
+    log(f"stage-2 command line: {steps} steps in 2 epochs, {secs:.2f} s; launches per step {json.dumps(per)}")
+    if any(per[k] != v for k, v in TRAIN_PER_STEP.items()):
+        raise AssertionError(f"stage-2 command line: launches per step {per}, expected phase 5's {TRAIN_PER_STEP}")
+    losses = [m for m in run["step_losses"]]
+    if not all(np.isfinite(v) for m in losses for v in m.values()) or not all(m["recLoss"] > 0 for m in losses):
+        raise AssertionError(f"stage-2 command line: losses {losses}")
+    log("stage-2 command line losses (total, pal, ref, rec per step): "
+        + json.dumps([[round(m[k], 4) for k in ("totalLoss", "palLoss", "refLoss", "recLoss")] for m in losses]))
+    steady = run["step_seconds"][1:]
+    off = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady), peak_gb=peak_off)
+    log(f"stage-2 step with the VGG19 term, TF32 off: s per step {[round(x, 4) for x in run['step_seconds']]} "
+        f"(first includes cuDNN warm-up); steady {off['s_per_step']:.4f} s/step, {off['images_per_s']:.2f} images/s "
+        f"at batch {batch}, {size}x{size}; peak device memory {peak_off:.2f} GB (the whole run)")
+
+    dd = data.stack_dataset(train_ds, device=device)
+    step = steps_lib.make_colorizer_train_step(run["loss"], class_lambda=0.5)
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        secs_on = []
+        for i in range(tf32_steps):
+            b = {k: v[i * batch % n_images:][:batch] for k, v in dd.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = step(run["state"], b, 130)
+            float(m["totalLoss"])
+            secs_on.append(time.perf_counter() - t1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    steady = secs_on[1:]
+    on = dict(s_per_step=sum(steady) / len(steady), images_per_s=batch * len(steady) / sum(steady),
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"stage-2 step with the VGG19 term, TF32 on: s per step {[round(x, 4) for x in secs_on]}; steady "
+        f"{on['s_per_step']:.4f} s/step, {on['images_per_s']:.2f} images/s; peak device memory {on['peak_gb']:.2f} GB")
+
+    best = os.path.join(run["run_dir"], "checkpts", "model_best.pth.tar")
+    col = Colorizer(checkpoint=best, device=device)
+    out = col.colorize(np.random.default_rng(3).integers(0, 256, (size, size, 3), dtype=np.uint8))
+    if out.shape != (size, size, 3) or out.dtype != np.uint8:
+        raise AssertionError("Colorizer(checkpoint=<stage-2 run>): expected a uint8 (H, W, 3) output")
+    log(f"api.Colorizer(checkpoint={os.path.relpath(best, tmp)}) answered one {size}x{size} request")
+    del col
+    return run, counts, {"seconds": secs, "tf32_off": off, "tf32_on": on, "steps": steps}
+
+
+def remat_vs_plain(device, run, batch: int = 24):
+    """Phase 8d: one stage-2 step with remat and one without from the same
+    state and batch, with cuDNN's deterministic algorithms: losses and
+    gradients within REMAT_TOL of their largest entry, BatchNorm statistics
+    and spectral-norm vectors equal. cuDNN's default algorithms are not
+    deterministic: two plain steps differ too (logged, not asserted). Then the
+    cost of each in the default mode, TF32 off and on: seconds and the step's
+    peak memory above the state."""
+    import copy
+
+    from disentangledcolorization_tpu_torch.train import data, state, steps as steps_lib
+
+    b = data.synthetic_dataset(batch, 256, device, seed=7)
+
+    def one_step(remat):
+        model = copy.deepcopy(run["state"].model)
+        st = state.TrainState.create(model, name="sgd", schedule=0.0, momentum=0.0)
+        st.step = run["state"].step
+        grads, apply = {}, st.optimizer.step
+        st.optimizer.step = lambda: grads.update(
+            {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}) or apply()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in steps_lib.make_colorizer_train_step(run["loss"], remat=remat,
+                                                                                class_lambda=0.5)(st, b, 130).items()}
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        bufs = {k: v.clone() for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var", "weight_u", "weight_v"))}
+        return metrics, grads, bufs, peak, secs
+
+    def diff(x, y):
+        (m0, g0, b0, _, _), (m1, g1, b1, _, _) = x, y
+        if sorted(g0) != sorted(g1):
+            raise AssertionError("remat and plain steps give gradients of different parameters")
+        return (max(abs(m1[k] - m0[k]) / abs(m0[k]) for k in m0),
+                max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max()) for k in g0),
+                sum(not torch.equal(b0[k], b1[k]) for k in b0))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_err, grad_err, bufs_differ = diff(one_step(False), one_step(True))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"remat vs plain, one step at batch {batch}, deterministic cuDNN: losses rel {loss_err:.3e}, gradients "
+        f"max|d|/max|g| {grad_err:.3e}, buffers that differ {bufs_differ}")
+    if not loss_err <= REMAT_TOL or not grad_err <= REMAT_TOL or bufs_differ:
+        raise AssertionError("remat and plain steps disagree")
+    out = {"losses_rel": loss_err, "gradients_rel": grad_err}
+    plain = one_step(False)
+    out["default_cudnn_plain_vs_plain"] = diff(plain, one_step(False))
+    log("two plain steps with cuDNN's default algorithms: losses rel {:.3e}, gradients max|d|/max|g| {:.3e}, "
+        "buffers that differ {}".format(*out["default_cudnn_plain_vs_plain"]))
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            cost = {remat: one_step(remat)[3:] for remat in (False, True, False, True)}
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        key = "tf32_on" if tf32 else "tf32_off"
+        out[key] = {"peak_gb_plain": cost[False][0], "peak_gb_remat": cost[True][0], "s_plain": cost[False][1],
+                    "s_remat": cost[True][1]}
+        log(f"remat cost, TF32 {'on' if tf32 else 'off'} (second step of each): step memory above the state "
+            f"plain {cost[False][0]:.2f} GB, remat {cost[True][0]:.2f} GB; s per step plain {cost[False][1]:.4f}, "
+            f"remat {cost[True][1]:.4f}")
+    return out
+
+
+class PinnedPools:
+    """Swaps a ``VGG19Features``' max pools for ones that record their argmax
+    (``record=True``) or take the recorded argmax of another run: the card's
+    and the CPU's pools then pass the gradient to the same inputs, where two
+    inputs of a window lie within rounding of each other."""
+
+    def __init__(self, vgg, indices=None):
+        self.vgg, self.indices, self.record = vgg, [] if indices is None else list(indices), indices is None
+        self.pools = [i for i, m in enumerate(vgg.features) if isinstance(m, torch.nn.MaxPool2d)]
+
+    def _pool(self, x):
+        if self.record:
+            y, idx = F.max_pool2d(x, 2, 2, return_indices=True)
+            self.indices.append(idx.cpu())
+            return y
+        idx = self.indices.pop(0).to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    def __enter__(self):
+        self.saved = [self.vgg.features[i] for i in self.pools]
+        for i in self.pools:
+            self.vgg.features[i] = _Lambda(self._pool)
+        return self
+
+    def __exit__(self, *exc):
+        for i, m in zip(self.pools, self.saved):
+            self.vgg.features[i] = m
+
+
+class _Lambda(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+def perceptual_card_vs_cpu(device, npz: str, size: int = 64, batch: int = 2, tol: float = 1e-3):
+    """Phase 8e: the perceptual term and its gradient with respect to the
+    predicted colours on the card against the CPU, TF32 off: VGG biases
+    conditioned on the prediction's RGB (``condition_vgg``) and the CPU's max
+    pools pinned to the card's winners."""
+    from disentangledcolorization_tpu_torch.models.vgg import load_vgg19
+    from disentangledcolorization_tpu_torch.train import losses
+    from disentangledcolorization_tpu_torch.utils.color import lab2rgb
+
+    rng = np.random.default_rng(8)
+    gray = torch.from_numpy(rng.uniform(-0.8, 0.8, (batch, size, size, 1)).astype(np.float32))
+    gt, pred = (torch.from_numpy(rng.uniform(-0.4, 0.4, (batch, size, size, 2)).astype(np.float32)) for _ in range(2))
+    vgg_cpu = load_vgg19(npz, device="cpu")
+    with torch.backends.mkldnn.flags(enabled=False):
+        condition_vgg(vgg_cpu, lab2rgb(torch.cat([gray, pred], dim=-1)), gap=1e-3)
+    vgg_dev = load_vgg19(npz, device=device)
+    vgg_dev.load_state_dict(vgg_cpu.state_dict())
+    results = []
+    indices = None
+    for dev, vgg in ((device, vgg_dev), (torch.device("cpu"), vgg_cpu)):
+        p = pred.to(dev).requires_grad_()
+        with PinnedPools(vgg, indices) as pins, torch.backends.mkldnn.flags(enabled=False):
+            value = losses.AnchorColorProbLoss(enhanced=True, vgg=vgg).perceptual(gray.to(dev), gt.to(dev), p)
+            value.backward()
+        indices = pins.indices
+        results.append((float(value.detach()), p.grad.cpu()))
+    (v_dev, g_dev), (v_cpu, g_cpu) = results
+    value_err = abs(v_dev - v_cpu) / abs(v_cpu)
+    grad_err = float((g_dev - g_cpu).abs().max() / g_cpu.abs().max())
+    log(f"perceptual term card vs CPU ({batch}x{size}x{size}, TF32 off): value {v_dev:.6f} vs {v_cpu:.6f} "
+        f"(rel {value_err:.3e}), gradient max|d|/max|g| {grad_err:.3e} (tol {tol:.0e})")
+    if not (value_err <= tol and grad_err <= tol):
+        raise AssertionError("perceptual term: card and CPU disagree")
+    return {"value_rel": value_err, "gradient_rel": grad_err}
+
+
+def drive_command_lines(device):
+    """Phase 8: both training command lines, stage 1 -> stage 2, on the card."""
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.models.vgg import make_random_vgg19_npz
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        npz = make_random_vgg19_npz(os.path.join(tmp, "vgg19_random.npz"), seed=0)
+        spixel_run, c1, m1 = drive_spixel_cli(device, tmp)
+        t1 = time.perf_counter()
+        run, c2, m2 = drive_colorizer_cli(device, tmp, npz, spixel_run)
+        t2 = time.perf_counter()
+        m2["remat"] = remat_vs_plain(device, run)
+        t3 = time.perf_counter()
+        m2["perceptual_card_vs_cpu"] = perceptual_card_vs_cpu(device, npz)
+        t4 = time.perf_counter()
+        del run
+    log(f"phase 8 times: stage-1 command line with two resumes {t1 - t0:.1f} s, stage-2 command line with TF32 steps "
+        f"and a request {t2 - t1:.1f} s, remat {t3 - t2:.1f} s, perceptual card vs CPU {t4 - t3:.1f} s")
+    return c1, c2, {"stage1_cli": m1, "stage2_cli": m2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1213,7 +1579,12 @@ def main() -> int:
     extras["spixel_card_vs_cpu"] = spixel_card_vs_cpu(device)
     mark(7)
 
-    paths = {"serving": counts, "training": train_counts, "labels": label_counts, "spixel_training": spixel_counts}
+    # 8. both training command lines, stage 1 -> stage 2
+    spixel_cli_counts, colorizer_cli_counts, extras["command_lines"] = drive_command_lines(device)
+    mark(8)
+
+    paths = {"serving": counts, "training": train_counts, "labels": label_counts, "spixel_training": spixel_counts,
+             "stage1_cli": spixel_cli_counts, "stage2_cli": colorizer_cli_counts}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -150,3 +150,16 @@ class AnchorColorProb(nn.Module):
             "token_labels": token_labels,
             "spixel_sizes": spixel_sizes,
         }
+
+
+def xavier_reinit_params(model: nn.Module, generator: torch.Generator, min_ndim: int = 2) -> None:
+    """Re-initialize every parameter of at least ``min_ndim`` dims xavier-uniform
+    from ``generator``, in place, in ``named_parameters`` order: the
+    reference's blanket ``_reset_parameters`` (JAX ``models/disco.py:296``).
+    torch's fans for conv (O, I, kh, kw), transposed conv (I, O, kh, kw) and
+    linear (out, in) weights give flax's bound sqrt(6 / (fan_in + fan_out)).
+    Apply it before the segnet is overwritten by the stage-1 weights."""
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            if p.ndim >= min_ndim:
+                nn.init.xavier_uniform_(p, generator=generator)

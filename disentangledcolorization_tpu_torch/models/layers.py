@@ -54,7 +54,9 @@ class SNConv(nn.Module):
     sigma = u' . (W v). This is not ``torch.nn.utils.spectral_norm``'s eval
     mode, which uses the stored u and v without a step. ``folded=True`` takes
     ``weight_orig`` as already divided by sigma (converted inference weights).
-    ``weight_v`` is carried for the reference layout only.
+    ``train=True`` stores the step's u and v, as torch's spectral norm does in
+    training, so a training checkpoint folds with the reference's eval formula
+    sigma = u . (W v) (``tools/convert.py::fold_spectral_norm``).
     """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, folded: bool = False):
@@ -71,7 +73,7 @@ class SNConv(nn.Module):
 
     def weight(self, train: bool = False) -> torch.Tensor:
         """The normalized weight. sigma is a constant to autograd, as
-        ``stop_gradient(sigma)`` in JAX; ``train`` stores the new u (in place)."""
+        ``stop_gradient(sigma)`` in JAX; ``train`` stores the new u and v (in place)."""
         if self.folded:
             return self.weight_orig
         with torch.no_grad():
@@ -83,6 +85,7 @@ class SNConv(nn.Module):
             sigma = (u_new * wv).sum()
             if train:
                 self.weight_u.copy_(u_new)
+                self.weight_v.copy_(v)
         return self.weight_orig / sigma
 
     def forward(self, x, train: bool = False):

@@ -6,4 +6,4 @@ module. The wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
 """
 
-from . import affinity, attention, colorlabel, kmeans, superpixel  # noqa: F401
+from . import affinity, attention, colorlabel, hints, kmeans, superpixel  # noqa: F401

@@ -322,3 +322,11 @@ def init_spixel_grid(img_height: int, img_width: int, spixel_size: int = 16, dev
     ys, xs = torch.meshgrid(torch.arange(img_height), torch.arange(img_width), indexing="ij")
     coord_feat = torch.stack([xs, ys], dim=-1).to(torch.float32)
     return spixel_ids.to(device), coord_feat.to(device)
+
+
+def split_spixels(assign_map, spixel_ids):
+    """Hard superpixel ids (N, H, W, 1) int32 from the affinity map (N, H, W, 9)
+    and the shifted id grid of :func:`init_spixel_grid` (H, W, 9), as JAX
+    ``ops/superpixel.py::split_spixels``: for the boundary dumps."""
+    assign = hard_assignment(assign_map)
+    return torch.sum(spixel_ids * assign, dim=-1, keepdim=True).to(torch.int32)

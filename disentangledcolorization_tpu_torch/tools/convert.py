@@ -24,6 +24,8 @@ for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys).
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
 import torch
 
@@ -222,6 +224,29 @@ def spixel_from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
     ``convert_spixelseg_state_dict`` or ``model.init``, or a stage-1 train
     state's) -> the port's SpixelSeg ``state_dict`` (``net.*`` keys)."""
     return _build(_StateDictBuilder(variables, sn_folded=False), _spixel_seg)
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Reads nested dicts and lists of numpy arrays, and refuses every other
+    class, so that no pickle runs code or needs JAX to load."""
+
+    _ALLOWED = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "numpy" and name in self._ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the pickle needs {module}.{name} to load; only dicts of numpy arrays are read "
+            "(convert the variables with numpy.asarray before pickling them)"
+        )
+
+
+def load_numpy_pickle(path: str):
+    """A ``.pkl`` of nested dicts of numpy arrays (``tools/convert_torch.py``'s
+    output in the JAX package); raises ``pickle.UnpicklingError`` on any other
+    class, such as JAX arrays."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()
 
 
 def spixel_grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:

@@ -2,10 +2,10 @@
 
 Counterpart of ``disentangledcolorization_tpu/train/losses.py`` (``:33-186``):
 l1/l2/masked-l1/huber, cross entropy over bin indices, the Laplacian-gradient
-loss, stage 1's ``spixel_loss`` and stage 2's ``AnchorColorProbLoss``. The
-VGG19 perceptual term waits for VGG19 weights in the repository: without them
-the JAX package falls back to a pixel L1 reconstruction term with a warning,
-and so does this port; passing weights raises.
+loss, stage 1's ``spixel_loss`` and stage 2's ``AnchorColorProbLoss`` with the
+VGG19 perceptual term, L1(VGG(gt_rgb) without gradient, VGG(pred_rgb)) summed
+over the slices with their weights. Without VGG19 weights the reconstruction
+term falls back to pixel L1 with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from ..models.vgg import SLICE_WEIGHTS
 from ..ops import colorlabel as cl
 from ..ops import superpixel as sp
+from ..utils import color as color_lib
 
 EPS = 1e-7
 
@@ -83,29 +85,38 @@ def spixel_loss(pred_prob, labxy_feat, kernel_size: int = 16) -> dict:
 
 class AnchorColorProbLoss:
     """The colorizer's loss bundle: palLoss and refLoss are class-rebalanced
-    CE over the 313 bins; recLoss is the reconstruction term (5x pixel L1 when
-    no VGG19 weights are given, as in the JAX package)."""
+    CE over the 313 bins; recLoss is the reconstruction term, 5x (1x with
+    ``hint2regress``) the VGG19 perceptual loss when ``vgg`` (a frozen
+    ``models.vgg.VGG19Features``, whose ``feat_type`` picks the slice weights)
+    is given, else 5x pixel L1 with a warning."""
 
-    def __init__(self, hint2regress: bool = False, enhanced: bool = False, with_grad: bool = False,
-                 vgg_variables=None):
-        if vgg_variables is not None:
-            raise NotImplementedError(
-                "AnchorColorProbLoss: the VGG19 perceptual term is not ported yet; it waits for "
-                "VGG19 weights in the repository (ROADMAP.md)"
-            )
-        self.hint2regress, self.enhanced, self.with_grad = hint2regress, enhanced, with_grad
-        if enhanced:
+    def __init__(self, hint2regress: bool = False, enhanced: bool = False, with_grad: bool = False, vgg=None):
+        self.hint2regress, self.enhanced, self.with_grad, self.vgg = hint2regress, enhanced, with_grad, vgg
+        if enhanced and vgg is None:
             warnings.warn(
                 "AnchorColorProbLoss: no VGG19 weights supplied — the reconstruction term falls "
                 "back to pixel L1 instead of the reference's VGG19 perceptual loss, as the JAX "
-                "package does. This trains a different objective than the paper.",
+                "package does. This trains a different objective than the paper. Pass --vgg_npz "
+                "(a torchvision-layout VGG19 npz) to restore it.",
                 stacklevel=2,
             )
 
+    def perceptual(self, input_grays, gt_colors, pred_colors):
+        """Weighted L1 between the VGG19 slices of the ground truth (no
+        gradient, as ``stop_gradient`` in JAX) and of the prediction."""
+        pred_rgb = color_lib.lab2rgb(torch.cat([input_grays, pred_colors], dim=-1))
+        with torch.no_grad():
+            f_gt = self.vgg(color_lib.lab2rgb(torch.cat([input_grays, gt_colors], dim=-1)))
+        f_pred = self.vgg(pred_rgb)
+        loss = 0.0
+        for w, a, b in zip(SLICE_WEIGHTS[self.vgg.feat_type], f_gt, f_pred):
+            loss = loss + w * torch.mean(torch.abs(a - b))
+        return loss
+
     def __call__(self, data: dict) -> dict:
         """data: pal_logit (N,h,w,313), ref_logit, target_label (N,h,w) int,
-        class_weight (N,h,w), spix_color (N,h,w,2), input_color (N,H,W,2),
-        pred_color (N,H,W,2) or None."""
+        class_weight (N,h,w), spix_color (N,h,w,2), input_gray (N,H,W,1),
+        input_color (N,H,W,2), pred_color (N,H,W,2) or None."""
         gt_labels = data["target_label"]
         w = data["class_weight"][..., None]
         pal_loss = cross_entropy_with_indices(cl.rebalance_gradient(data["pal_logit"], w), gt_labels)
@@ -116,7 +127,10 @@ class AnchorColorProbLoss:
         rec_loss = torch.zeros_like(pal_loss)
         if self.enhanced:
             scalar = 1.0 if self.hint2regress else 5.0
-            rec_loss = scalar * l1_loss(data["pred_color"], data["input_color"])
+            if self.vgg is not None:
+                rec_loss = scalar * self.perceptual(data["input_gray"], data["input_color"], data["pred_color"])
+            else:
+                rec_loss = scalar * l1_loss(data["pred_color"], data["input_color"])
             if self.with_grad:
                 rec_loss = rec_loss + laplace_gradient_loss(data["pred_color"], data["input_color"])
         return {

@@ -12,12 +12,18 @@ Counterpart of ``disentangledcolorization_tpu/train/optim.py`` (``:16-99``):
     (``optax.apply_if_finite``): a skipped update moves neither the parameters,
     the moments nor the schedule;
   * ``PlateauState``: host-side reduce-on-plateau.
+
+Both have ``state_dict``/``load_state_dict`` for checkpoints: the update count
+and torch's optimizer state (Adam's moments and step, SGD's momentum buffers)
+restore bit for bit. ``grad_clip`` is not part of the state, so a run resumes
+across a change of it as it is (the JAX package has to migrate its optax
+state between wrapper structures there).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import torch
 
@@ -81,6 +87,14 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "optimizer": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore the count and torch's state; tensors move to the parameters' device."""
+        self.count = int(sd["count"])
+        self.opt.load_state_dict(sd["optimizer"])
+
 
 def build_optimizer(params, name: str = "adam", schedule=2e-4, weight_decay: float = 0.0, beta1: float = 0.9,
                     beta2: float = 0.999, momentum: float = 0.9, grad_clip: float = 0.0) -> Optimizer:
@@ -110,3 +124,10 @@ class PlateauState:
                 self.scale *= self.factor
                 self.bad_epochs = 0
         return self.scale
+
+    def state_dict(self) -> dict:
+        return asdict(self)
+
+    def load_state_dict(self, sd: dict) -> None:
+        for k, v in sd.items():
+            setattr(self, k, v)

@@ -104,8 +104,8 @@ def test_stack_dataset_matches_jax():
     rng = np.random.default_rng(4)
     ds = [{"gray": rng.normal(size=(8, 8, 1)).astype(np.float32), "color": rng.normal(size=(8, 8, 2)).astype(np.float32)}
           for _ in range(3)]
-    ours, ref = data.stack_dataset(ds), jdata.stack_dataset(ds)
+    ours, ref = data.stack_dataset(ds, device="cpu"), jdata.stack_dataset(ds)
     for k in ("gray", "color"):
         np.testing.assert_array_equal(ours[k].numpy(), ref[k])
     with pytest.raises(ValueError, match="budget"):
-        data.stack_dataset(ds, budget_gb=1e-9)
+        data.stack_dataset(ds, device="cpu", budget_gb=1e-9)

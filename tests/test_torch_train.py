@@ -21,6 +21,7 @@ Held against JAX:
     running statistics and u as above, updated parameters within 5e-2 of
     the update's max (see ``ACCUM_TOL``);
   * the eval step's losses.
+And, port against port: ``remat=True`` equals ``remat=False`` bit for bit.
 SGD, because Adam's first update is about lr * sign(g), and a gradient that is
 zero up to round-off would flip it.
 """
@@ -217,8 +218,38 @@ def test_eval_step_matches_jax_and_changes_nothing(ref, monkeypatch):
     assert all(torch.equal(sd0[k], v) for k, v in model.state_dict().items())
 
 
-def test_remat_and_vgg_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        steps.make_colorizer_train_step(None, remat=True)
-    with pytest.raises(NotImplementedError, match="VGG19"):
-        losses.AnchorColorProbLoss(enhanced=True, vgg_variables={})
+def test_remat_step_equals_plain_step(monkeypatch):
+    """``remat=True`` against ``remat=False`` from one state and batch, with
+    dropout 0.1, k-means anchors from the step's generators and two
+    microbatches: the losses, every gradient, the parameters after an Adam
+    update, the BatchNorm running statistics and the spectral-norm u and v are
+    equal bit for bit, and so are the anchors of every forward, the
+    recompute's included. No JAX: the reference here is the port's own plain
+    step, which the tests above hold against JAX."""
+    torch.manual_seed(4)
+    sd = {k: torch.from_numpy(v) for k, v in random_state_dict(AnchorColorProb(n_clusters=2, n_enc_layers=2), seed=4).items()}
+    rng = np.random.default_rng(7)
+    batch = {"gray": torch.from_numpy(rng.uniform(-1, 1, (2, SIZE, SIZE, 1)).astype(np.float32)),
+             "color": torch.from_numpy(rng.uniform(-0.5, 0.5, (2, SIZE, SIZE, 2)).astype(np.float32))}
+    loss = _quiet(lambda: losses.AnchorColorProbLoss(enhanced=True))
+    real = tanchor.clustering_hint_mask
+    runs = {}
+    for remat in (False, True):
+        anchors = []
+        monkeypatch.setattr(tanchor, "clustering_hint_mask", lambda *a, **k: anchors.append(real(*a, **k)) or anchors[-1])
+        model = AnchorColorProb(n_clusters=2, n_enc_layers=2, dropout=0.1)
+        model.load_state_dict(sd)
+        st = state.TrainState.create(model, name="adam", schedule=1e-3)
+        grads, apply = {}, st.optimizer.step
+        st.optimizer.step = lambda: grads.update(
+            {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}) or apply()
+        metrics = steps.make_colorizer_train_step(loss, remat=remat, grad_accum=2)(st, batch, seed=3)
+        runs[remat] = (metrics, grads, model.state_dict(), [a[0] for a in anchors])
+    (m0, g0, s0, a0), (m1, g1, s1, a1) = runs[False], runs[True]
+    assert all(torch.equal(m0[k], m1[k]) for k in LOSSES)
+    assert sorted(g0) == sorted(g1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+    assert any(k.endswith("weight_v") and not torch.equal(s0[k], sd[k]) for k in s0)  # v is stored in training
+    # one forward a microbatch, and under remat one recompute after each
+    assert len(a0) == 2 and len(a1) == 4
+    assert all(torch.equal(a0[i // 2], a1[i]) for i in range(4))

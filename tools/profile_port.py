@@ -11,10 +11,12 @@ per TF32 setting: host ms per forward or step, device kernel ms, the
 device's busy share, the time of each hand-written kernel, of the
 convolutions (cuDNN) and their share of device time, and the top kernels by
 device time. ``--spixel`` adds the device time of the affinity head's softmax
-backward (its torch ops, at the step's shape, timed alone). Needs a CUDA device:
+backward (its torch ops, at the step's shape, timed alone). ``--train --vgg``
+adds the VGG19 perceptual term to the step (a seeded random-init VGG19 npz
+written to a temporary directory). Needs a CUDA device:
 
     python tools/profile_port.py [--batch 8] [--size 256] [--iters 5]
-    python tools/profile_port.py --train [--batch 24] [--iters 3]
+    python tools/profile_port.py --train [--vgg] [--batch 24] [--iters 3]
     python tools/profile_port.py --spixel [--batch 128] [--iters 3]
     python tools/profile_port.py --cat [--batch 24]
 
@@ -127,12 +129,13 @@ def profile_cat(batch: int, size: int, iters: int = 20) -> dict:
             "forward_bytes": moved, "forward_bound_ms": moved / 3.35e12 * 1e3}
 
 
-def trainer(batch: int, size: int):
-    """The recipe's trainer on 240 synthetic images held on the card; returns
-    a function that takes one step."""
+def trainer(batch: int, size: int, vgg_npz: str | None = None):
+    """The recipe's trainer on 240 synthetic images held on the card, with the
+    VGG19 term when ``vgg_npz`` is given; returns a function that takes one step."""
     import warnings
 
     from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.models.vgg import load_vgg19
     from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps
 
     torch.manual_seed(130)
@@ -141,7 +144,8 @@ def trainer(batch: int, size: int):
     st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 60, n_images // batch))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        step = steps.make_colorizer_train_step(losses.AnchorColorProbLoss(enhanced=True), class_lambda=0.5)
+        vgg = load_vgg19(vgg_npz, device="cuda") if vgg_npz else None
+        step = steps.make_colorizer_train_step(losses.AnchorColorProbLoss(enhanced=True, vgg=vgg), class_lambda=0.5)
     ds = data.synthetic_dataset(n_images, size, "cuda", seed=0)
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -183,6 +187,7 @@ def softmax_backward_ms(batch: int, size: int, iters: int = 20) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true", help="profile the colorizer training step")
+    ap.add_argument("--vgg", action="store_true", help="with --train: add the VGG19 perceptual term")
     ap.add_argument("--spixel", action="store_true", help="profile the stage-1 SpixelNet training step")
     ap.add_argument("--cat", action="store_true", help="time the proxy concatenation alone")
     ap.add_argument("--batch", type=int, default=None, help="default 8 (forward), 24 (--train, --cat) or 128 (--spixel)")
@@ -205,10 +210,17 @@ def main() -> None:
             print(json.dumps({"card": smi, "what": "spixel_train_step", **res}), flush=True)
         return
     if args.train:
+        import tempfile
+
+        from disentangledcolorization_tpu_torch.models.vgg import make_random_vgg19_npz
+
         batch = args.batch or 24
-        run = trainer(batch, args.size)
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = make_random_vgg19_npz(os.path.join(tmp, "vgg19.npz"), seed=0) if args.vgg else None
+            run = trainer(batch, args.size, npz)
+        what = "train_step_vgg" if args.vgg else "train_step"
         for tf32 in (False, True):
-            print(json.dumps({"card": smi, "what": "train_step", **profile(run, batch, args.iters, tf32)}), flush=True)
+            print(json.dumps({"card": smi, "what": what, **profile(run, batch, args.iters, tf32)}), flush=True)
         return
     batch = args.batch or 8
     col = Colorizer(device="cuda", seed=130)

@@ -67,7 +67,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      their largest entry, buffers equal, peak memory of each); the
      perceptual term and its gradient on the card against the CPU at batch 2,
      64x64 (VGG biases conditioned, the CPU's max pools pinned to the card's
-     winners), within 1e-3.
+     winners), within 1e-3;
+  9. bf16 serving (the default ``Colorizer``): the bf16 instances of kernels
+     B, A and C against their plain versions at the bf16 forward's shapes
+     (batch 8, 256x256: the head's bf16 input, the bf16 proxy of 66
+     channels, the bf16 tokens), twice for bitwise equality, B also at C=16
+     and C=3 on a ragged 17x33 image, A and C at C = 64, 66 and 5 with a
+     scale, without mass, with a per-token factor; B and A within 1e-5 of
+     the plain version's largest entry, C within one bf16 ulp; each timed,
+     B in turns with the bf16->f32 cast + cuDNN conv2d + softmax. A seeded
+     random-weight bf16 ``Colorizer`` answers 3 ``colorize_batch`` requests
+     of 8 at 256x256, one hinted ``colorize`` and one batch through the
+     uint8 wire; launches per forward: affinity_head[bf16] 1,
+     pool_stats[bf16] 1, shift_add 1, upfeat[bf16] 1, attention 12 (the f32
+     instances of A, B, C none); images/s, latency, the device's busy share
+     and the host<->device synchronisations of a forward and of a request
+     (with the bin tables kept on the card, and copied at every use as
+     before); the card's bf16 forward against the same model's bf16 plain
+     path on the CPU, anchors pinned.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -205,17 +222,22 @@ def stats_err(stats, ref) -> float:
 
 def kernel_label(symbol: str) -> str:
     """``name<template arguments>`` of a mangled kernel symbol: the last
-    length-prefixed identifier that holds "kernel" (the length may follow
-    other digits directly), and the integer and bool arguments after it."""
-    label = symbol[:60]
-    for m in re.finditer(r"\d+", symbol):
-        for k in range(len(m.group(0))):
-            name = symbol[m.end(): m.end() + int(m.group(0)[k:])]
-            if len(name) == int(m.group(0)[k:]) and "kernel" in name and re.fullmatch(r"[A-Za-z_]\w*", name):
-                args = re.match(r"I((?:L[ib]\d+E)+)E", symbol[m.end() + len(name):])
-                label = f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1))) if args else ''}>"
-                break
-    return label
+    identifier of its (nested) name, then its element type (f32 or bf16)
+    and integer and bool arguments."""
+    m = re.match(r"_ZN?", symbol)
+    pos, name = (m.end(), None) if m else (0, None)
+    while m and (n := re.match(r"\d+", symbol[pos:])):
+        pos += n.end()
+        name, pos = symbol[pos: pos + int(n.group(0))], pos + int(n.group(0))
+    if name is None:
+        return symbol[:60]
+    args = []
+    if symbol.startswith("I", pos):
+        pos += 1
+        while t := re.match(r"f|13__nv_bfloat16|L[ib](\d+)E", symbol[pos:]):
+            args.append({"f": "f32", "13__nv_bfloat16": "bf16"}.get(t.group(0), t.group(1)))
+            pos += t.end()
+    return f"{name}<{','.join(args)}>"
 
 
 def report_ptxas(build_log: dict, t: int = 256) -> None:
@@ -226,7 +248,11 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
     must fit 128 registers."""
     from disentangledcolorization_tpu_torch.ops import attention
 
+    seen = set()
     for kname, text in build_log.items():
+        if text in seen:  # an instance built from a source already reported
+            continue
+        seen.add(text)
         blocks = re.split(r"Function properties for ", text)[1:]
         for blk in blocks:
             sym = blk.split()[0]
@@ -391,7 +417,7 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     rows.append(dict(
         name="shift_add", source="disentangledcolorization_tpu_torch/csrc/shift_add.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:187 (_shift_add after pool_stats, called at :206-208: XLA ops, no Pallas kernel)",
-        max_abs_err=max_err(out[0], ref_f[0]) / float(ref_f[0].abs().max()),
+        max_abs_err=max_err(out[0], ref_f[0]), max_rel_err=max_err(out[0], ref_f[0]) / float(ref_f[0].abs().max()),
         ms=time_ms(lambda: superpixel.shift_add(t_in, mass_in, hard_in), device),
         plain_ms=time_ms(lambda: superpixel.shift_add_plain(t_in, mass_in, hard_in), device),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -487,11 +513,12 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
 
     for r in rows:
         r["route"] = "cuda"
-        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} (tol {TOLERANCES[r['name']]:.0e}) "
+        err = r.get("max_rel_err", r["max_abs_err"])  # shift_add: relative to the largest pooled feature
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e}, held {err:.3e} (tol {TOLERANCES[r['name']]:.0e}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']}")
-        if not r["max_abs_err"] <= TOLERANCES[r["name"]]:
-            raise AssertionError(f"{r['name']}: max|d| {r['max_abs_err']} above {TOLERANCES[r['name']]}")
+        if not err <= TOLERANCES[r["name"]]:
+            raise AssertionError(f"{r['name']}: max|d| {err} above {TOLERANCES[r['name']]}")
     return rows
 
 
@@ -666,7 +693,7 @@ def drive_main_path(device, n_requests: int = 3, batch: int = 8, size: int = 256
     from disentangledcolorization_tpu_torch.api import Colorizer
     from disentangledcolorization_tpu_torch.ops import kernels
 
-    col = Colorizer(device=device, seed=130)
+    col = Colorizer(device=device, seed=130, compute_dtype="float32")
     rng = np.random.default_rng(0)
     requests = [[rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(batch)] for _ in range(n_requests)]
     hc = size // col.sp_size
@@ -1329,7 +1356,7 @@ def drive_colorizer_cli(device, tmp: str, npz: str, spixel_run: str, n_images: i
         f"{on['s_per_step']:.4f} s/step, {on['images_per_s']:.2f} images/s; peak device memory {on['peak_gb']:.2f} GB")
 
     best = os.path.join(run["run_dir"], "checkpts", "model_best.pth.tar")
-    col = Colorizer(checkpoint=best, device=device)
+    col = Colorizer(checkpoint=best, device=device, compute_dtype="float32")
     out = col.colorize(np.random.default_rng(3).integers(0, 256, (size, size, 3), dtype=np.uint8))
     if out.shape != (size, size, 3) or out.dtype != np.uint8:
         raise AssertionError("Colorizer(checkpoint=<stage-2 run>): expected a uint8 (H, W, 3) output")
@@ -1507,6 +1534,300 @@ def drive_command_lines(device):
     return c1, c2, {"stage1_cli": m1, "stage2_cli": m2}
 
 
+# phase 9: bf16 serving. Kernels B and A compute in f32 from the same bf16
+# inputs as their plain versions: within 1e-5 of the plain version's largest
+# entry. Kernel C's f32 sums may differ from the plain einsum's in the last
+# bit and round apart: within one bf16 ulp of each entry.
+BF16_TOL = 1e-5
+BF16_ULPS = 1.0
+# one bf16 forward launches what an f32 forward does, through the bf16
+# instances of kernels A, B and C (kernel F and kernel D stay f32)
+BF16_PER_FORWARD = {"affinity_head[bf16]": 1, "pool_stats[bf16]": 1, "shift_add": 1, "upfeat[bf16]": 1,
+                    "attention": 12, "affinity_head": 0, "pool_stats": 0, "upfeat": 0, "prob_grad": 0}
+# the card's bf16 forward against the same model's bf16 plain path on the CPU:
+# the same rounding points, sums in other orders (cuDNN against oneDNN), whose
+# one-ulp flips grow through ~60 bf16 layers (tests/test_torch_bf16.py: two
+# CPU orders differ by 5.9e-3 on pred_colors at 64x64). Absolute on
+# affinity_map and pred_colors, relative to the largest entry on the logits;
+# about 4x the gaps of the first run on an H100 (1.3e-3, 3.8e-3, 1.2e-3,
+# 1.2e-3). The sizes move 1/256 a winner flip between near-equal affinities:
+# 3 flips measured, 12 allowed
+BF16_CARD_CPU_TOL = {"affinity_map": 6e-3, "pred_colors": 1.5e-2, "pal_logit": 5e-3, "ref_logit": 5e-3,
+                     "spixel_sizes": 12 / 256}
+
+
+def bf16_ulps(out, ref) -> float:
+    """Largest |out - ref| in bf16 ulps of the larger of the two, entry by entry."""
+    a, b = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max())
+
+
+def rel_err(out, ref) -> float:
+    """Largest error of each output relative to its reference's largest entry."""
+    return max(max_err(a, b) / max(float(b.abs().max()), 1e-30) for a, b in zip(out, ref) if a is not None)
+
+
+def bf16_superpixel_variants(device, g, sp_size: int, n: int = 2, h: int = 64, w: int = 96) -> tuple[float, float]:
+    """The bf16 instances of kernels A and C beside the path's calls: every
+    channel-vector width (C = 64, 66, 5), kernel A with a scale and without
+    mass, kernel C with a per-token factor, twice each for bitwise equality.
+    Returns kernel A's largest relative error and kernel C's largest in ulps."""
+    from disentangledcolorization_tpu_torch.ops import superpixel
+
+    hc, wc, worst_a, worst_c = h // sp_size, w // sp_size, 0.0, 0.0
+    for c in (64, 66, 5):
+        feat = torch.randn(n, h, w, c, generator=g).to(device, torch.bfloat16)
+        tokens = torch.randn(n, hc, wc, c, generator=g).to(device, torch.bfloat16)
+        prob = torch.softmax(torch.randn(n, h, w, 9, generator=g), dim=-1).to(device)
+        factor = (torch.rand(n, hc, wc, generator=g) + 0.5).to(device)
+        for kw in ({}, dict(with_hard=False, with_mass=False, scale=1.0)):
+            out = superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(out, superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw))
+                       if a is not None):
+                raise AssertionError(f"pool_stats[bf16], C={c}: two runs on the same inputs are not bitwise equal")
+            worst_a = max(worst_a, rel_err(out, superpixel.pool_stats_plain(feat, prob, sp_size, sp_size, **kw)))
+        for f in (factor, None):
+            out = superpixel._upfeat(tokens, prob, sp_size, sp_size, f)
+            if out.dtype != torch.bfloat16 or not torch.equal(out, superpixel._upfeat(tokens, prob, sp_size, sp_size, f)):
+                raise AssertionError(f"upfeat[bf16], C={c}: not bf16, or two runs are not bitwise equal")
+            worst_c = max(worst_c, bf16_ulps(out, superpixel.upfeat_plain(tokens, prob, sp_size, sp_size, f)))
+    log(f"bf16 kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, twice each: "
+        f"bitwise equal; A max|d|/max|ref| {worst_a:.3e}, C {worst_c:.2f} ulp")
+    return worst_a, worst_c
+
+
+def compare_bf16_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int = 16, d: int = 64):
+    """Phase 9: the bf16 instances of kernels A, B and C against their plain
+    versions at the bf16 serving forward's shapes, and on the variants."""
+    from disentangledcolorization_tpu_torch.ops import affinity, superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device, dtype)
+
+    hc, wc = h // sp_size, w // sp_size
+    rows = []
+    # A: the bf16 proxy [features | ab] with the f32 affinity map
+    feat = rand(n, h, w, d + 2, dtype=bf)
+    logits = rand(n, h, w, 9)
+    logits[..., 4] = logits[..., 3]  # exact ties in the 9-way max
+    prob = torch.softmax(logits, dim=-1).contiguous()
+    pool = lambda: superpixel.pool_stats(feat, prob, sp_size, sp_size)  # noqa: E731
+    out, ref = pool(), superpixel.pool_stats_plain(feat, prob, sp_size, sp_size)
+    if not torch.equal(out[2], ref[2]):
+        raise AssertionError("pool_stats[bf16]: winner-take-all counts differ from the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(out, pool())):
+        raise AssertionError("pool_stats[bf16]: two runs on the same inputs are not bitwise equal")
+    worst_a, worst_c = bf16_superpixel_variants(device, g, sp_size)
+    b_ms, b_by = bound(nbytes(feat, prob, *out), 2.0 * n * h * w * 9 * (d + 2))
+    rows.append(dict(
+        name="pool_stats[bf16]", source="disentangledcolorization_tpu_torch/csrc/pool_stats.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:153",
+        max_abs_err=max_err(out, ref), max_rel_err=max(rel_err(out, ref), worst_a), ms=time_ms(pool, device),
+        device_ms=device_ms(pool)[0],
+        plain_ms=time_ms(lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size), device),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # B: the head on the bf16 trunk's output, f32 weights, f32 out; also at
+    # C = 16 and 3 on a ragged 17x33 image, twice each for bitwise equality
+    x = rand(n, h, w, 16, dtype=bf)
+    kernel, bias = rand(3, 3, 16, 9) * 0.2, rand(9) * 0.1
+    head = lambda: affinity.affinity_head(x, kernel, bias)  # noqa: E731
+    out = head()
+    ref = affinity.affinity_head_plain(x, kernel, bias)
+    abs_err, err = max_err(out, ref), rel_err([out], [ref])
+    if out.dtype != torch.float32 or not torch.equal(out, head()):
+        raise AssertionError("affinity_head[bf16]: not f32, or two runs on the same inputs are not bitwise equal")
+    for c in (16, 3):
+        xr, kr, br = rand(2, 17, 33, c, dtype=bf), rand(3, 3, c, 9) * 0.3, rand(9)
+        o_r = affinity.affinity_head(xr, kr, br)
+        err = max(err, rel_err([o_r], [affinity.affinity_head_plain(xr, kr, br)]))
+        if not torch.equal(o_r, affinity.affinity_head(xr, kr, br)):
+            raise AssertionError(f"affinity_head[bf16], C={c}, 17x33: two runs are not bitwise equal")
+    x_cl = x.permute(0, 3, 1, 2)  # channels_last NCHW view, no copy
+    w_oihw = kernel.permute(3, 2, 0, 1).contiguous()
+    b_ms, b_by = bound(nbytes(x, kernel, bias, out), n * h * w * (2.0 * 81 * 16 + 9 * 4))
+    with torch.no_grad():
+        turns = time_in_turns(f"affinity_head[bf16] (kernel B), batch {n}, C=16, vs the bf16->f32 cast + conv2d + softmax",
+                              lambda: torch.softmax(F.conv2d(x_cl.float(), w_oihw, bias, padding=1), dim=1), head, device)
+    rows.append(dict(
+        name="affinity_head[bf16]", source="disentangledcolorization_tpu_torch/csrc/affinity_head.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_affinity.py:139", max_abs_err=abs_err, max_rel_err=err,
+        plain_ms=time_ms(lambda: affinity.affinity_head_plain(x, kernel, bias), device),
+        bound_ms=b_ms, bound_by=b_by, **turns,
+    ))
+
+    # C: the hintpath's tokens rounded to bf16, unpooled to bf16 pixels
+    tokens = rand(n, hc, wc, d, dtype=bf)
+    up = lambda: superpixel.upfeat(tokens, prob, sp_size, sp_size)  # noqa: E731
+    out, ref = up(), superpixel.upfeat_plain(tokens, prob, sp_size, sp_size)
+    if out.dtype != torch.bfloat16 or not torch.equal(out, up()):
+        raise AssertionError("upfeat[bf16]: not bf16, or two runs on the same inputs are not bitwise equal")
+    ulps = max(bf16_ulps(out, ref), worst_c)
+    b_ms, b_by = bound(nbytes(tokens, prob, out), 2.0 * n * h * w * 9 * d)
+    rows.append(dict(
+        name="upfeat[bf16]", source="disentangledcolorization_tpu_torch/csrc/upfeat.cu",
+        replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:273",
+        also_replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:230 (upfeat_fused, K6)",
+        max_abs_err=max_err(out, ref), max_ulps=ulps, ms=time_ms(up, device), device_ms=device_ms(up)[0],
+        plain_ms=time_ms(lambda: superpixel.upfeat_plain(tokens, prob, sp_size, sp_size), device),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    for r in rows:
+        r["route"] = "cuda"
+        err = (f"{r['max_ulps']:.2f} ulp (max|d| {r['max_abs_err']:.3e})" if "max_ulps" in r
+               else f"max|d| {r['max_abs_err']:.3e}, max|d|/max|ref| {r['max_rel_err']:.3e} (variants included)")
+        log(f"kernel {r['name']}: {err} ms={r['ms']:.4f} device_ms={r['device_ms']} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms={r['library_ms']}")
+    if not (rows[0]["max_rel_err"] <= BF16_TOL and rows[1]["max_rel_err"] <= BF16_TOL and ulps <= BF16_ULPS):
+        raise AssertionError(f"bf16 instances off their plain versions: A {rows[0]['max_rel_err']}, "
+                             f"B {rows[1]['max_rel_err']} (relative), C {ulps} ulp")
+    return rows
+
+
+def count_syncs(fn) -> int:
+    """The host<->device synchronisations ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def syncs_before_and_after(fn) -> dict:
+    """``fn``'s synchronisations with the bin tables and the white point kept
+    on the card (this port) and copied from host memory at every use (as
+    before): the same code with the caches bypassed."""
+    from disentangledcolorization_tpu_torch.ops import colorlabel
+    from disentangledcolorization_tpu_torch.utils import color
+
+    after = count_syncs(fn)
+    table, white = colorlabel._table, color._white
+    colorlabel._table = lambda key, make, device: torch.from_numpy(make()).to(device)
+    color._white = lambda like: like.new_tensor(color._WHITE)
+    try:
+        before = count_syncs(fn)
+    finally:
+        colorlabel._table, color._white = table, white
+    return {"tables_copied_each_use": before, "tables_kept_on_the_card": after}
+
+
+def bf16_card_vs_cpu(col, size: int = 256) -> dict:
+    """The card's bf16 forward against the same weights' bf16 plain path on
+    the CPU, anchors and anchor colors pinned."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+
+    sd = {k: v.detach().cpu() for k, v in col.model.state_dict().items()}
+    cpu_model = AnchorColorProb(n_enc_layers=len(col.model.wildpath.layers), sn_folded=True, compute_dtype=torch.bfloat16)
+    cpu_model.load_state_dict(sd)
+    cpu_model.eval()
+    rng = np.random.default_rng(1)
+    gray = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 1)).astype(np.float32))
+    hc = size // col.sp_size
+    mask = torch.zeros(1, hc, hc, 1)
+    mask[0, rng.integers(0, hc, 8), rng.integers(0, hc, 8)] = 1.0
+    colors = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, hc, hc, 2)).astype(np.float32))
+    dev = next(col.model.parameters()).device
+    with torch.no_grad():
+        out_dev = col.model(gray.to(dev), hint_mask_override=mask.to(dev), anchor_colors_override=colors.to(dev))
+        out_cpu = cpu_model(gray, hint_mask_override=mask, anchor_colors_override=colors)
+    errs = {}
+    for k in BF16_CARD_CPU_TOL:
+        if out_dev[k].dtype != torch.float32:
+            raise AssertionError(f"bf16 forward: {k} is {out_dev[k].dtype}, expected float32")
+        scale = float(out_cpu[k].abs().max()) if k.endswith("logit") else 1.0
+        errs[k] = max_err(out_dev[k].cpu(), out_cpu[k]) / scale
+    log("bf16 card vs CPU plain path (max|d|, the logits relative to their largest entry): " + json.dumps(errs)
+        + f" (tolerances {json.dumps(BF16_CARD_CPU_TOL)})")
+    if not all(np.isfinite(v) for v in errs.values()):
+        raise AssertionError("non-finite bf16 outputs")
+    bad = {k: v for k, v in errs.items() if v > BF16_CARD_CPU_TOL[k]}
+    if bad:
+        raise AssertionError(f"bf16: card and CPU plain path disagree: {bad}")
+    return errs
+
+
+def drive_bf16_serving(device, smi: str, n_requests: int = 3, batch: int = 8, size: int = 256):
+    """Phase 9: a seeded random-weight bf16 ``Colorizer`` (the default) answers
+    3 batches of 8, one hinted request and, through the uint8 wire, one more
+    batch; launches per forward; images/s, latency, the device's busy share
+    and the synchronisations of a forward and of a request; the card's bf16
+    forward against the CPU's."""
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    col = Colorizer(device=device, seed=130)
+    wire = Colorizer(device=device, seed=130, wire_dtype="uint8")
+    if col.model.compute_dtype != torch.bfloat16 or any(p.dtype != torch.float32 for p in col.model.parameters()):
+        raise AssertionError("Colorizer: expected bf16 serving with f32 parameters by default")
+    rng = np.random.default_rng(0)
+    requests = [[rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(batch)] for _ in range(n_requests)]
+    hc = size // col.sp_size
+    mask = np.zeros((hc, hc), np.float32)
+    mask[rng.integers(0, hc, 8), rng.integers(0, hc, 8)] = 1.0
+    hints = (mask, rng.uniform(-0.5, 0.5, (hc, hc, 2)).astype(np.float32))
+
+    def request(c, imgs):
+        t0 = time.perf_counter()
+        outs = c.colorize_batch(imgs)
+        torch.cuda.synchronize()
+        if len(outs) != len(imgs) or any(o.shape != (size, size, 3) or o.dtype != np.uint8 for o in outs):
+            raise AssertionError("colorize_batch: expected uint8 (H, W, 3) outputs")
+        return time.perf_counter() - t0, outs
+
+    kernels.reset_launch_counts()
+    latencies = [request(col, imgs)[0] for imgs in requests]
+    t0 = time.perf_counter()
+    one = col.colorize(requests[0][0], hints=hints)
+    torch.cuda.synchronize()
+    hint_latency = time.perf_counter() - t0
+    wire_latency = request(wire, requests[0])[0]
+    counts = dict(kernels.LAUNCHES)
+    forwards = n_requests + 2
+    if one.shape != (size, size, 3) or one.dtype != np.uint8:
+        raise AssertionError("colorize(hints=...): expected a uint8 (H, W, 3) output")
+    log(f"bf16 serving: launch counts {json.dumps(counts)} over {forwards} forwards")
+    for k, per in BF16_PER_FORWARD.items():
+        if counts[k] != per * forwards:
+            raise AssertionError(f"bf16 serving, {k}: {counts[k]} launches, expected {per} per forward x {forwards}")
+
+    steady = [request(col, imgs)[0] for imgs in requests]
+    grays = torch.cat([col._prep(img)[0] for img in requests[0]])
+    with torch.no_grad():
+        fwd = lambda: col.model(grays)  # noqa: E731
+        fwd_host = time_ms(fwd, device, warmup=2, iters=10)
+        fwd_dev = device_ms(fwd, iters=5)[0]
+        req_host = sum(steady) / len(steady) * 1e3
+        req_dev = device_ms(lambda: col.colorize_batch(requests[0]), iters=3)[0]
+        syncs = {"forward": syncs_before_and_after(fwd),
+                 "request": syncs_before_and_after(lambda: col.colorize_batch(requests[0]))}
+    res = {
+        "card": smi, "batch": batch, "size": size, "compute_dtype": "bfloat16", "tf32": False,
+        "request_latency_s": latencies, "steady_request_latency_s": steady, "hint_request_latency_s": hint_latency,
+        "uint8_wire_request_latency_s": wire_latency,
+        "images_per_s": batch * len(steady) / sum(steady),
+        "forward_ms_events": fwd_host, "forward_device_ms": fwd_dev,
+        "forward_device_busy_share": None if fwd_dev is None else fwd_dev / fwd_host,
+        "request_ms": req_host, "request_device_ms": req_dev,
+        "request_device_busy_share": None if req_dev is None else req_dev / req_host,
+        "syncs": syncs,
+    }
+    log(f"bf16 serving on {smi}: {json.dumps(res)}")
+    res["card_vs_cpu"] = bf16_card_vs_cpu(col)
+    return counts, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1534,7 +1855,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     secs = kernels.build()
-    log(f"build: {len(secs)} kernels in {time.perf_counter() - t0:.2f} s wall ({json.dumps({k: round(v, 2) for k, v in secs.items()})})")
+    log(f"build: {len(secs)} sources, {len(kernels.KERNELS)} kernel instances in {time.perf_counter() - t0:.2f} s wall "
+        f"({json.dumps({k: round(v, 2) for k, v in secs.items()})})")
     report_ptxas(kernels.BUILD_LOG)
     sass = sass_weight_reads(kernels)
     log(f"kernel B, C=16 instance (two pixels a thread), SASS: {json.dumps(sass) if sass else 'not measured (no cuobjdump)'}")
@@ -1543,11 +1865,12 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = compare_kernels(device)
     training_rows, extras = compare_training_kernels(device)
-    extras["affinity_head_c16_sass"] = sass
     rows += training_rows
     mark(3)
+    extras["affinity_head_c16_sass"] = sass
 
     # 4. serving path
+    paths = {}
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
     per_forward = {"pool_stats": 1, "shift_add": 1, "affinity_head": 1, "upfeat": 1, "attention": 12, "prob_grad": 0}
     log(f"main path: launch counts {json.dumps(counts)} over {forwards} forwards")
@@ -1560,38 +1883,43 @@ def main() -> int:
         f"steady {8 * len(steady) / sum(steady):.1f} images/s at batch 8, 256x256, f32, TF32 off")
     card_vs_cpu(col)
     del col
+    paths["serving"] = counts
     mark(4)
 
     # 5. training path
-    train_counts = drive_training(device)
+    paths["training"] = drive_training(device)
     train_card_vs_cpu(device)
     mark(5)
 
     # 6. label path
-    label_counts = drive_labels(device)
+    paths["labels"] = drive_labels(device)
     mark(6)
 
     # 7. stage-1 (SpixelNet) training
     g_row, stage_one = compare_stage_one(device)
     rows.append(g_row)
     extras.update(stage_one)
-    spixel_counts, extras["spixel_training"] = drive_spixel_training(device)
+    paths["spixel_training"], extras["spixel_training"] = drive_spixel_training(device)
     extras["spixel_card_vs_cpu"] = spixel_card_vs_cpu(device)
     mark(7)
 
     # 8. both training command lines, stage 1 -> stage 2
-    spixel_cli_counts, colorizer_cli_counts, extras["command_lines"] = drive_command_lines(device)
+    paths["stage1_cli"], paths["stage2_cli"], extras["command_lines"] = drive_command_lines(device)
     mark(8)
 
-    paths = {"serving": counts, "training": train_counts, "labels": label_counts, "spixel_training": spixel_counts,
-             "stage1_cli": spixel_cli_counts, "stage2_cli": colorizer_cli_counts}
+    # 9. bf16 serving: the bf16 instances of kernels A, B and C, the default Colorizer
+    rows += compare_bf16_kernels(device)
+    paths["serving_bf16"], extras["serving_bf16"] = drive_bf16_serving(device, smi)
+    mark(9)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']}: no path launched it")
 
-    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "ms",
+    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "max_rel_err",
+            "max_ulps", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "library_dropout_ms",
             "library_dropout_device_ms")
     print(smi)

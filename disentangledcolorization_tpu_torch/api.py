@@ -9,9 +9,18 @@ Counterpart of ``disentangledcolorization_tpu/api.py``:
     rgb = c.colorize(img, hints=(mask, ab))          # interactive hints
     rgbs = c.colorize_batch([img0, img1, img2])      # one forward
 
-The model runs in f32 with spectral norm folded into the weights. The Lab
-conversions run on the device (``utils/color.py``), where the JAX package
-uses OpenCV on the host.
+The model runs with spectral norm folded into the weights, in bf16 by default
+(``compute_dtype``, the JAX ``Colorizer``'s default; ``models/disco.py`` says
+where it rounds) or in f32. The Lab conversions run on the device
+(``utils/color.py``), where the JAX package uses OpenCV on the host.
+
+``wire_dtype="uint8"`` is the JAX serving codec (JAX ``api.py:151-173``): the
+model sees L on the uint8 grid, and the predicted ab is quantized to uint8 on
+the device, ``clip(round((ab + 1) * 127.5), 0, 255)``, then dequantized. The
+image crosses to the card as uint8 (a quarter of the f32 bytes). The port
+converts Lab to RGB on the device and brings back 8-bit RGB, so the
+dequantization runs there, just before that conversion; its numbers are the
+codec's.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ import torch
 
 from . import resolve_device
 from .models import AnchorColorProb
+from .models.layers import hold_compute_copies
 from .tools.convert import fold_spectral_norm
 from .utils.color import lab2rgb, rgb2lab
 
 _NEXT = "is not ported yet: it comes with the next slice of the port (see ROADMAP.md)"
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Colorizer:
@@ -39,7 +50,7 @@ class Colorizer:
         checkpoint: str = "",
         n_clusters: int = 8,
         sp_size: int = 16,
-        compute_dtype: str = "float32",
+        compute_dtype: str = "bfloat16",
         seed: int = 130,
         bucket: int = 16,
         device=None,
@@ -52,21 +63,25 @@ class Colorizer:
         ``tools.convert.from_jax_variables(..., sn_folded=True)`` makes).
         ``checkpoint``: a reference torch checkpoint (``.pth``/``.pth.tar``);
         its spectral norm is folded at load. Neither: random weights from
-        ``seed``. ``device`` defaults to the card and raises without one."""
-        if compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r} {_NEXT}")
+        ``seed``. ``device`` defaults to the card and raises without one.
+        ``compute_dtype``: "bfloat16" or "float32"; the parameters stay f32,
+        and bf16 serving holds one bf16 copy of the layers' weights, made here."""
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype={compute_dtype!r}")
+        if wire_dtype not in ("float32", "uint8"):
+            raise ValueError(f"wire_dtype={wire_dtype!r}")
         if quantize != "none":
             raise NotImplementedError(f"quantize={quantize!r} {_NEXT}")
         if data_parallel:
             raise NotImplementedError(f"data_parallel=True {_NEXT}")
-        if wire_dtype != "float32":
-            raise NotImplementedError(f"wire_dtype={wire_dtype!r} {_NEXT}")
+        self.wire_uint8 = wire_dtype == "uint8"
         self.device = resolve_device(device)
         self.sp_size = sp_size
         self.bucket = max(bucket, sp_size)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = AnchorColorProb(sp_size=sp_size, n_clusters=n_clusters, sn_folded=True)
+            model = AnchorColorProb(sp_size=sp_size, n_clusters=n_clusters, sn_folded=True,
+                                    compute_dtype=_DTYPES[compute_dtype])
         if state_dict is None and checkpoint:
             data = torch.load(checkpoint, map_location="cpu", weights_only=True)
             sd = data.get("state_dict", data)
@@ -78,13 +93,19 @@ class Colorizer:
         if self.device.type == "cuda":
             # NHWC activations: the kernels read the convs' outputs without a copy
             model = model.to(memory_format=torch.channels_last)
+        if model.compute_dtype != torch.float32:
+            hold_compute_copies(model, model.compute_dtype)
         self.model = model
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def _prep(self, image: np.ndarray):
-        """uint8/float RGB or grayscale -> normalized L (1, H', W', 1) + size."""
+    def _host_image(self, image: np.ndarray):
+        """uint8/float RGB or grayscale -> (H', W', 3) padded to the bucket
+        on the host, f32 in [0, 1] (uint8 as it is with the uint8 wire), + size."""
         img = np.asarray(image)
-        img = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 else img.astype(np.float32)
+        if img.dtype == np.uint8 and not self.wire_uint8:
+            img = img.astype(np.float32) / 255.0
+        elif img.dtype != np.uint8:
+            img = img.astype(np.float32)
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         h, w = img.shape[:2]
@@ -92,13 +113,45 @@ class Colorizer:
         pw = (self.bucket - w % self.bucket) % self.bucket
         if ph or pw:
             img = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge")
-        lab = rgb2lab(torch.from_numpy(img).to(self.device))
-        return lab[None, ..., :1], (h, w)
+        return img, (h, w)
 
-    @staticmethod
-    def _to_rgb(gray: torch.Tensor, ab: torch.Tensor, h: int, w: int) -> np.ndarray:
-        rgb = lab2rgb(torch.cat([gray, ab], dim=-1))[:h, :w]
-        return (rgb.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """One copy to the device; to the card from pinned memory, without
+        making the host wait for the stream."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory().to(self.device, non_blocking=True) if self.device.type == "cuda" else t.to(self.device)
+
+    def _grays(self, imgs: np.ndarray) -> torch.Tensor:
+        """(N, H', W', 3) host images -> normalized L (N, H', W', 1) on the device."""
+        rgb = self._to_device(imgs)
+        if rgb.dtype == torch.uint8:
+            rgb = rgb.float() / 255.0
+        return rgb2lab(rgb)[..., :1]
+
+    def _prep(self, image: np.ndarray):
+        """uint8/float RGB or grayscale -> normalized L (1, H', W', 1) + size."""
+        img, hw = self._host_image(image)
+        return self._grays(img[None]), hw
+
+    def _wire_in(self, gray: torch.Tensor) -> torch.Tensor:
+        """The model's L: on the uint8 grid with the uint8 wire (JAX ``_wire_in``)."""
+        if not self.wire_uint8:
+            return gray
+        return torch.clamp(torch.round((gray + 1.0) * 127.5), 0, 255).to(torch.uint8).float() / 127.5 - 1.0
+
+    def _wire_out(self, pred: torch.Tensor) -> torch.Tensor:
+        """The predicted ab through the uint8 codec (JAX ``_forward`` and
+        ``_unwire``), or as it is."""
+        if not self.wire_uint8:
+            return pred
+        q = torch.clamp(torch.round((pred.float() + 1.0) * 127.5), 0, 255).to(torch.uint8)
+        return q.float() / 127.5 - 1.0
+
+    def _to_rgb(self, gray: torch.Tensor, ab: torch.Tensor, sizes) -> list:
+        """Normalized L and ab (N, H', W', 1|2) -> one uint8 RGB array per
+        (h, w) of ``sizes``, with one copy to the host for the batch."""
+        rgb = (lab2rgb(torch.cat([gray, self._wire_out(ab)], dim=-1)).clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        return [rgb[i, :h, :w] for i, (h, w) in enumerate(sizes)]
 
     @torch.no_grad()
     def colorize(self, image: np.ndarray, diverse: bool = False, hints: Optional[tuple] = None, generator=None):
@@ -110,15 +163,15 @@ class Colorizer:
         hint_mask = hint_colors = None
         if hints is not None:
             m, ab = hints
-            hint_mask = torch.as_tensor(np.asarray(m, np.float32), device=self.device)[None, ..., None]
-            hint_colors = torch.as_tensor(np.asarray(ab, np.float32), device=self.device)[None]
+            hint_mask = self._to_device(np.asarray(m, np.float32))[None, ..., None]
+            hint_colors = self._to_device(np.asarray(ab, np.float32))[None]
         pred = self.model(
-            gray,
+            self._wire_in(gray),
             hint_mask_override=hint_mask,
             anchor_colors_override=hint_colors,
             generator=generator or self.generator,
         )["pred_colors"]
-        return self._to_rgb(gray[0], pred[0], h, w)
+        return self._to_rgb(gray, pred, [(h, w)])[0]
 
     def _batch_bucket(self, n: int) -> int:
         return next((b for b in self.BATCH_BUCKETS if n <= b), n)
@@ -129,16 +182,16 @@ class Colorizer:
         Returns a list of (H, W, 3) uint8 RGB arrays, order-preserving."""
         if not images:
             return []
-        preps = [self._prep(img) for img in images]
-        shapes = {tuple(g.shape) for g, _ in preps}
+        preps = [self._host_image(img) for img in images]
+        shapes = {a.shape[:2] for a, _ in preps}
         if len(shapes) > 1:
             raise ValueError(f"colorize_batch needs one padded shape, got {sorted(shapes)}")
-        grays = torch.cat([g for g, _ in preps], dim=0)
+        grays = self._grays(np.stack([a for a, _ in preps]))  # one copy to the device for the batch
         nb = self._batch_bucket(len(preps))
         if nb > len(preps):
             grays = torch.cat([grays, grays[-1:].expand(nb - len(preps), -1, -1, -1)], dim=0)
-        pred = self.model(grays, generator=generator or self.generator)["pred_colors"]
-        return [self._to_rgb(grays[i], pred[i], h, w) for i, (_, (h, w)) in enumerate(preps)]
+        pred = self.model(self._wire_in(grays), generator=generator or self.generator)["pred_colors"]
+        return self._to_rgb(grays[: len(preps)], pred[: len(preps)], [hw for _, hw in preps])
 
     def anchor_mask(self, image: np.ndarray):
         raise NotImplementedError(f"anchor_mask {_NEXT}")

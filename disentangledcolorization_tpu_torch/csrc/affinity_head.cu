@@ -38,8 +38,23 @@
 // On the card the unrolled block runs its FFMAs at about 70% of the rate a
 // cuBLAS f32 product reaches; the uniform weight loads and the staging and
 // stores that the pipeline does not hide take the rest (PERF.md).
+//
+// The bf16 instance (disco_affinity_head_bf16) is the head of the bf16
+// serving forward: x (N,H,W,C) bf16 with the f32 kernel and bias, output f32,
+// the promotion of the JAX head (an f32 conv of the bf16 activations,
+// pallas_affinity.py::_xla_affinity_head). It converts x to f32 while it
+// stages the tile, into the same 20-float pixel layout, so the unrolled C=16
+// block, the constant bank and the softmax are the f32 instance's. A bf16
+// pixel of 16 channels is 32 bytes, two 16-byte loads (8 channels each) that
+// the staging converts in registers; there is no cp.async pipeline, one tile
+// a block (kRows rows a thread at C=16, one row and 16-channel chunks at
+// other C). Its bytes fall to 2*C read, 36 written a pixel, so it stays
+// bound by its FFMAs.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "vector_loads.cuh"
 
 namespace {
 
@@ -105,6 +120,38 @@ __device__ __forceinline__ void stage(const float* __restrict__ x, float* tile, 
       const int yy = y0 - 1 + r, xx = x0 - 1 + p;
       float v = 0.f;
       if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = __ldg(x + ((n * H + yy) * W + xx) * c + c0 + ci);
+      tile[(r * T::kHaloW + p) * kPix + ci] = v;
+    }
+  }
+}
+
+// The same for bf16 x, converted to f32 into the tile's pixel layout.
+// ``vec``: cw % 8 == 0 and every pixel 16-byte aligned, so a 16-byte load of
+// 8 channels never crosses a pixel.
+template <int R>
+__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ x, float* tile, long n, int y0, int x0,
+                                      int H, int W, int c, int c0, int cw, bool vec) {
+  using T = Tile<R>;
+  if (vec) {
+    const int per_pix = cw / 8, per_row = T::kHaloW * per_pix;
+    for (int e = threadIdx.x; e < T::kHaloH * per_row; e += kThreads) {
+      const int r = e / per_row, rem = e - r * per_row;
+      const int p = rem / per_pix, q = rem - p * per_pix;
+      const int yy = y0 - 1 + r, xx = x0 - 1 + p;
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (yy >= 0 && yy < H && xx >= 0 && xx < W) load_vec<8>(x + ((n * H + yy) * W + xx) * c + c0 + 8 * q, f);
+      float4* dst = reinterpret_cast<float4*>(tile + (r * T::kHaloW + p) * kPix + 8 * q);
+      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  } else {
+    const int per_row = T::kHaloW * cw;
+    for (int e = threadIdx.x; e < T::kHaloH * per_row; e += kThreads) {
+      const int r = e / per_row, rem = e - r * per_row;
+      const int p = rem / cw, ci = rem - p * cw;
+      const int yy = y0 - 1 + r, xx = x0 - 1 + p;
+      float v = 0.f;
+      if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = __bfloat162float(x[((n * H + yy) * W + xx) * c + c0 + ci]);
       tile[(r * T::kHaloW + p) * kPix + ci] = v;
     }
   }
@@ -256,31 +303,46 @@ __global__ void __launch_bounds__(kThreads, R == 1 ? 4 : 2)
   }
 }
 
-// Any C <= kMaxC (and C=16 at an unaligned x): one tile a block, one row a
-// thread, 16-channel chunks staged by plain loads.
-__global__ void __launch_bounds__(kThreads, 4)
-    affinity_head_kernel(const float* __restrict__ x, const float* __restrict__ bias, float* __restrict__ out,
-                         int H, int W, int C, int tiles_x, int tiles_y, bool vec) {
+// Any C <= kMaxC, x of element type E (f32, or bf16 converted as it is
+// staged): one tile a block, R rows a thread, 16-channel chunks staged by
+// plain loads. CT = 16 (the bf16 model's head) unrolls the chunk with
+// compile-time weight offsets, as the f32 pipelined instance does; CT = 0
+// loops over C (f32 at C != 16 or an unaligned x, bf16 at C != 16).
+template <typename E, int CT, int R>
+__global__ void __launch_bounds__(kThreads, R == 1 ? 4 : 2)
+    affinity_head_kernel(const E* __restrict__ x, const float* __restrict__ bias, float* __restrict__ out, int H,
+                         int W, int C, int tiles_x, int tiles_y, bool vec) {
+  using T = Tile<R>;
   extern __shared__ __align__(16) float tile[];
-  const int x0 = (int)(blockIdx.x % tiles_x) * kTileW, y0 = (int)((blockIdx.x / tiles_x) % tiles_y) * Tile<1>::kH;
+  const int x0 = (int)(blockIdx.x % tiles_x) * kTileW, y0 = (int)((blockIdx.x / tiles_x) % tiles_y) * T::kH;
   const long n = blockIdx.x / ((long)tiles_x * tiles_y);
-  const int lane = threadIdx.x & 31, ry = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, ry = (threadIdx.x >> 5) * R;
+  const int cc = CT > 0 ? CT : C;
 
-  float acc[1][9];
+  float acc[R][9];
 #pragma unroll
-  for (int o = 0; o < 9; ++o) acc[0][o] = __ldg(bias + o);
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int cw = min(kChunk, C - c0);
+  for (int o = 0; o < 9; ++o) {
+    const float b = __ldg(bias + o);
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i][o] = b;
+  }
+  for (int c0 = 0; c0 < cc; c0 += kChunk) {
+    const int cw = min(kChunk, cc - c0);
     if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
-    stage<1>(x, tile, n, y0, x0, H, W, C, c0, cw, vec);
+    stage<R>(x, tile, n, y0, x0, H, W, cc, c0, cw, vec);
     __syncthreads();
     if (cw == kChunk)
-      accumulate_chunk<0, 1>(tile, ry, lane, C, c0, acc);
+      accumulate_chunk<CT, R>(tile, ry, lane, cc, c0, acc);
     else
-      accumulate_partial<1>(tile, ry, lane, C, c0, cw, acc);
+      accumulate_partial<R>(tile, ry, lane, cc, c0, cw, acc);
   }
   __syncthreads();
-  finish<1>(acc, tile, out, n, y0, x0, H, W, ry, lane);
+  finish<R>(acc, tile, out, n, y0, x0, H, W, ry, lane);
+}
+
+// The 81*C weights into the constant bank, on the launch stream.
+cudaError_t load_weights(const float* wgt, int c, cudaStream_t s) {
+  return cudaMemcpyToSymbolAsync(c_wgt, wgt, sizeof(float) * 81 * (size_t)c, 0, cudaMemcpyDeviceToDevice, s);
 }
 
 }  // namespace
@@ -290,8 +352,7 @@ extern "C" int disco_affinity_head(const float* x, const float* wgt, const float
   if ((long)n * h * w == 0) return 0;
   if (c < 1 || c > kMaxC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_wgt, wgt, sizeof(float) * 81 * (size_t)c, 0,
-                                          cudaMemcpyDeviceToDevice, s);
+  cudaError_t e = load_weights(wgt, c, s);
   if (e != cudaSuccess) return (int)e;
   const bool vec = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   if (c == 16 && vec) {
@@ -312,7 +373,33 @@ extern "C" int disco_affinity_head(const float* x, const float* wgt, const float
   }
   const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + Tile<1>::kH - 1) / Tile<1>::kH;
   const long blocks = (long)n * tiles_x * tiles_y;
-  affinity_head_kernel<<<(unsigned)blocks, kThreads, Tile<1>::kBytes, s>>>(x, bias, out, h, w, c, tiles_x, tiles_y,
-                                                                           vec);
+  affinity_head_kernel<float, 0, 1><<<(unsigned)blocks, kThreads, Tile<1>::kBytes, s>>>(x, bias, out, h, w, c,
+                                                                                        tiles_x, tiles_y, vec);
+  return (int)cudaGetLastError();
+}
+
+// x (n,h,w,c) bf16, wgt (3,3,c,9) and bias (9,) f32 -> out (n,h,w,9) f32.
+extern "C" int disco_affinity_head_bf16(const void* x, const float* wgt, const float* bias, float* out, int n,
+                                        int h, int w, int c, void* stream) {
+  if ((long)n * h * w == 0) return 0;
+  if (c < 1 || c > kMaxC) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = load_weights(wgt, c, s);
+  if (e != cudaSuccess) return (int)e;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const bool vec = c % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (c == 16) {
+    using T = Tile<kRows>;
+    static_assert(T::kBytes <= 48 * 1024, "one tile a block fits the default shared memory");
+    const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + T::kH - 1) / T::kH;
+    const long blocks = (long)n * tiles_x * tiles_y;
+    affinity_head_kernel<__nv_bfloat16, 16, kRows><<<(unsigned)blocks, kThreads, T::kBytes, s>>>(
+        xb, bias, out, h, w, c, tiles_x, tiles_y, vec);
+    return (int)cudaGetLastError();
+  }
+  const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + Tile<1>::kH - 1) / Tile<1>::kH;
+  const long blocks = (long)n * tiles_x * tiles_y;
+  affinity_head_kernel<__nv_bfloat16, 0, 1><<<(unsigned)blocks, kThreads, Tile<1>::kBytes, s>>>(
+      xb, bias, out, h, w, c, tiles_x, tiles_y, vec);
   return (int)cudaGetLastError();
 }

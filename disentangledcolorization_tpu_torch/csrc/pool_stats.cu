@@ -26,8 +26,18 @@
 //  - The G partial sums of each (d, c) are added in a fixed order through
 //    shared memory; mass and hard are 18 warp tasks (a lane adds every 32nd
 //    pixel, then a shuffle tree). No atomics: the same inputs give the same bits.
+//
+// The bf16 instance (disco_pool_stats_bf16) reads bf16 features with the f32
+// affinities and writes the same f32 outputs: the bf16 serving forward pools
+// its bf16 proxy [features | ab] this way, the sums in f32 as the JAX package
+// takes them (ops/superpixel.py::poolfeat promotes the operands). A thread's
+// vector holds 8 channels (16 bytes) where C % 8 == 0, else 4, 2 or 1; at the
+// proxy's C=66 a bf16 pixel is 132 bytes, so its vectors are 4-byte pairs
+// (__nv_bfloat162), 33 threads a pixel. Bytes fall from 162 to 93 MB at batch 8.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "vector_loads.cuh"
 
 namespace {
 
@@ -36,21 +46,11 @@ constexpr int kUnroll = 4;     // feature loads a thread has in flight
 constexpr int kPad = 12;       // floats a staged pixel: 9 affinities, its winners' bit mask, 2 unused
 
 template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
-  } else if constexpr (VEC == 2) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
-    r[0] = x.x, r[1] = x.y;
-  } else {
-    r[0] = __ldg(p);
-  }
-}
-
-template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float (&r)[VEC]) {
-  if constexpr (VEC == 4) {
+  if constexpr (VEC == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(r[0], r[1], r[2], r[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(r[4], r[5], r[6], r[7]);
+  } else if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
   } else if constexpr (VEC == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
@@ -60,9 +60,10 @@ __device__ __forceinline__ void store_vec(float* p, const float (&r)[VEC]) {
 }
 
 // bx threads share a pixel and split its channel vectors; G pixel groups.
-template <int VEC>
+// T: the features' type (float or __nv_bfloat16); sums are f32.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-pool_stats_kernel(const float* __restrict__ feat, const float* __restrict__ prob,
+pool_stats_kernel(const T* __restrict__ feat, const float* __restrict__ prob,
                   float* __restrict__ t, float* __restrict__ mass, float* __restrict__ hard, int W,
                   int C, int sp_h, int sp_w, int hc, int wc, float scale, int bx, int G) {
   extern __shared__ float4 smem[];
@@ -163,8 +164,8 @@ pool_stats_kernel(const float* __restrict__ feat, const float* __restrict__ prob
   }
 }
 
-template <int VEC>
-int launch(const float* feat, const float* prob, float* t, float* mass, float* hard, int n, int h,
+template <typename T, int VEC>
+int launch(const T* feat, const float* prob, float* t, float* mass, float* hard, int n, int h,
            int w, int c, int sp_h, int sp_w, float scale, cudaStream_t stream) {
   const int hc = h / sp_h, wc = w / sp_w, npix = sp_h * sp_w;
   const int cv = c / VEC;
@@ -173,11 +174,11 @@ int launch(const float* feat, const float* prob, float* t, float* mass, float* h
   if (G > npix) G = npix;
   const size_t smem = sizeof(float) * ((size_t)npix * kPad + (size_t)G * 9 * c);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pool_stats_kernel<VEC>,
+    cudaError_t e = cudaFuncSetAttribute(pool_stats_kernel<T, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pool_stats_kernel<VEC><<<n * hc * wc, kThreads, smem, stream>>>(feat, prob, t, mass, hard, w, c,
+  pool_stats_kernel<T, VEC><<<n * hc * wc, kThreads, smem, stream>>>(feat, prob, t, mass, hard, w, c,
                                                                   sp_h, sp_w, hc, wc, scale, bx, G);
   return (int)cudaGetLastError();
 }
@@ -192,7 +193,20 @@ extern "C" int disco_pool_stats(const float* feat, const float* prob, float* t, 
   if ((long long)n * (h / sp_h) * (w / sp_w) * c == 0) return 0;
   const uintptr_t bits = (uintptr_t)feat;  // the vector loads
   cudaStream_t s = (cudaStream_t)stream;
-  if (c % 4 == 0 && bits % 16 == 0) return launch<4>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
-  if (c % 2 == 0 && bits % 8 == 0) return launch<2>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
-  return launch<1>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  if (c % 4 == 0 && bits % 16 == 0) return launch<float, 4>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  if (c % 2 == 0 && bits % 8 == 0) return launch<float, 2>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  return launch<float, 1>(feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+}
+
+// The same with feat (n,h,w,c) bf16; prob and the outputs f32.
+extern "C" int disco_pool_stats_bf16(const void* feat, const float* prob, float* t, float* mass, float* hard,
+                                     int n, int h, int w, int c, int sp_h, int sp_w, float scale, void* stream) {
+  if ((long long)n * (h / sp_h) * (w / sp_w) * c == 0) return 0;
+  const uintptr_t bits = (uintptr_t)feat;
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feat);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c % 8 == 0 && bits % 16 == 0) return launch<__nv_bfloat16, 8>(f, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  if (c % 4 == 0 && bits % 8 == 0) return launch<__nv_bfloat16, 4>(f, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  if (c % 2 == 0 && bits % 4 == 0) return launch<__nv_bfloat16, 2>(f, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
+  return launch<__nv_bfloat16, 1>(f, prob, t, mass, hard, n, h, w, c, sp_h, sp_w, scale, s);
 }

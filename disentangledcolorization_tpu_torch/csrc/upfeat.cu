@@ -19,25 +19,24 @@
 // the vector fastest, so a warp stores one contiguous run (512 bytes at C=64:
 // two pixels). The output exceeds L2 at every batch size of the paths and is
 // not read again by this kernel: streaming stores (st.global.cs).
+//
+// The bf16 instance (disco_upfeat_bf16) takes bf16 tokens with the f32
+// affinities (and f32 tok_scale) and writes bf16: the unpooling of the bf16
+// serving forward, whose f32 sums JAX rounds to bf16 (ops/superpixel.py::
+// upfeat). The sums are the f32 instance's, in the order of d, rounded once
+// to nearest even (__float2bfloat16_rn, XLA's convert and torch's .to()). A
+// vector holds 8 channels (16 bytes) where C % 8 == 0, so at C=64 eight
+// threads share a pixel; the stores stay streaming. The output, the kernel's
+// dominant traffic, halves.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "vector_loads.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // threads a block, at most
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
-  } else if constexpr (VEC == 2) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
-    r[0] = x.x, r[1] = x.y;
-  } else {
-    r[0] = __ldg(p);
-  }
-}
 
 template <int VEC>
 __device__ __forceinline__ void store_vec_streaming(float* __restrict__ p, const float (&r)[VEC]) {
@@ -50,12 +49,34 @@ __device__ __forceinline__ void store_vec_streaming(float* __restrict__ p, const
   }
 }
 
-// blockDim.x threads share a pixel and split its channel vectors; blockDim.y
-// pixels of the cell (row-major) are in flight at once.
 template <int VEC>
+__device__ __forceinline__ void store_vec_streaming(__nv_bfloat16* __restrict__ p, const float (&r)[VEC]) {
+  if constexpr (VEC == 8 || VEC == 4) {
+    unsigned int u[VEC / 2];  // channel pairs, the lower channel in the low half
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(r[2 * k], r[2 * k + 1]);
+      u[k] = *reinterpret_cast<const unsigned int*>(&h);
+    }
+    if constexpr (VEC == 8) {
+      __stcs(reinterpret_cast<uint4*>(p), make_uint4(u[0], u[1], u[2], u[3]));
+    } else {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(u[0], u[1]));
+    }
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<__nv_bfloat162*>(p), __floats2bfloat162_rn(r[0], r[1]));
+  } else {
+    __stcs(p, __float2bfloat16_rn(r[0]));
+  }
+}
+
+// blockDim.x threads share a pixel and split its channel vectors; blockDim.y
+// pixels of the cell (row-major) are in flight at once. T: the tokens' and
+// the output's type (float or __nv_bfloat16); sums are f32.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-upfeat_kernel(const float* __restrict__ tok, const float* __restrict__ tok_scale,
-              const float* __restrict__ prob, float* __restrict__ out, int hc, int wc, int C,
+upfeat_kernel(const T* __restrict__ tok, const float* __restrict__ tok_scale,
+              const float* __restrict__ prob, T* __restrict__ out, int hc, int wc, int C,
               int up_h, int up_w) {
   const int cell = blockIdx.x;
   const int j = cell % wc;
@@ -105,14 +126,14 @@ upfeat_kernel(const float* __restrict__ tok, const float* __restrict__ tok_scale
   }
 }
 
-template <int VEC>
-int launch(const float* tok, const float* tok_scale, const float* prob, float* out, int n, int hc,
+template <typename T, int VEC>
+int launch(const T* tok, const float* tok_scale, const float* prob, T* out, int n, int hc,
            int wc, int c, int up_h, int up_w, cudaStream_t stream) {
   const int cv = c / VEC;
   const int bx = cv < kThreads ? cv : kThreads;
   int by = kThreads / bx;
   if (by > up_h * up_w) by = up_h * up_w;
-  upfeat_kernel<VEC><<<n * hc * wc, dim3(bx, by), 0, stream>>>(tok, tok_scale, prob, out, hc, wc, c,
+  upfeat_kernel<T, VEC><<<n * hc * wc, dim3(bx, by), 0, stream>>>(tok, tok_scale, prob, out, hc, wc, c,
                                                                up_h, up_w);
   return (int)cudaGetLastError();
 }
@@ -126,7 +147,22 @@ extern "C" int disco_upfeat(const float* tok, const float* tok_scale, const floa
   if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
   const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;  // the vector loads and stores
   cudaStream_t s = (cudaStream_t)stream;
-  if (c % 4 == 0 && bits % 16 == 0) return launch<4>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
-  if (c % 2 == 0 && bits % 8 == 0) return launch<2>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
-  return launch<1>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+  if (c % 4 == 0 && bits % 16 == 0) return launch<float, 4>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+  if (c % 2 == 0 && bits % 8 == 0) return launch<float, 2>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+  return launch<float, 1>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+}
+
+// The same with tok (n,hc,wc,c) and out (n,hc*up_h,wc*up_w,c) bf16; tok_scale
+// and prob f32.
+extern "C" int disco_upfeat_bf16(const void* tok, const float* tok_scale, const float* prob, void* out, int n,
+                                 int hc, int wc, int c, int up_h, int up_w, void* stream) {
+  if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
+  const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;
+  const __nv_bfloat16* tk = static_cast<const __nv_bfloat16*>(tok);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c % 8 == 0 && bits % 16 == 0) return launch<__nv_bfloat16, 8>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
+  if (c % 4 == 0 && bits % 8 == 0) return launch<__nv_bfloat16, 4>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
+  if (c % 2 == 0 && bits % 4 == 0) return launch<__nv_bfloat16, 2>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
+  return launch<__nv_bfloat16, 1>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
 }

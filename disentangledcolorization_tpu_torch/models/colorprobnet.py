@@ -3,13 +3,14 @@
 Counterpart of ``disentangledcolorization_tpu/models/colorprobnet.py``. Encoder
 stages are ``Sequential([SNConv, LeakyReLU(0.2)] * n + [BN])``; the decoder's
 ``Sequential`` indices mirror the reference (``conv8up.1``, ``conv8_3.5``, ...).
+It runs in its input's dtype (bf16 serving: bf16 features out).
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 
-from .layers import BatchNorm, Seq, SNConv, conv
+from .layers import BatchNorm, LeakyReLU, Seq, SNConv, conv
 
 
 def _sn_stage(in_ch: int, features: int, n_convs: int, first_stride: int, folded: bool) -> Seq:
@@ -17,7 +18,7 @@ def _sn_stage(in_ch: int, features: int, n_convs: int, first_stride: int, folded
     for i in range(n_convs):
         layers += [
             SNConv(in_ch if i == 0 else features, features, stride=first_stride if i == 0 else 1, folded=folded),
-            nn.LeakyReLU(0.2),
+            LeakyReLU(0.2),
         ]
     return Seq(*layers, BatchNorm(features))
 

@@ -1,7 +1,7 @@
 """AnchorColorProb: the DISCO colorization model, serving and training forwards.
 
 Counterpart of ``disentangledcolorization_tpu/models/disco.py`` for
-``sampled_T=0``, ``enhanced=True``, dense positions, f32, at the JAX defaults
+``sampled_T=0``, ``enhanced=True``, dense positions, at the JAX defaults
 d_model=64, 8 heads, FFN 256, 313 bins, in both of its modes:
 
   * ``test_mode=True`` (serving): anchors by k-means over the wildpath output,
@@ -24,6 +24,15 @@ The stages:
 
 Parameter names follow the reference torch ``state_dict`` (``segnet.net.*``,
 ``repnet.*``, ``wildpath.layers.*``, ``enhanceNet.*``, ...).
+
+``compute_dtype=torch.bfloat16`` (test mode only, the serving default of the
+JAX ``Colorizer``) rounds where the JAX model does (``disco.py:101-282``):
+the gray input to bf16 for the segnet, repnet and HourGlass2, whose convs run
+in bf16 with f32 parameters; the segnet head in f32 (the affinity map is f32);
+the proxy [features | ab] in bf16, pooled in f32 and rounded to bf16; the
+encoders, projections, k-means and anchor colors in f32; the hintpath's output
+rounded to bf16 before unpooling, whose f32 sums are rounded to bf16; ``tanh``
+in f32. The parameters stay f32.
 """
 
 from __future__ import annotations
@@ -54,9 +63,11 @@ class AnchorColorProb(nn.Module):
         n_enc_layers: int = 6,
         sn_folded: bool = False,
         dropout: float = 0.1,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.sp_size, self.n_clusters = sp_size, n_clusters
+        self.compute_dtype = compute_dtype
         self.segnet = SpixelSeg()
         self.repnet = ColorProbNet(sn_folded=sn_folded)
         self.wildpath = TransformerEncoder(n_enc_layers, D_MODEL, NHEAD, D_MLP, dropout)
@@ -95,18 +106,24 @@ class AnchorColorProb(nn.Module):
     def _forward(self, input_grays, input_colors, hint_mask_override, anchor_colors_override,
                  generator, test_mode, train, dropout_generator):
         n, h, w, _ = input_grays.shape
-        spn, d = self.sp_size, D_MODEL
+        spn, d, cdt = self.sp_size, D_MODEL, self.compute_dtype
+        if cdt != torch.float32 and not test_mode:
+            raise NotImplementedError(
+                f"the training forward in {cdt} is not ported yet: it comes with the next slice of the port (see ROADMAP.md)"
+            )
         hc, wc = h // spn, w // spn
         t = hc * wc
         grays = input_grays.float()
+        grays_c = grays.to(cdt)
         if input_colors is None:
             input_colors = grays.new_zeros((n, h, w, 2))
 
         with torch.no_grad():  # frozen segnet, always in eval mode
-            affinity_map = self.segnet(grays)
-        pred_feats = self.repnet(grays, train)
-        proxy = torch.cat([pred_feats, input_colors.float()], dim=-1)
+            affinity_map = self.segnet(grays_c)
+        pred_feats = self.repnet(grays_c, train)
+        proxy = torch.cat([pred_feats, input_colors.to(cdt)], dim=-1)
         pooled, _, spixel_sizes = sp.pool_and_sizes(proxy, affinity_map, spn, spn)
+        pooled = pooled.float()
         feat_tokens, spix_colors = pooled[..., :d], pooled[..., d:]
         pos = sine_position_encoding(hc, wc, d // 2, device=grays.device)
         token_labels = cl.nearest_bin_index(spix_colors)
@@ -137,8 +154,8 @@ class AnchorColorProb(nn.Module):
         dec_out = self.hintpath(hint_seq, pos_seq, None, train, dropout_generator)
         ref_logit = self.trg_word_prj(dec_out).reshape(n, hc, wc, N_VOCAB)
 
-        full_feats = sp.upfeat(dec_out.reshape(n, hc, wc, d), affinity_map, spn, spn)
-        pred_colors = torch.tanh(self.enhanceNet(torch.cat([grays, full_feats], dim=-1), train))
+        full_feats = sp.upfeat(dec_out.reshape(n, hc, wc, d).to(cdt), affinity_map, spn, spn)
+        pred_colors = torch.tanh(self.enhanceNet(torch.cat([grays_c, full_feats], dim=-1), train).float())
 
         return {
             "pal_logit": pal_logit,

@@ -2,7 +2,8 @@
 
 Counterpart of ``disentangledcolorization_tpu/models/hourglass.py``: ConvBlock
 (65 -> 64), two downsamples (128, 256), ``res_num`` residual blocks without
-norm, two upsamples with skips, and a 3x3 output conv.
+norm, two upsamples with skips, and a 3x3 output conv. It runs in its input's
+dtype.
 """
 
 from __future__ import annotations

@@ -12,6 +12,22 @@ its running ones, and makes SNConv store its power-iteration vector.
 
 Initialisation follows the JAX package's scale (lecun-normal kernels, zero
 biases) so that random weights give well-scaled activations.
+
+Compute dtype: every layer here runs in its input's dtype, as the JAX layers
+do (``Conv(dtype=x.dtype)``). The parameters stay f32; a bf16 input takes
+bf16 copies of them, and rounds where the JAX layers round:
+
+  * a convolution (``Conv2d``, ``ConvTranspose2d``, ``SNConv``) rounds its
+    sum, then adds the rounded bias (``y + bias.astype(dtype)``; cuDNN adds a
+    bias in a second pass anyway);
+  * the inference BatchNorm computes its scale and shift in f32, rounds them,
+    then ``x * a`` and ``+ b`` each round (``layers.py:384-393``);
+  * ``LeakyReLU``'s slope is rounded to the input's dtype first, as JAX's
+    weakly typed ``0.1 * x`` rounds it.
+
+In f32 they are the plain torch layers. :func:`hold_compute_copies` makes the
+low-precision copies once, for serving; without it each forward casts what it
+needs.
 """
 
 from __future__ import annotations
@@ -28,19 +44,107 @@ def _lecun_(w: torch.Tensor, fan_in: int, gain: float = 1.0) -> None:
         w.normal_(0.0, math.sqrt(gain / fan_in))
 
 
-def conv(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
+def _sources(m: nn.Module) -> tuple:
+    """What a layer's compute copies stand for: the storage and the in-place
+    version of each of its own parameters and buffers. ``load_state_dict``,
+    an optimizer step or a move to another device changes one of them."""
+    return tuple((t.data_ptr(), t._version) for d in (m._parameters, m._buffers) for t in d.values() if t is not None)
+
+
+def _cast(m: nn.Module, dtype: torch.dtype, train: bool = False):
+    if isinstance(m, BatchNorm):
+        inv = torch.rsqrt(m.running_var + m.eps)
+        return (m.weight * inv).to(dtype), (m.bias - m.running_mean * m.weight * inv).to(dtype)
+    w = m.weight(train) if isinstance(m, SNConv) else m.weight
+    if w.dtype == dtype:
+        return w, m.bias
+    return w.to(dtype), None if m.bias is None else m.bias.to(dtype)
+
+
+@torch.no_grad()
+def _hold(m: nn.Module, dtype: torch.dtype) -> tuple:
+    copies = tuple(None if t is None else t.detach() for t in _cast(m, dtype))
+    m.__dict__["_compute_copies"] = (copies, _sources(m))
+    return copies
+
+
+def compute_params(m: nn.Module, dtype: torch.dtype, train: bool = False):
+    """The tensors module ``m`` computes with in ``dtype``: (weight, bias) of a
+    convolution, the parameters themselves where they are in ``dtype``; for
+    another dtype, and for the (scale, shift) of an inference BatchNorm, the
+    copies that :func:`hold_compute_copies` made (made again first if the
+    parameters have changed since), else a cast now."""
+    held = m.__dict__.get("_compute_copies")
+    if held is not None and held[0][0].dtype == dtype and not train:
+        return held[0] if held[1] == _sources(m) else _hold(m, dtype)
+    return _cast(m, dtype, train)
+
+
+def hold_compute_copies(model: nn.Module, dtype: torch.dtype) -> None:
+    """Make each layer's ``dtype`` copy of its f32 parameters once (serving:
+    after the weights are loaded and moved to their device). The copies are
+    plain attributes, outside ``state_dict``. A layer whose parameters or
+    buffers change afterwards (``load_state_dict``, an in-place update, a
+    move) makes its copies again at its next forward."""
+    if dtype == torch.float32:
+        raise ValueError("hold_compute_copies: f32 layers compute with their parameters")
+    for m in model.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, SNConv, BatchNorm)):
+            _hold(m, dtype)
+
+
+def _add_bias(y: torch.Tensor, b) -> torch.Tensor:
+    """The low-precision convolutions' bias: a second rounding, as in JAX."""
+    return y if b is None else y + b[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (the JAX ``Conv(dtype=x.dtype)``)."""
+
+    def forward(self, x):
+        w, b = compute_params(self, x.dtype)
+        if x.dtype == torch.float32:
+            return self._conv_forward(x, w, b)
+        return _add_bias(self._conv_forward(x, w, None), b)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype (the JAX ``Deconv``)."""
+
+    def forward(self, x):
+        w, b = compute_params(self, x.dtype)
+        args = (self.stride, self.padding, self.output_padding, self.groups, self.dilation)
+        if x.dtype == torch.float32:
+            return F.conv_transpose2d(x, w, b, *args)
+        return _add_bias(F.conv_transpose2d(x, w, None, *args), b)
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` whose slope a low-precision input first rounds to its
+    dtype (JAX's ``leaky_relu`` multiplies by the weakly typed slope)."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        slopes = self.__dict__.setdefault("_slopes", {})
+        if x.dtype not in slopes:
+            slopes[x.dtype] = float(torch.tensor(self.negative_slope, dtype=x.dtype))
+        return F.leaky_relu(x, slopes[x.dtype])
+
+
+def conv(in_ch: int, out_ch: int, stride: int = 1) -> Conv2d:
     """3x3 torch Conv2d with bias and symmetric padding 1 (the JAX ``Conv``)."""
-    m = nn.Conv2d(in_ch, out_ch, 3, stride, 1)
+    m = Conv2d(in_ch, out_ch, 3, stride, 1)
     _lecun_(m.weight, in_ch * 9)
     nn.init.zeros_(m.bias)
     return m
 
 
-def deconv(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+def deconv(in_ch: int, out_ch: int) -> ConvTranspose2d:
     """ConvTranspose2d(k=4, s=2, p=1): the exact 2x upsample of the JAX ``Deconv``
     (an lhs-dilated conv with a pre-flipped kernel there; the weight bridge in
     ``tools/convert.py`` undoes the flip)."""
-    m = nn.ConvTranspose2d(in_ch, out_ch, 4, 2, 1)
+    m = ConvTranspose2d(in_ch, out_ch, 4, 2, 1)
     _lecun_(m.weight, in_ch * 16)
     nn.init.zeros_(m.bias)
     return m
@@ -89,7 +193,10 @@ class SNConv(nn.Module):
         return self.weight_orig / sigma
 
     def forward(self, x, train: bool = False):
-        return F.conv2d(x, self.weight(train), self.bias, self.stride, 1)
+        w, b = compute_params(self, x.dtype, train)
+        if x.dtype == torch.float32:
+            return F.conv2d(x, w, b, self.stride, 1)
+        return _add_bias(F.conv2d(x, w, None, self.stride, 1), b)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -99,6 +206,9 @@ class BatchNorm(nn.BatchNorm2d):
     (``nn.BatchNorm2d`` would store the unbiased one)."""
 
     def forward(self, x, train: bool = False):
+        if not train and x.dtype != torch.float32:
+            a, b = compute_params(self, x.dtype)
+            return x * a[:, None, None] + b[:, None, None]
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():

@@ -3,7 +3,9 @@
 Counterpart of ``disentangledcolorization_tpu/models/spixelnet.py``. Conv units
 are (Conv2d no-bias, BN, LeakyReLU 0.1), deconvs (ConvTranspose2d k4 s2 p1,
 LeakyReLU 0.1), as the reference's ``Sequential`` layout. The 3x3 16 -> 9 head
-and its softmax go through kernel B (``ops/affinity.py``).
+and its softmax go through kernel B (``ops/affinity.py``). The trunk runs in
+its input's dtype; the head keeps its f32 weights and returns f32, as the JAX
+head (an ``nn.Conv`` without a dtype) promotes a bf16 trunk's output.
 """
 
 from __future__ import annotations
@@ -12,23 +14,23 @@ import torch
 import torch.nn as nn
 
 from ..ops import affinity
-from .layers import BatchNorm, Seq, _lecun_, deconv
+from .layers import BatchNorm, Conv2d, LeakyReLU, Seq, _lecun_, deconv
 
 _KAIMING_GAIN = 2.0 / (1 + 0.1**2)
 
 
 def _conv_unit(in_ch: int, out_ch: int, stride: int = 1) -> Seq:
-    c = nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=False)
+    c = Conv2d(in_ch, out_ch, 3, stride, 1, bias=False)
     _lecun_(c.weight, in_ch * 9, _KAIMING_GAIN)
-    return Seq(c, BatchNorm(out_ch), nn.LeakyReLU(0.1))
+    return Seq(c, BatchNorm(out_ch), LeakyReLU(0.1))
 
 
 def _deconv_unit(in_ch: int, out_ch: int) -> nn.Sequential:
-    return nn.Sequential(deconv(in_ch, out_ch), nn.LeakyReLU(0.1))
+    return nn.Sequential(deconv(in_ch, out_ch), LeakyReLU(0.1))
 
 
 class SpixelNet(nn.Module):
-    """Grayscale (N, H, W, 1) -> soft affinity (N, H, W, 9), softmax-normalized."""
+    """Grayscale (N, H, W, 1) -> soft affinity (N, H, W, 9) f32, softmax-normalized."""
 
     def __init__(self):
         super().__init__()

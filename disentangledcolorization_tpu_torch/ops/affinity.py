@@ -4,6 +4,9 @@ Counterpart of ``disentangledcolorization_tpu/ops/pallas_affinity.py``
 (``fused_affinity_head``, its XLA formulation ``_xla_affinity_head`` and the
 ``custom_vjp`` ``affinity_head``). Kernel B (``csrc/affinity_head.cu``)
 computes the forward for CUDA tensors, the plain version for CPU tensors.
+x may be f32 or bf16 (the bf16 serving forward's activations, with kernel B's
+bf16 instance); the kernel and bias stay f32 and the output is f32, the JAX
+head's promotion.
 Where autograd needs a gradient, :class:`_AffinityHead` carries it: the
 forward saves the NHWC input and the softmax output, and the backward is the
 softmax's, ``dlogit = prob * (g - sum_d prob * g)``, then the convolution's
@@ -36,7 +39,8 @@ def _affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
     if x.device.type == "cpu":
         return affinity_head_plain(x, kernel, bias)
     kernel = kernel.contiguous()
-    check_cuda("affinity_head", {"x": x, "kernel": kernel, "bias": bias})
+    bf16 = x.dtype == torch.bfloat16
+    check_cuda("affinity_head", {"x": x, "kernel": kernel, "bias": bias}, dtypes={"x": x.dtype} if bf16 else None)
     n, h, w, c = x.shape
     if not 1 <= c <= MAX_CHANNELS:
         raise ValueError(
@@ -48,7 +52,7 @@ def _affinity_head(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
             f"do not fit a 3x3 {c}->9 head"
         )
     out = torch.empty((n, h, w, 9), device=x.device, dtype=torch.float32)
-    launch("affinity_head", x, kernel, bias, out, n, h, w, c)
+    launch("affinity_head[bf16]" if bf16 else "affinity_head", x, kernel, bias, out, n, h, w, c)
     return out
 
 

@@ -8,6 +8,10 @@ and ``rebalance_gradient``.
 
 Distances to the bins are elementwise f32 (no matmul, so no TF32 rounding can
 reorder near neighbours); argmin/argmax ties take the first index, as in JAX.
+
+The bin centers and the rebalancing weights are copied to a device once and
+kept there (one copy per device): a copy from host memory on every call would
+make the host wait for the stream, three times a serving forward.
 """
 
 from __future__ import annotations
@@ -21,10 +25,22 @@ from .kernels import check_cuda, launch
 
 NUM_BINS = _cielab.NUM_BINS
 
+_TABLES: dict = {}  # (table, device) -> the table on that device, read only
+
+
+def _table(key, make, device) -> torch.Tensor:
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if (key, device) not in _TABLES:
+        _TABLES[(key, device)] = torch.from_numpy(make()).to(device)
+    return _TABLES[(key, device)]
+
 
 def q_to_ab(device=None) -> torch.Tensor:
-    """(313, 2) float32 bin-center ab values (real units)."""
-    return torch.from_numpy(_cielab.q_to_ab()).to(device)
+    """(313, 2) float32 bin-center ab values (real units), the copy kept on
+    ``device``: read it, do not write it."""
+    return _table("q_to_ab", _cielab.q_to_ab, device)
 
 
 def _sq_dist_to_bins(batch_ab: torch.Tensor) -> torch.Tensor:
@@ -105,8 +121,9 @@ def decode_ind2ab(batch_q: torch.Tensor, T: float = 0.38) -> torch.Tensor:
 
 
 def class_rebalance_weights(lambda_: float = 0.5, device=None) -> torch.Tensor:
-    """(313,) rare-color rebalancing weights (see ``utils/cielab.py``)."""
-    return torch.from_numpy(_cielab.class_rebalance_weights(lambda_)).to(device)
+    """(313,) rare-color rebalancing weights (see ``utils/cielab.py``), the copy
+    kept on ``device``: read it, do not write it."""
+    return _table(("rebalance", float(lambda_)), lambda: _cielab.class_rebalance_weights(lambda_), device)
 
 
 def get_classweights(gt_index: torch.Tensor, lambda_: float = 0.5) -> torch.Tensor:

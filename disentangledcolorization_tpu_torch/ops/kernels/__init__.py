@@ -8,8 +8,12 @@ seconds. Libraries land in ``_build/`` under this package (listed in
 source is rebuilt and an unchanged one is reused. The headers (``csrc/*.cuh``)
 that sources share enter every hash.
 
+A source may hold several instances of its kernel, one C entry point each
+(``name[bf16]`` beside ``name``: the same kernel reading bf16 tensors); the
+source is still compiled once. Launches are counted per instance.
+
 A failed build raises; there is no fallback. Every wrapper in ``ops/`` calls
-:func:`launch`, which adds one to the kernel's launch count, runs the C entry
+:func:`launch`, which adds one to the instance's launch count, runs the C entry
 point on the current CUDA stream and raises on a non-zero
 ``cudaGetLastError()``.
 """
@@ -38,12 +42,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _F = ctypes.c_float
-# kernel name -> (source file, C entry point, argtypes); every entry point
-# returns cudaGetLastError() as an int and takes the stream last
+_POOL_ARGS = [*[_P] * 5, *[_I] * 6, _F, _P]
+_HEAD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_UP_ARGS = [*[_P] * 4, *[_I] * 6, _P]
+# kernel instance -> (source file, C entry point, argtypes); every entry point
+# returns cudaGetLastError() as an int and takes the stream last. An instance
+# named ``kernel[bf16]`` takes bf16 where its wrapper in ``ops/`` says so.
 KERNELS = {
-    "pool_stats": ("pool_stats.cu", "disco_pool_stats", [*[_P] * 5, *[_I] * 6, _F, _P]),
-    "affinity_head": ("affinity_head.cu", "disco_affinity_head", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "upfeat": ("upfeat.cu", "disco_upfeat", [*[_P] * 4, *[_I] * 6, _P]),
+    "pool_stats": ("pool_stats.cu", "disco_pool_stats", _POOL_ARGS),
+    "pool_stats[bf16]": ("pool_stats.cu", "disco_pool_stats_bf16", _POOL_ARGS),
+    "affinity_head": ("affinity_head.cu", "disco_affinity_head", _HEAD_ARGS),
+    "affinity_head[bf16]": ("affinity_head.cu", "disco_affinity_head_bf16", _HEAD_ARGS),
+    "upfeat": ("upfeat.cu", "disco_upfeat", _UP_ARGS),
+    "upfeat[bf16]": ("upfeat.cu", "disco_upfeat_bf16", _UP_ARGS),
     "shift_add": ("shift_add.cu", "disco_shift_add", [*[_P] * 6, *[_I] * 4, _P]),
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
@@ -79,27 +90,31 @@ def _lib_path(src: str) -> str:
 
 
 def build(names=None) -> dict[str, float]:
-    """Compile and load the named kernels (all by default), one ``nvcc`` per
-    source, in parallel. Returns each fresh build's seconds (0.0 = reused)."""
+    """Compile and load the named kernel instances (all by default), one
+    ``nvcc`` per source, in parallel. Returns each fresh build's seconds by
+    source file (0.0 = reused)."""
     names = list(KERNELS) if names is None else list(names)
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
         os.makedirs(BUILD_DIR, exist_ok=True)
-        procs, secs = {}, {n: 0.0 for n in names}
-        for n in todo:
-            out = _lib_path(KERNELS[n][0])
+        sources = dict.fromkeys(KERNELS[n][0] for n in names)
+        procs, secs = {}, {src: 0.0 for src in sources}
+        for src in dict.fromkeys(KERNELS[n][0] for n in todo):
+            out = _lib_path(src)
             if os.path.exists(out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[n][0])]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out, time.perf_counter())
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out, time.perf_counter())
         failed = []
-        for n, (proc, tmp, out, t0) in procs.items():
+        for src, (proc, tmp, out, t0) in procs.items():
             log, _ = proc.communicate()
-            secs[n] = time.perf_counter() - t0
-            BUILD_LOG[n] = log
+            secs[src] = time.perf_counter() - t0
+            for n in todo:
+                if KERNELS[n][0] == src:
+                    BUILD_LOG[n] = log
             if proc.returncode != 0:
-                failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
+                failed.append(f"{src}: nvcc exit {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:
@@ -114,7 +129,7 @@ def build(names=None) -> dict[str, float]:
 
 
 def launch(name: str, *args) -> None:
-    """Run kernel ``name`` on the current CUDA stream; count it; raise on error.
+    """Run kernel instance ``name`` on the current CUDA stream; count it; raise on error.
 
     Tensor arguments are passed as device pointers (None as a null pointer),
     ints as C ints, floats as C floats. The
@@ -134,17 +149,19 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def check_cuda(name: str, tensors: dict, dtype=torch.float32) -> None:
+def check_cuda(name: str, tensors: dict, dtype=torch.float32, dtypes: dict | None = None) -> None:
     """The wrapper-side checks shared by all kernels: one CUDA device, the
-    dtype the kernel reads, and C-contiguous (NHWC) memory."""
-    dev = None
+    dtype the kernel reads (``dtypes[arg]`` where given, else ``dtype``), and
+    C-contiguous (NHWC) memory."""
+    dev, dtypes = None, dtypes or {}
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, expected a CUDA tensor")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
         dev = t.device
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, the kernel reads {dtype}")
+        want = dtypes.get(arg, dtype)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, the kernel reads {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous (NHWC)")

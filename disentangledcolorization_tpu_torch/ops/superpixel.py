@@ -30,6 +30,12 @@ form in both ops, since pixel p of cell q feeds token q+off_d in direction d:
 with T and beta zero off the grid; T and beta are torch ops on the token grid.
 Every gradient is computed only where its input needs one, so no backward
 pass touches the pixels outside a kernel.
+
+The features of pooling and the tokens of unpooling may be bf16 (the bf16
+serving forward), with the affinities f32: kernels A and C then run their bf16
+instances, which sum in f32 as the JAX package does. Pooling returns the
+pooled features and mass in the features' dtype and the sizes in the
+affinities'; unpooling returns the tokens' dtype, its f32 sums rounded once.
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ def pool_stats(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = Tru
     CPU tensors. Same outputs as :func:`pool_stats_plain`."""
     if feat.device.type == "cpu" and prob.device.type == "cpu":
         return pool_stats_plain(feat, prob, sp_h, sp_w, with_hard, with_mass, scale)
-    check_cuda("pool_stats", {"feat": feat, "prob": prob})
+    bf16 = feat.dtype == torch.bfloat16
+    check_cuda("pool_stats", {"feat": feat, "prob": prob}, dtypes={"feat": feat.dtype} if bf16 else None)
     n, h, w, c = feat.shape
     if prob.shape != (n, h, w, 9):
         raise ValueError(f"pool_stats: prob {tuple(prob.shape)} does not match feat {tuple(feat.shape)}")
@@ -86,7 +93,7 @@ def pool_stats(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = Tru
     t = torch.empty((n, hc, wc, 9, c), device=feat.device, dtype=torch.float32)
     mass = torch.empty((n, hc, wc, 9), device=feat.device, dtype=torch.float32) if with_mass else None
     hard = torch.empty((n, hc, wc, 9), device=feat.device, dtype=torch.float32) if with_hard else None
-    launch("pool_stats", feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w,
+    launch("pool_stats[bf16]" if bf16 else "pool_stats", feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w,
            1.0 / (sp_h * sp_w) if scale is None else scale)
     return t, mass, hard
 
@@ -223,10 +230,12 @@ def pool_and_sizes(feat, prob, sp_h: int = 16, sp_w: int = 16):
     """poolfeat(need_entry_prob=True) and get_spixel_size from one pass of kernel A.
 
     Returns (pooled (N,hc,wc,C), mass (N,hc,wc,1), sizes (N,hc,wc,1)); pooled
-    and mass carry the gradients w.r.t. ``feat`` and ``prob``.
+    and mass carry the gradients w.r.t. ``feat`` and ``prob``. Pooled and mass
+    are rounded to ``feat``'s dtype, the sizes to ``prob``'s, as JAX's
+    ``poolfeat`` and ``get_spixel_size`` round them.
     """
     pooled, mass_sum, sizes = _Pool.apply(feat, prob, sp_h, sp_w, True)
-    return pooled.to(feat.dtype), mass_sum.to(feat.dtype), sizes.to(feat.dtype)
+    return pooled.to(feat.dtype), mass_sum.to(feat.dtype), sizes.to(prob.dtype)
 
 
 def poolfeat(feat, prob, sp_h: int = 16, sp_w: int = 16, need_entry_prob: bool = False):
@@ -247,7 +256,8 @@ def get_spixel_size(affinity_map, sp_h: int = 16, sp_w: int = 16):
 
 def upfeat_plain(tokens, prob, up_h: int = 16, up_w: int = 16, tok_scale=None):
     """Plain version of kernel C: (N,hc,wc,C) tokens, each times its factor
-    ``tok_scale`` (N,hc,wc) where given, -> (N,H,W,C) pixels, f32."""
+    ``tok_scale`` (N,hc,wc) where given, -> (N,H,W,C) pixels, summed in f32
+    and rounded to the tokens' dtype."""
     n, hc, wc, c = tokens.shape
     scaled = tokens.float() if tok_scale is None else tokens.float() * tok_scale.float()[..., None]
     pb = _block(prob.float(), up_h, up_w)
@@ -261,14 +271,15 @@ def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
     given = {"tokens": tokens, "prob": prob} | ({} if tok_scale is None else {"tok_scale": tok_scale})
     if all(v.device.type == "cpu" for v in given.values()):
         return upfeat_plain(tokens, prob, up_h, up_w, tok_scale)
-    check_cuda("upfeat", given)
+    bf16 = tokens.dtype == torch.bfloat16
+    check_cuda("upfeat", given, dtypes={"tokens": tokens.dtype} if bf16 else None)
     n, hc, wc, c = tokens.shape
     if prob.shape != (n, hc * up_h, wc * up_w, 9):
         raise ValueError(f"upfeat: prob {tuple(prob.shape)} does not match tokens {tuple(tokens.shape)}")
     if tok_scale is not None and tok_scale.shape != (n, hc, wc):
         raise ValueError(f"upfeat: tok_scale {tuple(tok_scale.shape)} does not match tokens {tuple(tokens.shape)}")
-    out = torch.empty((n, hc * up_h, wc * up_w, c), device=tokens.device, dtype=torch.float32)
-    launch("upfeat", tokens, tok_scale, prob, out, n, hc, wc, c, up_h, up_w)
+    out = torch.empty((n, hc * up_h, wc * up_w, c), device=tokens.device, dtype=tokens.dtype)
+    launch("upfeat[bf16]" if bf16 else "upfeat", tokens, tok_scale, prob, out, n, hc, wc, c, up_h, up_w)
     return out
 
 

@@ -23,6 +23,14 @@ _XYZ2RGB = (
     (0.05564664, -0.20404134, 1.05731107),
 )
 _WHITE = (0.95047, 1.0, 1.08883)
+_WHITE_ON: dict = {}  # (device, dtype) -> the white point, copied once: a copy from host memory waits for the stream
+
+
+def _white(like: torch.Tensor) -> torch.Tensor:
+    key = (like.device, like.dtype)
+    if key not in _WHITE_ON:
+        _WHITE_ON[key] = like.new_tensor(_WHITE)
+    return _WHITE_ON[key]
 
 
 def _mat3(x: torch.Tensor, m) -> torch.Tensor:
@@ -47,7 +55,7 @@ def xyz2rgb(xyz: torch.Tensor) -> torch.Tensor:
 
 
 def xyz2lab(xyz: torch.Tensor) -> torch.Tensor:
-    xyz_scale = xyz / xyz.new_tensor(_WHITE)
+    xyz_scale = xyz / _white(xyz)
     mask = (xyz_scale > 0.008856).to(xyz.dtype)
     safe = torch.clamp(xyz_scale, min=0.008856)
     f = (safe ** (1.0 / 3.0)) * mask + (7.787 * xyz_scale + 16.0 / 116.0) * (1 - mask)
@@ -64,7 +72,7 @@ def lab2xyz(lab: torch.Tensor) -> torch.Tensor:
     f = torch.stack([x, y, z], dim=-1)
     mask = (f > 0.2068966).to(lab.dtype)
     f = (f**3.0) * mask + (f - 16.0 / 116.0) / 7.787 * (1 - mask)
-    return f * lab.new_tensor(_WHITE)
+    return f * _white(lab)
 
 
 def rgb2lab(rgb: torch.Tensor) -> torch.Tensor:

@@ -157,6 +157,9 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     pairs = [
         (superpixel.pool_stats(feat, prob, 16, 16), superpixel.pool_stats_plain(feat, prob, 16, 16)),
         (superpixel.upfeat(tok, prob, 16, 16), superpixel.upfeat_plain(tok, prob, 16, 16)),
+        (superpixel.pool_stats(feat.bfloat16(), prob, 16, 16), superpixel.pool_stats_plain(feat.bfloat16(), prob, 16, 16)),
+        (superpixel.upfeat(tok.bfloat16(), prob, 16, 16), superpixel.upfeat_plain(tok.bfloat16(), prob, 16, 16)),
+        (affinity.affinity_head(x.bfloat16(), kern, bias), affinity.affinity_head_plain(x.bfloat16(), kern, bias)),
         (superpixel.shift_add(*superpixel.pool_stats_plain(feat, prob, 16, 16)),
          superpixel.shift_add_plain(*superpixel.pool_stats_plain(feat, prob, 16, 16))),
         (affinity.affinity_head(x, kern, bias), affinity.affinity_head_plain(x, kern, bias)),
@@ -171,7 +174,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
             assert torch.equal(x_, y_)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
     assert set(kernels.LAUNCHES) == {
-        "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind", "prob_grad"
+        "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind", "prob_grad",
+        "pool_stats[bf16]", "affinity_head[bf16]", "upfeat[bf16]",
     }
 
 

@@ -91,7 +91,8 @@ def colorizers(tmp_path_factory):
         pickle.dump(variables, f)
     jcol = JColorizer(checkpoint=str(pkl), n_clusters=2, compute_dtype="float32")
     assert jcol.loaded
-    ours = Colorizer(n_clusters=2, device="cpu", state_dict=from_jax_variables(variables, sn_folded=True))
+    ours = Colorizer(n_clusters=2, device="cpu", state_dict=from_jax_variables(variables, sn_folded=True),
+                     compute_dtype="float32")
     return jcol, ours
 
 
@@ -124,14 +125,12 @@ def test_colorize_batch_kmeans_path(colorizers):
 
 def test_colorizer_same_seed_same_output():
     imgs = [np.random.default_rng(5).integers(0, 256, (32, 32), dtype=np.uint8)]
-    one = Colorizer(n_clusters=2, device="cpu", seed=11).colorize_batch(imgs)
-    two = Colorizer(n_clusters=2, device="cpu", seed=11).colorize_batch(imgs)
+    one = Colorizer(n_clusters=2, device="cpu", seed=11, compute_dtype="float32").colorize_batch(imgs)
+    two = Colorizer(n_clusters=2, device="cpu", seed=11, compute_dtype="float32").colorize_batch(imgs)
     assert np.array_equal(one[0], two[0])
 
 
-@pytest.mark.parametrize(
-    "kwargs", [{"compute_dtype": "bfloat16"}, {"quantize": "int8"}, {"data_parallel": True}, {"wire_dtype": "uint8"}]
-)
+@pytest.mark.parametrize("kwargs", [{"quantize": "int8"}, {"data_parallel": True}])
 def test_later_slices_raise(kwargs):
     with pytest.raises(NotImplementedError, match="next slice"):
         Colorizer(device="cpu", **kwargs)

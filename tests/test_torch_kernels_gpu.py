@@ -12,7 +12,10 @@ kernel B's ragged tiles and channel chunks, kernel G's cells up to rows wider
 than a block);
 ``chip_smoke.py`` covers the paths' shapes. Tolerances as there: 1e-5
 absolute (1e-6 for kernel E; the autograd functions' gradients 1e-5 of their
-largest entry).
+largest entry). The bf16 instances of kernels A, B and C (bf16 features,
+input or tokens, f32 sums) are held to 1e-5 of the plain version's largest
+entry (A, B) and to one bf16 ulp of each entry (C, whose f32 sums round to
+bf16), on the same cases and at views that break the vector alignment.
 """
 
 import pytest
@@ -305,6 +308,71 @@ def test_superpixel_functions_launch_their_kernels(cuda):
     assert counts == [(1, 0, 1, 0), (0, 1, 0, 0), (0, 1, 0, 0), (1, 0, 1, 0),
                       (1, 0, 1, 0), (0, 0, 0, 1), (0, 1, 0, 0), (0, 0, 0, 1),
                       (1, 0, 1, 0), (0, 1, 0, 1), (0, 1, 0, 0), (1, 0, 1, 1)]
+
+
+def _bf16_ulps(out, ref) -> float:
+    a, b = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES)
+def test_bf16_superpixel_kernels(cuda, n, hc, wc, c, sh, sw, offset):
+    """Kernels A and C on bf16 features and tokens (the bf16 instances), at
+    storage offsets that leave 8, 4 and 2-byte alignment only."""
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    h, w = hc * sh, wc * sw
+    feat = _odd_view(_rand(cuda, n, h, w, c).bfloat16(), offset)
+    tok = _odd_view(_rand(cuda, n, hc, wc, c, seed=2).bfloat16(), offset)
+    prob, scale = _tied_prob(cuda, n, h, w), _rand(cuda, n, hc, wc, seed=3).abs() + 0.5
+    kernels.reset_launch_counts()
+    for kw in ({}, dict(with_hard=False, with_mass=False, scale=1.0)):
+        out, ref = sp.pool_stats(feat, prob, sh, sw, **kw), sp.pool_stats_plain(feat, prob, sh, sw, **kw)
+        for a, b in zip(out, ref):
+            if b is not None:
+                torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+        assert all(torch.equal(a, b) for a, b in zip(out, sp.pool_stats(feat, prob, sh, sw, **kw)) if a is not None)
+    for f in (None, scale):
+        out = sp._upfeat(tok, prob, sh, sw, f)
+        assert out.dtype == torch.bfloat16 and _bf16_ulps(out, sp.upfeat_plain(tok, prob, sh, sw, f)) <= 1.0
+        assert torch.equal(out, sp._upfeat(tok, prob, sh, sw, f))
+    assert kernels.LAUNCHES["pool_stats[bf16]"] == 4 and kernels.LAUNCHES["upfeat[bf16]"] == 4
+    assert kernels.LAUNCHES["pool_stats"] == kernels.LAUNCHES["upfeat"] == 0
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,h,w,c", AFFINITY_CASES)
+def test_bf16_affinity_head_kernel(cuda, n, h, w, c, offset):
+    """Kernel B on a bf16 input with f32 weights (the bf16 instance): C=16
+    unrolled, other C in chunks, and scalar staging at a 2-byte offset."""
+    from disentangledcolorization_tpu_torch.ops import affinity, kernels
+
+    x = _odd_view(_rand(cuda, n, h, w, c).bfloat16(), offset)
+    k, b = _rand(cuda, 3, 3, c, 9, seed=1) * 0.3, _rand(cuda, 9, seed=2)
+    kernels.reset_launch_counts()
+    out = affinity.affinity_head(x, k, b)
+    assert out.dtype == torch.float32 and kernels.LAUNCHES["affinity_head[bf16]"] == 1
+    torch.testing.assert_close(out, affinity.affinity_head_plain(x, k, b), atol=1e-5, rtol=0)
+    assert torch.equal(out, affinity.affinity_head(x, k, b))
+
+
+def test_bf16_wrappers_reject_other_dtypes(cuda):
+    from disentangledcolorization_tpu_torch.ops import affinity
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    x = _rand(cuda, 1, 8, 8, 16)
+    with pytest.raises(TypeError):
+        affinity.affinity_head(x.half(), _rand(cuda, 3, 3, 16, 9), _rand(cuda, 9))
+    with pytest.raises(TypeError):
+        affinity.affinity_head(x.bfloat16(), _rand(cuda, 3, 3, 16, 9).bfloat16(), _rand(cuda, 9))
+    prob = _tied_prob(cuda, 1, 16, 16)
+    with pytest.raises(TypeError):
+        sp.pool_stats(_rand(cuda, 1, 16, 16, 4).bfloat16(), prob.bfloat16(), 16, 16)
+    with pytest.raises(TypeError):
+        sp._upfeat(_rand(cuda, 1, 1, 1, 4).half(), prob, 16, 16)
 
 
 @pytest.mark.parametrize("n,t,d,nhead", [(2, 256, 64, 8), (1, 50, 64, 4), (3, 17, 128, 2), (1, 9, 32, 1)])

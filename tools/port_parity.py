@@ -40,6 +40,7 @@ from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables 
 from test_torch_bridge import random_state_dict, to_jax_variables  # noqa: E402
 from test_torch_superpixel import _inputs as sp_inputs  # noqa: E402
 import test_torch_attention_grad as agrad  # noqa: E402
+import test_torch_bf16 as tbf16  # noqa: E402
 import test_torch_colorlabel as tcl  # noqa: E402
 import test_torch_spixel_train as tspixel  # noqa: E402
 import test_torch_train as ttrain  # noqa: E402
@@ -98,7 +99,8 @@ def main() -> None:
         with open(pkl, "wb") as f:
             pickle.dump(variables, f)
         jcol = JColorizer(checkpoint=pkl, n_clusters=2, compute_dtype="float32")
-    col = Colorizer(n_clusters=2, device="cpu", state_dict=from_jax_variables(variables, sn_folded=True))
+    col = Colorizer(n_clusters=2, device="cpu", state_dict=from_jax_variables(variables, sn_folded=True),
+                    compute_dtype="float32")
     rng = np.random.default_rng(3)
     img = rng.integers(0, 256, (64, 48, 3), dtype=np.uint8)
     hm = np.zeros((4, 3), np.float32)
@@ -107,7 +109,66 @@ def main() -> None:
     res["colorize_hints_uint8_max_gap"] = err(col.colorize(img, hints=(hm, ab)), jcol.colorize(img, hints=(hm, ab)))
     res.update(training_parity())
     res.update(spixel_parity())
+    res.update(bf16_parity(sd, sd6))
     print(json.dumps(res))
+
+
+def bf16_parity(sd: dict, sd6: dict) -> dict:
+    """bf16 serving (``tests/test_torch_bf16.py``): the kernel-bearing modules
+    on bf16 inputs, the 2+2-layer forward with pinned anchors (the logits
+    relative to their largest entry), the 6-layer Colorizer with hints, and
+    the uint8 wire's ab codes in f32."""
+    res, bf = {}, torch.bfloat16
+    rng = np.random.default_rng(7)
+    x, xj = tbf16._bf16(rng.normal(size=(2, 16, 24, 16)).astype(np.float32))
+    k = (rng.normal(size=(3, 3, 16, 9)) * 0.2).astype(np.float32)
+    b = (rng.normal(size=(9,)) * 0.1).astype(np.float32)
+    res["bf16_affinity_head_vs_xla"] = err(affinity.affinity_head(x, torch.from_numpy(k), torch.from_numpy(b)),
+                                           pa._xla_affinity_head(xj, jnp.asarray(k), jnp.asarray(b)))
+    feat, prob = sp_inputs(0, 2, 64, 64, 66)
+    ft, fj = tbf16._bf16(feat)
+    ours, ref = tsp.pool_and_sizes(ft, torch.from_numpy(prob), 16, 16), sp.pool_and_sizes(fj, jnp.asarray(prob), 16, 16)
+    res["bf16_pool_and_sizes_vs_xla"] = max(err(a.float(), jnp.asarray(r).astype(jnp.float32)) for a, r in zip(ours, ref))
+    tok, tokj = tbf16._bf16(np.random.default_rng(3).normal(size=(2, 4, 4, 64)).astype(np.float32))
+    res["bf16_upfeat_vs_xla"] = err(tsp.upfeat(tok, torch.from_numpy(prob), 16, 16).float(),
+                                    sp.upfeat_auto(tokj, jnp.asarray(prob), 16, 16).astype(jnp.float32))
+    grays, colors, mask, anchors = tbf16._forward_inputs()
+    for folded in (True, False):
+        variables = to_jax_variables(sd, folded)
+        model = AnchorColorProb(n_clusters=2, n_enc_layers=2, sn_folded=folded, compute_dtype=bf).eval()
+        model.load_state_dict(from_jax_variables(variables, sn_folded=folded))
+        jm = JAnchorColorProb(sp_size=16, n_clusters=2, n_enc_layers=2, sn_folded=folded, compute_dtype=jnp.bfloat16)
+        ref = jm.apply(variables, jnp.asarray(grays), jnp.asarray(colors), True, 0, False,
+                       hint_mask_override=jnp.asarray(mask), anchor_colors_override=jnp.asarray(anchors),
+                       rngs={"anchor": jax.random.key(0)})
+        with torch.no_grad():
+            out = model(torch.from_numpy(grays), torch.from_numpy(colors), hint_mask_override=torch.from_numpy(mask),
+                        anchor_colors_override=torch.from_numpy(anchors))
+        tag = "folded" if folded else "unfolded"
+        for key in ("affinity_map", "pal_logit", "ref_logit", "pred_colors", "spixel_sizes"):
+            scale = float(np.abs(np.asarray(ref[key])).max()) if key.endswith("logit") else 1.0
+            res[f"bf16_anchorcolorprob_{tag}_{key}"] = err(out[key], ref[key]) / scale
+    variables = to_jax_variables(sd6, sn_folded=True)
+    state = from_jax_variables(variables, sn_folded=True)
+    img, hints = tbf16._hinted_request()
+    with tempfile.TemporaryDirectory() as td:
+        pkl = os.path.join(td, "bridged.pkl")
+        with open(pkl, "wb") as f:
+            pickle.dump(variables, f)
+        jcol = JColorizer(checkpoint=pkl, n_clusters=2, compute_dtype="bfloat16")
+        jwire = JColorizer(checkpoint=pkl, n_clusters=2, compute_dtype="float32", wire_dtype="uint8")
+    res["bf16_colorize_hints_uint8_max_gap"] = err(Colorizer(n_clusters=2, device="cpu", state_dict=state).colorize(img, hints=hints),
+                                                   jcol.colorize(img, hints=hints))
+    wire = Colorizer(n_clusters=2, device="cpu", state_dict=state, compute_dtype="float32", wire_dtype="uint8")
+    gray, _ = wire._prep(img)
+    m, h = torch.from_numpy(hints[0])[None, ..., None], torch.from_numpy(hints[1])[None]
+    with torch.no_grad():
+        pred = wire.model(wire._wire_in(gray), hint_mask_override=m, anchor_colors_override=h)["pred_colors"]
+    codes = torch.clamp(torch.round((pred + 1.0) * 127.5), 0, 255).to(torch.uint8)
+    ref = jwire._forward(0, True)(jwire.variables, jwire._wire_in(gray.numpy()), jax.random.key(0), jnp.asarray(m.numpy()),
+                                  jnp.asarray(h.numpy()))
+    res["uint8_wire_ab_code_max_gap"] = err(codes.int(), np.asarray(ref).astype(np.int64))
+    return res
 
 
 def training_parity() -> dict:

@@ -1,7 +1,8 @@
 """Where the PyTorch port's serving forward, or a training step, spends its time on the card.
 
 Runs the port's ``AnchorColorProb`` forward (seeded random weights, 6+6
-encoder layers, batch 8 at 256x256, f32), with ``--train`` its colorizer
+encoder layers, batch 8 at 256x256, f32; with ``--bf16`` the bf16 serving
+forward, the JAX ``Colorizer``'s default), with ``--train`` its colorizer
 training step (the recipe's configuration: dropout 0.1, Adam 2e-4 poly,
 batch 24 at 256x256 from 240 synthetic images held on the card), or with
 ``--spixel`` the stage-1 SpixelNet training step (``scripts/spixelseg_ab16.sh``:
@@ -15,7 +16,7 @@ backward (its torch ops, at the step's shape, timed alone). ``--train --vgg``
 adds the VGG19 perceptual term to the step (a seeded random-init VGG19 npz
 written to a temporary directory). Needs a CUDA device:
 
-    python tools/profile_port.py [--batch 8] [--size 256] [--iters 5]
+    python tools/profile_port.py [--bf16] [--batch 8] [--size 256] [--iters 5]
     python tools/profile_port.py --train [--vgg] [--batch 24] [--iters 3]
     python tools/profile_port.py --spixel [--batch 128] [--iters 3]
     python tools/profile_port.py --cat [--batch 24]
@@ -190,6 +191,7 @@ def main() -> None:
     ap.add_argument("--vgg", action="store_true", help="with --train: add the VGG19 perceptual term")
     ap.add_argument("--spixel", action="store_true", help="profile the stage-1 SpixelNet training step")
     ap.add_argument("--cat", action="store_true", help="time the proxy concatenation alone")
+    ap.add_argument("--bf16", action="store_true", help="the serving forward in bf16 (default: f32)")
     ap.add_argument("--batch", type=int, default=None, help="default 8 (forward), 24 (--train, --cat) or 128 (--spixel)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
@@ -223,12 +225,13 @@ def main() -> None:
             print(json.dumps({"card": smi, "what": what, **profile(run, batch, args.iters, tf32)}), flush=True)
         return
     batch = args.batch or 8
-    col = Colorizer(device="cuda", seed=130)
+    col = Colorizer(device="cuda", seed=130, compute_dtype="bfloat16" if args.bf16 else "float32")
     g = torch.Generator().manual_seed(0)
     grays = (torch.rand(batch, args.size, args.size, 1, generator=g) * 2 - 1).cuda()
+    what = "forward_bf16" if args.bf16 else "forward"
     with torch.no_grad():
         for tf32 in (False, True):
-            print(json.dumps({"card": smi, "what": "forward", **profile(lambda: col.model(grays), batch, args.iters, tf32)}),
+            print(json.dumps({"card": smi, "what": what, **profile(lambda: col.model(grays), batch, args.iters, tf32)}),
                   flush=True)
 
 

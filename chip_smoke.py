@@ -84,7 +84,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and the host<->device synchronisations of a forward and of a request
      (with the bin tables kept on the card, and copied at every use as
      before); the card's bf16 forward against the same model's bf16 plain
-     path on the CPU, anchors pinned.
+     path on the CPU, anchors pinned;
+ 10. bf16 stage-2 training (the JAX trainer's ``--compute_dtype bfloat16``):
+     ``shift_add[bf16]`` (the unpooling's bf16 token gradient) against its
+     plain version bit for bit at (24,16,16,9,64), C=66 and C=5, twice, timed;
+     kernel A's bf16 instance without mass at the token gradient's shape
+     (24,256,256,64), twice bitwise and against its plain version;
+     ``cli.train_colorizer.train`` with ``--compute_dtype bfloat16 --enhanced
+     --vgg_npz`` (random npz, seed 0), ``--device_data``, batch 24 at full
+     width, 1 epoch of 4 steps with validation and one dump (finite losses,
+     launches per step: affinity_head[bf16] 1, pool_stats 1, shift_add 1,
+     upfeat 1, upfeat[bf16] 1, pool_stats[bf16] 1, shift_add[bf16] 1,
+     attention 12, attention_bwd 12, prob_grad 0, affinity_head 0), whose best
+     checkpoint serves one bf16 request; 10 timed steps with TF32 off and 5
+     with it on, with the VGG19 term and with the L1 fallback (images/s, the
+     step's device time and busy share, peak memory, launches per step); one
+     bf16 step at batch 2, 32x32, dropout 0, pinned anchors, conditioned
+     weights, on the card against the CPU's plain path and beside the CPU's
+     f32 step.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -1828,6 +1845,298 @@ def drive_bf16_serving(device, smi: str, n_requests: int = 3, batch: int = 8, si
     return counts, res
 
 
+# phase 10: bf16 stage-2 training (the JAX trainer's --compute_dtype bfloat16).
+# A step runs the f32 pooling (precise: kernel A and F) and its feature
+# gradient (kernel C), the bf16 unpooling (C[bf16]) and its bf16 token gradient
+# (A[bf16] without mass, then shift_add[bf16]), the frozen segnet's bf16 head
+# (B[bf16]) and the f32 attention pair; no kernel G, no f32 head
+BF16_TRAIN_PER_STEP = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "upfeat[bf16]": 1,
+                       "pool_stats[bf16]": 1, "shift_add[bf16]": 1, "attention": 12, "attention_bwd": 12,
+                       "prob_grad": 0, "affinity_head": 0}
+# the command line's validation batch (the eval forward) and its image dump
+# (the eval forward and three f32 unpoolings of the decoded colors and hints)
+BF16_EVAL_PER_BATCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat[bf16]": 1, "attention": 12}
+BF16_DUMP_PER_EPOCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat[bf16]": 1, "upfeat": 3,
+                       "attention": 12}
+# One bf16 step on the card against the same step's plain path on the CPU:
+# the losses relative to their size (cuDNN's and oneDNN's sums in other
+# orders flip bf16 roundings, which compound through the step; the CPU port
+# against JAX 1.5e-4 to 1.1e-3, tests/test_torch_bf16_train_step.py; the card
+# against the CPU 2.5e-3 on an H100), the encoders' and projections'
+# gradients as a relative L2 distance (the CPU's bf16 step with oneDNN's
+# convolutions against PyTorch's native ones, another sum order: 0.04 and
+# 0.08). Neither can tell bf16 from f32 at random init (the CPU's own f32 and
+# bf16 steps are 0.6-1.8e-3 apart in the losses); the criterion that does is
+# exact: every plain convolution's weight gradient in a bf16 step is a bf16
+# value, in the f32 step almost none (at most BF16_CHANCE)
+BF16_STEP_LOSS_TOL = 5e-3
+BF16_STEP_GRAD_TOL = 0.25
+BF16_CHANCE = 1e-3
+
+
+def bf16_share(grads: dict, prefix: str) -> float:
+    """Share of the entries of the plain convolutions' weight gradients under
+    ``prefix`` that are bf16 values."""
+    keys = [k for k in grads if k.startswith(prefix) and k.endswith(".weight") and grads[k].ndim == 4]
+    flat = torch.cat([grads[k].flatten().float() for k in keys])
+    return float((flat.to(torch.bfloat16).float() == flat).float().mean())
+
+
+def compare_bf16_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp_size: int = 16, d: int = 64):
+    """Phase 10: shift_add[bf16] against its plain version bit for bit, at the
+    token gradient's shape (24,16,16,9,64) and at C = 66 and 5, twice; kernel
+    A's bf16 instance without mass at the token gradient's shape
+    (24,256,256,64), twice bitwise and against its plain version."""
+    from disentangledcolorization_tpu_torch.ops import superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(10)
+    bf = torch.bfloat16
+    hc, wc = h // sp_size, w // sp_size
+    for nn_, c in ((n, d), (2, 66), (2, 5)):
+        t = (torch.randn(nn_, hc, wc, 9, c, generator=g) * 4).to(device)
+        out = superpixel.shift_add(t, dtype=bf)[0]
+        if out.dtype != bf or not torch.equal(out, superpixel.shift_add_plain(t, dtype=bf)[0]):
+            raise AssertionError(f"shift_add[bf16], C={c}: not bf16, or not bitwise equal to its plain version")
+        if not torch.equal(out, superpixel.shift_add(t, dtype=bf)[0]):
+            raise AssertionError(f"shift_add[bf16], C={c}: two runs on the same inputs are not bitwise equal")
+    t = (torch.randn(n, hc, wc, 9, d, generator=g) * 4).to(device)
+    out = superpixel.shift_add(t, dtype=bf)[0]
+    f = lambda: superpixel.shift_add(t, dtype=bf)  # noqa: E731
+    b_ms, b_by = bound(nbytes(t, out), 17.0 * out.numel())  # 9 roundings and 8 adds an output
+    row = dict(
+        name="shift_add[bf16]", route="cuda", source="disentangledcolorization_tpu_torch/csrc/shift_add.cu",
+        replaces="disentangledcolorization_tpu/ops/superpixel.py:120 (the transpose of upfeat's neighbour stack in "
+                 "its vjp, after K5 pallas_superpixel.py:83 in the Pallas route: XLA ops, no Pallas kernel)",
+        max_abs_err=max_err(out, superpixel.shift_add_plain(t, dtype=bf)[0]), ms=time_ms(f, device),
+        device_ms=device_ms(f)[0], plain_ms=time_ms(lambda: superpixel.shift_add_plain(t, dtype=bf), device),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log(f"kernel shift_add[bf16]: bitwise equal to its plain version at ({n},{hc},{wc},9,{d}), C=66 and C=5, twice; "
+        f"ms={row['ms']:.4f} device_ms={row['device_ms']} plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
+    del t, out
+
+    # A[bf16] without mass, scale 1: the bf16 cotangent of the unpooling
+    gt = torch.randn(n, h, w, d, generator=g).to(device, bf)
+    prob = torch.softmax(torch.randn(n, h, w, 9, generator=g), dim=-1).to(device).contiguous()
+    k5 = dict(with_hard=False, with_mass=False, scale=1.0)
+    pool = lambda: superpixel.pool_stats(gt, prob, sp_size, sp_size, **k5)  # noqa: E731
+    out = pool()
+    ref = superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5)
+    if not torch.equal(out[0], pool()[0]):
+        raise AssertionError("pool_stats[bf16] without mass: two runs on the same inputs are not bitwise equal")
+    err = rel_err(out, ref)
+    b_ms, b_by = bound(nbytes(gt, prob, out[0]), 2.0 * n * h * w * 9 * d)
+    k5 = dict(max_abs_err=max_err(out, ref), max_rel_err=err, ms=time_ms(pool, device), device_ms=device_ms(pool)[0],
+              plain_ms=time_ms(lambda: superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5), device),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"pool_stats[bf16] without mass, scale 1 (K5 in bf16 training), batch {n}, C={d}: twice bitwise; "
+        f"max|d|/max|ref| {err:.3e} (tol {BF16_TOL:.0e}) ms={k5['ms']:.4f} device_ms={k5['device_ms']} "
+        f"plain_ms={k5['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    if not err <= BF16_TOL:
+        raise AssertionError(f"pool_stats[bf16] without mass: {err} above {BF16_TOL}")
+    return row, {"pool_stats_bf16_token_gradient": k5}
+
+
+def timed_steps(step, st, dd, n_steps: int, batch: int, tf32: bool, n_images: int, offset: int = 0):
+    """``n_steps`` steps on batches of the device-resident set, TF32 as given:
+    seconds per step, images/s and peak memory (the first step excluded from
+    the means), and the launch counts of those steps; then steps under the
+    profiler for a step's device time."""
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        secs = []
+        for i in range(n_steps):
+            b = {k: v[(offset + i) * batch % n_images:][:batch] for k, v in dd.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(st, b, 130)
+            float(m["totalLoss"])
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = dict(kernels.LAUNCHES)
+        b = {k: v[:batch] for k, v in dd.items()}
+        dev = device_ms(lambda: step(st, b, 130), iters=2, tries=2)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    steady = secs[1:]
+    s = sum(steady) / len(steady)
+    return dict(s_per_step_all=secs, s_per_step=s, images_per_s=batch / s, peak_gb=peak, step_device_ms=dev,
+                device_busy_share=None if dev is None else dev / (s * 1e3), tf32=tf32), counts
+
+
+def drive_bf16_training(device, smi: str, n_images: int = 96, n_val: int = 24, batch: int = 24, size: int = 256,
+                        steps: int = 10, tf32_steps: int = 5):
+    """Phase 10: ``cli.train_colorizer.train`` with ``--compute_dtype bfloat16``
+    at full width with the VGG19 term, ``--device_data``, batch 24, 1 epoch of
+    4 steps with validation and one dump; launches per step; the best
+    checkpoint serves one request; then ``steps`` timed steps with TF32 off and
+    ``tf32_steps`` with it on, with the VGG19 term and with the L1 fallback."""
+    import tempfile
+    import warnings
+
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.cli import train_colorizer
+    from disentangledcolorization_tpu_torch.models.vgg import make_random_vgg19_npz
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.train import data, losses as losses_lib, steps as steps_lib
+    from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser
+
+    syn = data.synthetic_dataset(n_images + n_val, size, device, seed=11)
+    train_ds = data.ArrayDataset({k: v[:n_images] for k, v in syn.items()})
+    val_ds = data.ArrayDataset({k: v[n_images:] for k, v in syn.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = make_random_vgg19_npz(os.path.join(tmp, "vgg19_random.npz"), seed=0)
+        argv = ["--save_dir", tmp, "--name", "colorizer_bf16", "--batch_size", str(batch), "--input_size", str(size),
+                "--epochs", "1", "--enhanced", "--vgg_npz", npz, "--device_data", "--compute_dtype", "bfloat16",
+                "--n_enc", "6", "--n_dec", "6", "--n_clusters", "8", "--lr", "2e-4", "--scheduler", "poly",
+                "--colorfulness", "0.5", "--seed", "130", "--device", str(device)]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = train_colorizer.train(pcolor_argparser().parse_args(argv), train_ds, val_ds)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        if [w for w in caught if "falls back to pixel L1" in str(w.message)]:
+            raise AssertionError("bf16 command line: the L1 fallback engaged despite --vgg_npz")
+        model = run["state"].model
+        if model.compute_dtype != torch.bfloat16 or any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("bf16 command line: expected a bf16 model with f32 parameters")
+        n_steps = len(run["step_losses"])
+        extra = {k: (n_val // batch) * BF16_EVAL_PER_BATCH.get(k, 0) + BF16_DUMP_PER_EPOCH.get(k, 0) for k in counts}
+        per = per_step_launches(counts, n_steps, extra)
+        log(f"bf16 command line: {n_steps} steps, {secs:.2f} s with validation and a dump; launches per step "
+            f"{json.dumps({k: v for k, v in per.items() if v})}")
+        if n_steps != n_images // batch or any(per[k] != v for k, v in BF16_TRAIN_PER_STEP.items()):
+            raise AssertionError(f"bf16 command line: {n_steps} steps, launches per step {per}, "
+                                 f"expected {BF16_TRAIN_PER_STEP}")
+        step_losses = run["step_losses"]
+        if not all(np.isfinite(v) for m in step_losses for v in m.values()) or not all(m["recLoss"] > 0 for m in step_losses):
+            raise AssertionError(f"bf16 command line: losses {step_losses}")
+        val = run["history"][0]["val_loss"]
+        if val is None or not np.isfinite(val):
+            raise AssertionError(f"bf16 command line: validation loss {val}")
+        log("bf16 command line losses (total, pal, ref, rec per step): "
+            + json.dumps([[round(m[k], 4) for k in ("totalLoss", "palLoss", "refLoss", "recLoss")] for m in step_losses])
+            + f"; validation {val:.4f}")
+        best = os.path.join(run["run_dir"], "checkpts", "model_best.pth.tar")
+        col = Colorizer(checkpoint=best, device=device)  # bf16 serving, the default
+        out = col.colorize(np.random.default_rng(4).integers(0, 256, (size, size, 3), dtype=np.uint8))
+        if out.shape != (size, size, 3) or out.dtype != np.uint8:
+            raise AssertionError("Colorizer(checkpoint=<bf16 run>): expected a uint8 (H, W, 3) output")
+        del col
+    res = {"command_line": {"seconds": secs, "steps": n_steps, "step_losses": step_losses, "val_loss": val,
+                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}}
+
+    dd = data.stack_dataset(train_ds, device=device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        l1 = losses_lib.AnchorColorProbLoss(enhanced=True)
+    for name, loss in (("vgg", run["loss"]), ("l1", l1)):
+        step = steps_lib.make_colorizer_train_step(loss, class_lambda=0.5)
+        off, counts_off = timed_steps(step, run["state"], dd, steps, batch, False, n_images)
+        on, _ = timed_steps(step, run["state"], dd, tf32_steps, batch, True, n_images, offset=steps)
+        for k, v in BF16_TRAIN_PER_STEP.items():
+            if counts_off[k] != v * steps:
+                raise AssertionError(f"bf16 timed steps ({name}), {k}: {counts_off[k]} launches, expected {v} x {steps}")
+        res[name] = {"tf32_off": off, "tf32_on": on}
+        for r in (off, on):
+            log(f"bf16 step ({'VGG19 term' if name == 'vgg' else 'L1 fallback'}), TF32 {'on' if r['tf32'] else 'off'}, "
+                f"on {smi}: s per step {[round(x, 4) for x in r['s_per_step_all']]} (first excluded); steady "
+                f"{r['s_per_step']:.4f} s/step, {r['images_per_s']:.2f} images/s at batch {batch}, {size}x{size}; "
+                f"device {r['step_device_ms']} ms a step, busy {r['device_busy_share']}; peak {r['peak_gb']:.2f} GB")
+    return counts, res
+
+
+def bf16_train_card_vs_cpu(device, size: int = 32, batch: int = 2) -> dict:
+    """One bf16 training step on the card against the same step's plain path
+    on the CPU (full widths, dropout 0, pinned anchors, conditioned weights,
+    SGD), and the CPU's f32 step beside them: the losses and the encoders'
+    gradients within the stated tolerances; every plain convolution's weight
+    gradient a bf16 value on the card and on the CPU in bf16, almost none in
+    f32."""
+    import warnings
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, anchor
+    from disentangledcolorization_tpu_torch.train import data, losses, state, steps as steps_lib
+
+    hc = size // 16
+    hint = torch.zeros(batch, hc, hc, 1)
+    hint[:, 0, 0] = hint[:, -1, -1] = 1.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        loss = losses.AnchorColorProbLoss(enhanced=True)
+    results = {}
+    pinned = anchor.clustering_hint_mask
+    anchor.clustering_hint_mask = lambda feats, *a, **k: (hint.to(feats.device), None)
+    try:
+        torch.manual_seed(17)
+        model = AnchorColorProb(dropout=0.0)
+        b = data.synthetic_dataset(batch, size, "cpu", seed=18)
+        # one corner of the ab square an image: the pooled colors, so the token
+        # labels, cannot round to another bin, and tanh never reaches them, so
+        # the L1 term's gradient has one sign everywhere
+        corners = torch.tensor([[1.0, -1.0], [-1.0, 1.0]]).repeat(batch, 1)[:batch]
+        b["color"] = corners[:, None, None, :].expand(batch, size, size, 2).contiguous()
+        _center_conv_biases(model, b["gray"], b["color"])
+        sd = model.state_dict()
+        for name, dev, dtype in (("card_bf16", device, torch.bfloat16), ("cpu_bf16", torch.device("cpu"), torch.bfloat16),
+                                 ("cpu_f32", torch.device("cpu"), torch.float32)):
+            m = AnchorColorProb(dropout=0.0, compute_dtype=dtype)
+            m.load_state_dict(sd)
+            m.to(dev)
+            st = state.TrainState.create(m, name="sgd", schedule=0.1, momentum=0.0)
+            grads, apply = {}, st.optimizer.step
+            st.optimizer.step = lambda m=m, apply=apply, grads=grads: grads.update(
+                {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters() if p.grad is not None}) or apply()
+            with torch.backends.mkldnn.flags(enabled=dtype != torch.float32):  # f32: as phase 5 (oneDNN off)
+                metrics = steps_lib.make_colorizer_train_step(loss)(st, {k: v.to(dev) for k, v in b.items()}, 0)
+            results[name] = ({k: float(v) for k, v in metrics.items()}, grads)
+    finally:
+        anchor.clustering_hint_mask = pinned
+
+    def loss_rel(a, c):
+        return max(abs(results[a][0][k] - results[c][0][k]) / abs(results[c][0][k]) for k in results[c][0])
+
+    def grad_dist(a, c, prefixes):
+        keys = sorted(k for k in results[c][1] if k.startswith(prefixes))
+        x, y = (torch.cat([results[r][1][k].flatten() for k in keys]) for r in (a, c))
+        return float((x - y).norm() / y.norm())
+
+    out = {"losses_rel": loss_rel("card_bf16", "cpu_bf16"), "losses_rel_cpu_f32_vs_bf16": loss_rel("cpu_f32", "cpu_bf16")}
+    for group, prefixes in (("encoders", ("wildpath.", "hintpath.")),
+                            ("projections", ("mid_word_prj.", "trg_word_emb.", "trg_word_prj.")),
+                            ("repnet", ("repnet.",)), ("enhanceNet", ("enhanceNet.",))):
+        out[f"{group}_grad_dist"] = grad_dist("card_bf16", "cpu_bf16", prefixes)
+        out[f"{group}_grad_dist_cpu_f32_vs_bf16"] = grad_dist("cpu_f32", "cpu_bf16", prefixes)
+    for stack in ("repnet.", "enhanceNet."):
+        for r in results:
+            out[f"{stack}bf16_share_{r}"] = bf16_share(results[r][1], stack)
+    log("bf16 training step card vs CPU (2x32x32, full widths): " + json.dumps(out)
+        + f" (tolerances: losses {BF16_STEP_LOSS_TOL}, encoder and projection gradients {BF16_STEP_GRAD_TOL})")
+    finite = all(torch.isfinite(g).all() for r in results.values() for g in r[1].values())
+    if not finite or sorted(results["card_bf16"][1]) != sorted(results["cpu_bf16"][1]):
+        raise AssertionError("bf16 training step: non-finite gradients, or gradients of different parameters")
+    if not out["losses_rel"] <= BF16_STEP_LOSS_TOL or not max(out["encoders_grad_dist"],
+                                                              out["projections_grad_dist"]) <= BF16_STEP_GRAD_TOL:
+        raise AssertionError("bf16 training step: card and CPU disagree beyond the stated tolerances")
+    for stack in ("repnet.", "enhanceNet."):
+        if not (out[f"{stack}bf16_share_card_bf16"] == 1.0 == out[f"{stack}bf16_share_cpu_bf16"]
+                and out[f"{stack}bf16_share_cpu_f32"] <= BF16_CHANCE):
+            raise AssertionError(f"bf16 training step, {stack}: the weight gradients are not rounded to bf16 once")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1911,6 +2220,14 @@ def main() -> int:
     rows += compare_bf16_kernels(device)
     paths["serving_bf16"], extras["serving_bf16"] = drive_bf16_serving(device, smi)
     mark(9)
+
+    # 10. bf16 stage-2 training: shift_add[bf16], the command line in bf16, card vs CPU
+    f_row, k5_bf16 = compare_bf16_training_kernels(device)
+    rows.append(f_row)
+    extras.update(k5_bf16)
+    paths["training_bf16"], extras["training_bf16"] = drive_bf16_training(device, smi)
+    extras["training_bf16"]["card_vs_cpu"] = bf16_train_card_vs_cpu(device)
+    mark(10)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}

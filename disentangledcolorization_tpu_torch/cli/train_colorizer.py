@@ -5,7 +5,9 @@ Counterpart of ``disentangledcolorization_tpu/cli/train_colorizer.py``
 refLoss (CE) + recLoss (the VGG19 perceptual term with ``--vgg_npz``, else
 pixel L1 with a warning), Adam + poly decay, validation every ``--eval_freq``
 epochs with image dumps, last/best checkpoints, ``--resume``, ``--remat``,
-``--grad_accum``, ``--device_data``, and a clean checkpoint on SIGTERM/SIGINT.
+``--grad_accum``, ``--device_data``, ``--compute_dtype bfloat16`` (bf16 convs
+with f32 parameters, as ``models/disco.py`` says; the checkpoints keep f32
+parameters), and a clean checkpoint on SIGTERM/SIGINT.
 Runs on the card unless ``--device cpu``:
 
     python -m disentangledcolorization_tpu_torch.cli.train_colorizer --data <root with train/ val/> \\
@@ -98,7 +100,8 @@ def train(args, train_ds, val_ds) -> dict:
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = AnchorColorProb(sp_size=args.psize, n_clusters=args.n_clusters, n_enc_layers=args.n_enc)
+        model = AnchorColorProb(sp_size=args.psize, n_clusters=args.n_clusters, n_enc_layers=args.n_enc,
+                                compute_dtype=getattr(torch, args.compute_dtype))
     # the reference's blanket xavier re-init, then the frozen stage-1 segnet
     xavier_reinit_params(model, generator_for(args.seed, "xavier", device="cpu"))
     if args.spixel_ckpt:
@@ -107,7 +110,8 @@ def train(args, train_ds, val_ds) -> dict:
     else:
         logger.warning("no --spixel_ckpt: segnet is random AND frozen (smoke-test only)")
     model.to(device)
-    logger.info(f"AnchorColorProb params: {param_count(model) / 1e6:.2f}M, device: {device}")
+    logger.info(f"AnchorColorProb params: {param_count(model) / 1e6:.2f}M, device: {device}, "
+                f"compute dtype {args.compute_dtype} (f32 parameters)")
 
     steps_per_epoch = max(len(train_loader), 1)
     plateau = optim.PlateauState()

@@ -57,6 +57,9 @@ def train(args, train_ds, val_ds) -> dict:
     logger = build_logger(run_dir)
     writer_t, writer_v = MetricsWriter(run_dir, "train"), MetricsWriter(run_dir, "val")
     configure_backends(args, logger)
+    if args.compute_dtype != "float32":
+        logger.info(f"--compute_dtype {args.compute_dtype} is ignored: stage 1 trains in float32, "
+                    "as the JAX stage-1 trainer (which never reads the flag) does")
 
     loader_kwargs = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed)
     train_loader = data_lib.DataLoader(train_ds, shuffle=True, **loader_kwargs)

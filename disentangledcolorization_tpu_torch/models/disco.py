@@ -25,14 +25,20 @@ The stages:
 Parameter names follow the reference torch ``state_dict`` (``segnet.net.*``,
 ``repnet.*``, ``wildpath.layers.*``, ``enhanceNet.*``, ...).
 
-``compute_dtype=torch.bfloat16`` (test mode only, the serving default of the
-JAX ``Colorizer``) rounds where the JAX model does (``disco.py:101-282``):
-the gray input to bf16 for the segnet, repnet and HourGlass2, whose convs run
-in bf16 with f32 parameters; the segnet head in f32 (the affinity map is f32);
-the proxy [features | ab] in bf16, pooled in f32 and rounded to bf16; the
-encoders, projections, k-means and anchor colors in f32; the hintpath's output
-rounded to bf16 before unpooling, whose f32 sums are rounded to bf16; ``tanh``
-in f32. The parameters stay f32.
+``compute_dtype=torch.bfloat16`` (the serving default of the JAX
+``Colorizer``, and the JAX trainer's ``--compute_dtype bfloat16``) rounds
+where the JAX model does (``disco.py:101-282``): the gray input to bf16 for
+the segnet, repnet and HourGlass2, whose convs run in bf16 with f32
+parameters; the segnet head in f32 (the affinity map is f32); in test mode
+the proxy [features | ab] in bf16, pooled in f32 and rounded to bf16; with
+``test_mode=False`` (training and validation) the repnet's features cast to
+f32 and the f32 proxy pooled by f32 kernel A (JAX's ``precise`` pooling,
+``disco.py:132-137``), so the ground-truth token labels come from f32 colors;
+the encoders, projections, k-means and anchor colors in f32; the hintpath's
+output rounded to bf16 before unpooling, whose f32 sums are rounded to bf16;
+``tanh`` in f32. The parameters stay f32. In training the BatchNorms of the
+repnet and HourGlass2 normalise in f32 and cast back, and the backward rounds
+as ``models/layers.py`` says; the unpooling's token gradient is bf16.
 """
 
 from __future__ import annotations
@@ -107,10 +113,6 @@ class AnchorColorProb(nn.Module):
                  generator, test_mode, train, dropout_generator):
         n, h, w, _ = input_grays.shape
         spn, d, cdt = self.sp_size, D_MODEL, self.compute_dtype
-        if cdt != torch.float32 and not test_mode:
-            raise NotImplementedError(
-                f"the training forward in {cdt} is not ported yet: it comes with the next slice of the port (see ROADMAP.md)"
-            )
         hc, wc = h // spn, w // spn
         t = hc * wc
         grays = input_grays.float()
@@ -121,7 +123,9 @@ class AnchorColorProb(nn.Module):
         with torch.no_grad():  # frozen segnet, always in eval mode
             affinity_map = self.segnet(grays_c)
         pred_feats = self.repnet(grays_c, train)
-        proxy = torch.cat([pred_feats, input_colors.to(cdt)], dim=-1)
+        if not test_mode:  # precise pooling: the ground-truth token labels come from f32 pooled colors
+            pred_feats = pred_feats.float()
+        proxy = torch.cat([pred_feats, input_colors.to(pred_feats.dtype)], dim=-1)
         pooled, _, spixel_sizes = sp.pool_and_sizes(proxy, affinity_map, spn, spn)
         pooled = pooled.float()
         feat_tokens, spix_colors = pooled[..., :d], pooled[..., d:]

@@ -23,11 +23,41 @@ bf16 copies of them, and rounds where the JAX layers round:
   * the inference BatchNorm computes its scale and shift in f32, rounds them,
     then ``x * a`` and ``+ b`` each round (``layers.py:384-393``);
   * ``LeakyReLU``'s slope is rounded to the input's dtype first, as JAX's
-    weakly typed ``0.1 * x`` rounds it.
+    weakly typed ``0.1 * x`` rounds it, and its gradient at an exact 0 is 1,
+    as JAX's ``where(x >= 0, ...)`` gives it.
 
 In f32 they are the plain torch layers. :func:`hold_compute_copies` makes the
 low-precision copies once, for serving; without it each forward casts what it
-needs.
+needs. A forward that needs a parameter's gradient (training) never takes the
+held copies: it casts the f32 parameters inside autograd, so their gradients
+reach the f32 parameters (``SNConv`` divides by its f32 sigma first).
+
+Training in bf16 (the JAX trainer's ``--compute_dtype bfloat16``): the
+training BatchNorm casts its input to f32, normalises with f32 batch
+statistics, updates f32 running statistics, and casts its output back
+(``layers.py:395-403``); everything else is as in serving.
+
+The backward rounding rule: bf16 operands with f32 accumulation, and each
+op's result rounded to bf16 once, as cuDNN and torch's CPU kernels do
+(a conv's input and weight gradients, a bias's sum over the pixels, nearest
+upsampling's sum of 4, a cast's transpose). Where XLA on the CPU rounds each
+element-wise op apart, the port rounds where it rounds: the unpooling's
+token gradient rounds each direction and then each of its 8 adds
+(``ops/superpixel.py::shift_add_plain``). Where XLA on the CPU departs from
+one rounding per op, the tests compare with the f32-accumulated result
+rounded once and record the departure:
+
+  * a bias gradient (the sum of ``y + b.astype(bf16)``'s cotangent over the
+    pixels) rounds after every add on XLA-CPU: over 1,152 terms of mean 1 it
+    comes out 0.75-0.84 of the f32 sum:
+    ``tests/test_torch_bf16_train_layers.py::test_xla_cpu_rounds_bias_sums_per_add``;
+  * nearest 2x upsampling's gradient (``jnp.repeat``'s transpose) sums its
+    4 terms the same way:
+    ``tests/test_torch_bf16_train_layers.py::test_bf16_layer_backward_matches_jax[upsample]``;
+  * a conv's weight gradient is rounded once by XLA-CPU for a layer alone,
+    but not inside the jitted train step, whose bf16 weight gradients are no
+    bf16 values:
+    ``tests/test_torch_bf16_train_step.py::test_bf16_step_rounds_conv_weight_gradients_once``.
 """
 
 from __future__ import annotations
@@ -68,14 +98,20 @@ def _hold(m: nn.Module, dtype: torch.dtype) -> tuple:
     return copies
 
 
+def _needs_grad(m: nn.Module) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in m._parameters.values() if p is not None)
+
+
 def compute_params(m: nn.Module, dtype: torch.dtype, train: bool = False):
     """The tensors module ``m`` computes with in ``dtype``: (weight, bias) of a
     convolution, the parameters themselves where they are in ``dtype``; for
     another dtype, and for the (scale, shift) of an inference BatchNorm, the
     copies that :func:`hold_compute_copies` made (made again first if the
-    parameters have changed since), else a cast now."""
+    parameters have changed since), else a cast now. ``train`` (a step that
+    stores SNConv's u and v) and a forward that needs the parameters'
+    gradients always cast now, inside autograd."""
     held = m.__dict__.get("_compute_copies")
-    if held is not None and held[0][0].dtype == dtype and not train:
+    if held is not None and held[0][0].dtype == dtype and not train and not _needs_grad(m):
         return held[0] if held[1] == _sources(m) else _hold(m, dtype)
     return _cast(m, dtype, train)
 
@@ -121,7 +157,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class LeakyReLU(nn.LeakyReLU):
     """``nn.LeakyReLU`` whose slope a low-precision input first rounds to its
-    dtype (JAX's ``leaky_relu`` multiplies by the weakly typed slope)."""
+    dtype (JAX's ``leaky_relu`` multiplies by the weakly typed slope). Under
+    autograd a low-precision input takes JAX's form, ``where(x >= 0, x,
+    slope * x)``, whose gradient at an exact 0 is 1 where torch's is the
+    slope: a bf16 conv's rounded sum plus its rounded bias lands on 0 in about
+    2e-4 of its outputs, and each such entry's gradient would be 5-10x off."""
 
     def forward(self, x):
         if x.dtype == torch.float32:
@@ -129,6 +169,8 @@ class LeakyReLU(nn.LeakyReLU):
         slopes = self.__dict__.setdefault("_slopes", {})
         if x.dtype not in slopes:
             slopes[x.dtype] = float(torch.tensor(self.negative_slope, dtype=x.dtype))
+        if torch.is_grad_enabled() and x.requires_grad:
+            return torch.where(x >= 0, x, x * slopes[x.dtype])
         return F.leaky_relu(x, slopes[x.dtype])
 
 
@@ -203,7 +245,8 @@ class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (eps 1e-5) with flax's rules. ``train=False``: the running
     statistics. ``train=True``: batch statistics, and
     ``running = 0.9 running + 0.1 batch`` with the biased batch variance
-    (``nn.BatchNorm2d`` would store the unbiased one)."""
+    (``nn.BatchNorm2d`` would store the unbiased one); a low-precision input
+    is normalised in f32 and the output cast back to its dtype."""
 
     def forward(self, x, train: bool = False):
         if not train and x.dtype != torch.float32:
@@ -211,6 +254,8 @@ class BatchNorm(nn.BatchNorm2d):
             return x * a[:, None, None] + b[:, None, None]
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        if x.dtype != torch.float32:
+            return self.forward(x.float(), True).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)

@@ -56,6 +56,7 @@ KERNELS = {
     "upfeat": ("upfeat.cu", "disco_upfeat", _UP_ARGS),
     "upfeat[bf16]": ("upfeat.cu", "disco_upfeat_bf16", _UP_ARGS),
     "shift_add": ("shift_add.cu", "disco_shift_add", [*[_P] * 6, *[_I] * 4, _P]),
+    "shift_add[bf16]": ("shift_add.cu", "disco_shift_add_bf16", [_P, _P, *[_I] * 4, _P]),
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),

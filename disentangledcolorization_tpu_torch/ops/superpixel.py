@@ -36,6 +36,14 @@ serving forward), with the affinities f32: kernels A and C then run their bf16
 instances, which sum in f32 as the JAX package does. Pooling returns the
 pooled features and mass in the features' dtype and the sizes in the
 affinities'; unpooling returns the tokens' dtype, its f32 sums rounded once.
+
+Unpooling's token gradient for bf16 tokens (bf16 training) rounds where the
+JAX package's ``jax.vjp`` of ``upfeat`` rounds: kernel A's bf16 instance sums
+each direction in f32 from the bf16 gradient, each direction's sum is rounded
+to bf16, and the 9 shifted slabs are added with a rounding after every add,
+direction 8 first (``shift_add[bf16]``). The affinity map's gradient is f32
+only: a bf16 feature or pixel gradient that would need it raises (stage 1,
+its one user, trains in f32 in the JAX package whatever the flag says).
 """
 
 from __future__ import annotations
@@ -111,13 +119,35 @@ def _shift_add(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def shift_add_plain(t, mass=None, hard=None):
+def _shift_add_rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_shift_add` into ``dtype`` in the order and with the roundings of
+    XLA's transpose of upfeat's neighbour stack: each direction rounded to
+    ``dtype``, then ``acc = round(acc + slab_d)`` for d = 8, 7, ..., 0 (the
+    ``add_any`` chain of the compiled vjp), each add taken in f32."""
+    n, hc, wc = x.shape[:3]
+    xp = x.new_zeros((n, hc + 2, wc + 2) + tuple(x.shape[3:]))
+    xp[:, 1:-1, 1:-1] = x
+    acc = None
+    for d in reversed(range(9)):
+        dy, dx = _OFFSETS[d]
+        sl = xp[:, 1 - dy : 1 - dy + hc, 1 - dx : 1 - dx + wc, d].to(dtype)
+        acc = sl if acc is None else (acc.float() + sl.float()).to(dtype)
+    return acc
+
+
+def shift_add_plain(t, mass=None, hard=None, dtype=torch.float32):
     """Plain version of kernel F: the 9-direction shift-add of kernel A's
     outputs. Returns (out (N,hc,wc,C), mass_sum (N,hc,wc,1), sizes (N,hc,wc,1)).
 
     With ``mass``: out = shift_add(t) / (mass_sum + 1e-8), the pooled features;
-    ``sizes`` where ``hard`` is given. Without: out = shift_add(t), the rest None.
+    ``sizes`` where ``hard`` is given. Without: out = shift_add(t), the rest
+    None; with ``dtype=torch.bfloat16`` (unpooling's bf16 token gradient,
+    ``shift_add[bf16]``) out is bf16, rounded as :func:`_shift_add_rounded`.
     """
+    if dtype != torch.float32:
+        if mass is not None or hard is not None:
+            raise ValueError(f"shift_add: a {dtype} output is unpooling's token gradient, without masses")
+        return _shift_add_rounded(t, dtype), None, None
     out = _shift_add(t)
     if mass is None:
         return out, None, None
@@ -126,13 +156,21 @@ def shift_add_plain(t, mass=None, hard=None):
     return out / (mass_sum + 1e-8), mass_sum, sizes
 
 
-def shift_add(t, mass=None, hard=None):
-    """Kernel F (``csrc/shift_add.cu``) for CUDA tensors, the plain version for
-    CPU tensors. Same outputs as :func:`shift_add_plain`."""
+def shift_add(t, mass=None, hard=None, dtype=torch.float32):
+    """Kernel F (``csrc/shift_add.cu``; ``shift_add[bf16]`` for a bf16 output)
+    for CUDA tensors, the plain version for CPU tensors. Same outputs as
+    :func:`shift_add_plain`."""
     given = {k: v for k, v in (("t", t), ("mass", mass), ("hard", hard)) if v is not None}
     if all(v.device.type == "cpu" for v in given.values()):
-        return shift_add_plain(t, mass, hard)
+        return shift_add_plain(t, mass, hard, dtype)
     check_cuda("shift_add", given)
+    if dtype == torch.bfloat16:
+        if len(given) > 1 or t.shape[3] != 9:
+            raise ValueError("shift_add[bf16]: unpooling's token gradient takes t (N,hc,wc,9,C) alone")
+        n, hc, wc, _, c = t.shape
+        out = torch.empty((n, hc, wc, c), device=t.device, dtype=torch.bfloat16)
+        launch("shift_add[bf16]", t, out, n, hc, wc, c)
+        return out, None, None
     n, hc, wc, _, c = t.shape
     if t.shape[3] != 9 or any(v.shape != (n, hc, wc, 9) for k, v in given.items() if k != "t"):
         raise ValueError(f"shift_add: shapes {[tuple(v.shape) for v in given.values()]} are not (N,hc,wc,9[,C])")
@@ -192,6 +230,15 @@ def prob_grad(x, tokens, beta=None, sp_h: int = 16, sp_w: int = 16):
     return out
 
 
+def _f32_prob_grad(x: torch.Tensor) -> None:
+    """Kernel G and its plain version take f32 pixels: a low-precision one
+    raises rather than round where the JAX package does not (its stage-1
+    trainer, the one that needs the affinity map's gradient, runs f32)."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"the affinity map's gradient from {x.dtype} pixels: "
+                                  "stage 1 trains in float32, as in the JAX package")
+
+
 class _Pool(torch.autograd.Function):
     """Kernels A and F forward; the features' gradient is kernel C, the
     affinity map's kernel G (module docstring)."""
@@ -211,6 +258,8 @@ class _Pool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_pooled, g_mass, g_sizes):
         prob, mass_sum, *saved = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            _f32_prob_grad(saved[0])
         sp_h, sp_w = ctx.cell
         tok_scale = torch.reciprocal((mass_sum[..., 0] + 1e-8) * float(sp_h * sp_w))
         g_feat = g_prob = None
@@ -284,8 +333,8 @@ def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
 
 
 class _Upfeat(torch.autograd.Function):
-    """Kernel C forward; the tokens' gradient is kernels A and F, the affinity
-    map's kernel G (module docstring)."""
+    """Kernel C forward; the tokens' gradient is kernels A and F (their bf16
+    instances for bf16 tokens), the affinity map's kernel G (module docstring)."""
 
     @staticmethod
     def forward(ctx, tokens, prob, up_h, up_w):
@@ -301,8 +350,9 @@ class _Upfeat(torch.autograd.Function):
         g_tok = g_prob = None
         if ctx.needs_input_grad[0]:
             t, _, _ = pool_stats(g, prob, up_h, up_w, with_hard=False, with_mass=False, scale=1.0)
-            g_tok = shift_add(t)[0]
+            g_tok = shift_add(t, dtype=tokens.dtype)[0]
         if ctx.needs_input_grad[1]:
+            _f32_prob_grad(g)
             g_prob = prob_grad(g, tokens, None, up_h, up_w)
         return g_tok, g_prob, None, None
 

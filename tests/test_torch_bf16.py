@@ -443,9 +443,12 @@ def test_held_bf16_copies_follow_new_weights():
     assert not np.array_equal(col.colorize(img, hints=hints), after)
 
 def test_bf16_training_forward_raises_until_its_slice():
+    """Its slice has come: the bf16 training forward runs (the
+    ``test_torch_bf16_train_*.py`` files hold it against JAX)."""
     model = AnchorColorProb(n_clusters=2, n_enc_layers=2, compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model(torch.zeros(1, 32, 32, 1), torch.zeros(1, 32, 32, 2), test_mode=False)
+    out = model(torch.zeros(1, 32, 32, 1), torch.zeros(1, 32, 32, 2), test_mode=False, train=True)
+    assert out["pred_colors"].dtype == torch.float32 and torch.isfinite(out["pred_colors"]).all()
+    assert out["pred_colors"].requires_grad
 
 
 def test_colorizer_defaults_to_bf16_with_f32_parameters():

@@ -282,6 +282,47 @@ def test_shift_add_kernel(cuda, n, hc, wc, c):
     assert alone[1] is None and alone[2] is None and torch.equal(alone[0], sp._shift_add(t))
 
 
+@pytest.mark.parametrize("n,hc,wc,c", [(1, 1, 1, 3), (2, 1, 5, 66), (1, 3, 5, 7), (2, 16, 16, 64), (1, 16, 16, 66), (1, 5, 1, 300)])
+def test_shift_add_bf16_kernel(cuda, n, hc, wc, c):
+    """``shift_add[bf16]`` (unpooling's bf16 token gradient) rounds each
+    direction and then each add as its plain version does, direction 8
+    first: bit for bit, twice; it takes no masses."""
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    t = _rand(cuda, n, hc, wc, 9, c) * 3
+    kernels.reset_launch_counts()
+    out, mass_sum, sizes = sp.shift_add(t, dtype=torch.bfloat16)
+    assert kernels.LAUNCHES["shift_add[bf16]"] == 1 and kernels.LAUNCHES["shift_add"] == 0
+    assert out.dtype == torch.bfloat16 and out.shape == (n, hc, wc, c) and mass_sum is None and sizes is None
+    assert torch.equal(out, sp.shift_add_plain(t, dtype=torch.bfloat16)[0])
+    assert torch.equal(out, sp.shift_add(t, dtype=torch.bfloat16)[0])
+    with pytest.raises(ValueError):
+        sp.shift_add(t, t[..., 0].abs(), dtype=torch.bfloat16)
+
+
+def test_bf16_token_gradient_launches_its_kernels(cuda):
+    """Unpooling bf16 tokens: kernel C's bf16 instance forward; the bf16
+    token gradient is kernel A's bf16 instance (no mass, scale 1) and
+    ``shift_add[bf16]``, whose output equals its plain version on kernel A's
+    sums bit for bit; an affinity map that needs a gradient raises."""
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n, hc, wc, c, s = 2, 3, 4, 64, 16
+    prob = _tied_prob(cuda, n, hc * s, wc * s)
+    tok = _rand(cuda, n, hc, wc, c, seed=2).to(torch.bfloat16).requires_grad_()
+    g = _rand(cuda, n, hc * s, wc * s, c, seed=3).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    sp.upfeat(tok, prob, s, s).backward(g)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"upfeat[bf16]": 1, "pool_stats[bf16]": 1,
+                                                                 "shift_add[bf16]": 1}
+    t = sp.pool_stats(g, prob, s, s, with_hard=False, with_mass=False, scale=1.0)[0]
+    assert tok.grad.dtype == torch.bfloat16 and torch.equal(tok.grad, sp.shift_add_plain(t, dtype=torch.bfloat16)[0])
+    with pytest.raises(NotImplementedError):
+        sp.upfeat(tok, prob.clone().requires_grad_(), s, s).float().sum().backward()
+
+
 def test_superpixel_functions_launch_their_kernels(cuda):
     """pool_and_sizes is kernels A and F, its backward kernel C for the
     features and kernel G for the affinity map; upfeat is kernel C, its

@@ -100,7 +100,7 @@ def test_backward_goes_through_the_kernel_wrappers(monkeypatch):
     monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append(("upfeat", len(a) == 5 and a[4] is not None)) or up(*a))
     monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append(
         ("pool_stats", k.get("with_hard", True), k.get("with_mass", True), k.get("scale"))) or pool(*a, **k))
-    monkeypatch.setattr(tsp, "shift_add", lambda *a: calls.append(("shift_add", len(a))) or add(*a))
+    monkeypatch.setattr(tsp, "shift_add", lambda *a, **k: calls.append(("shift_add", len(a))) or add(*a, **k))
     f, t, p = torch.from_numpy(feat).requires_grad_(), torch.from_numpy(tok).requires_grad_(), torch.from_numpy(prob)
     pooled = tsp.pool_and_sizes(f, p, 16, 16)[0]
     out = tsp.upfeat(t, p, 16, 16)
@@ -197,7 +197,7 @@ def test_prob_backward_goes_through_the_kernel_wrappers(monkeypatch, feat_grad):
     up, pool, add, grad = tsp._upfeat, tsp.pool_stats, tsp.shift_add, tsp.prob_grad
     monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append("upfeat") or up(*a))
     monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append("pool_stats") or pool(*a, **k))
-    monkeypatch.setattr(tsp, "shift_add", lambda *a: calls.append("shift_add") or add(*a))
+    monkeypatch.setattr(tsp, "shift_add", lambda *a, **k: calls.append("shift_add") or add(*a, **k))
     monkeypatch.setattr(tsp, "prob_grad", lambda *a: calls.append(("prob_grad", a[2] is not None)) or grad(*a))
     f = torch.from_numpy(feat).requires_grad_(feat_grad)
     t = torch.from_numpy(tok).requires_grad_(feat_grad)

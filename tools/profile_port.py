@@ -4,7 +4,8 @@ Runs the port's ``AnchorColorProb`` forward (seeded random weights, 6+6
 encoder layers, batch 8 at 256x256, f32; with ``--bf16`` the bf16 serving
 forward, the JAX ``Colorizer``'s default), with ``--train`` its colorizer
 training step (the recipe's configuration: dropout 0.1, Adam 2e-4 poly,
-batch 24 at 256x256 from 240 synthetic images held on the card), or with
+batch 24 at 256x256 from 240 synthetic images held on the card; with
+``--bf16`` the JAX trainer's ``--compute_dtype bfloat16``), or with
 ``--spixel`` the stage-1 SpixelNet training step (``scripts/spixelseg_ab16.sh``:
 batch 128 at 256x256, psize 16, feat ab, Adam 2e-4 poly, on 128 synthetic
 images held on the card), under ``torch.profiler`` and prints one JSON line
@@ -17,7 +18,7 @@ adds the VGG19 perceptual term to the step (a seeded random-init VGG19 npz
 written to a temporary directory). Needs a CUDA device:
 
     python tools/profile_port.py [--bf16] [--batch 8] [--size 256] [--iters 5]
-    python tools/profile_port.py --train [--vgg] [--batch 24] [--iters 3]
+    python tools/profile_port.py --train [--bf16] [--vgg] [--batch 24] [--iters 3]
     python tools/profile_port.py --spixel [--batch 128] [--iters 3]
     python tools/profile_port.py --cat [--batch 24]
 
@@ -46,7 +47,8 @@ from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 OURS = {
     "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head",
     "affinity_head_pipe_kernel": "affinity_head", "upfeat_kernel": "upfeat",
-    "shift_add_kernel": "shift_add", "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
+    "shift_add_kernel": "shift_add", "shift_add_bf16_kernel": "shift_add[bf16]",
+    "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
     "encode_ab2ind_kernel": "encode_ab2ind", "encode_ab2ind_warp_kernel": "encode_ab2ind",
     "prob_grad_kernel": "prob_grad",
 }
@@ -130,9 +132,10 @@ def profile_cat(batch: int, size: int, iters: int = 20) -> dict:
             "forward_bytes": moved, "forward_bound_ms": moved / 3.35e12 * 1e3}
 
 
-def trainer(batch: int, size: int, vgg_npz: str | None = None):
+def trainer(batch: int, size: int, vgg_npz: str | None = None, compute_dtype: torch.dtype = torch.float32):
     """The recipe's trainer on 240 synthetic images held on the card, with the
-    VGG19 term when ``vgg_npz`` is given; returns a function that takes one step."""
+    VGG19 term when ``vgg_npz`` is given, in ``compute_dtype``; returns a
+    function that takes one step."""
     import warnings
 
     from disentangledcolorization_tpu_torch.models import AnchorColorProb
@@ -140,7 +143,7 @@ def trainer(batch: int, size: int, vgg_npz: str | None = None):
     from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps
 
     torch.manual_seed(130)
-    model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.1).cuda()
+    model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.1, compute_dtype=compute_dtype).cuda()
     n_images = 240
     st = state.TrainState.create(model, name="adam", schedule=optim.build_schedule("poly", 2e-4, 60, n_images // batch))
     with warnings.catch_warnings():
@@ -191,7 +194,7 @@ def main() -> None:
     ap.add_argument("--vgg", action="store_true", help="with --train: add the VGG19 perceptual term")
     ap.add_argument("--spixel", action="store_true", help="profile the stage-1 SpixelNet training step")
     ap.add_argument("--cat", action="store_true", help="time the proxy concatenation alone")
-    ap.add_argument("--bf16", action="store_true", help="the serving forward in bf16 (default: f32)")
+    ap.add_argument("--bf16", action="store_true", help="the serving forward or (--train) the step in bf16 (default: f32)")
     ap.add_argument("--batch", type=int, default=None, help="default 8 (forward), 24 (--train, --cat) or 128 (--spixel)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
@@ -219,8 +222,8 @@ def main() -> None:
         batch = args.batch or 24
         with tempfile.TemporaryDirectory() as tmp:
             npz = make_random_vgg19_npz(os.path.join(tmp, "vgg19.npz"), seed=0) if args.vgg else None
-            run = trainer(batch, args.size, npz)
-        what = "train_step_vgg" if args.vgg else "train_step"
+            run = trainer(batch, args.size, npz, torch.bfloat16 if args.bf16 else torch.float32)
+        what = ("train_step_vgg" if args.vgg else "train_step") + ("_bf16" if args.bf16 else "")
         for tf32 in (False, True):
             print(json.dumps({"card": smi, "what": what, **profile(run, batch, args.iters, tf32)}), flush=True)
         return

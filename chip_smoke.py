@@ -102,6 +102,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 step at batch 2, 32x32, dropout 0, pinned anchors, conditioned
      weights, on the card against the CPU's plain path and beside the CPU's
      f32 step.
+ 11. the model options and anchor modes: kernels A and A[bf16] at C=130
+     (``spix_pos``'s [features | ab | positions]), C and C[bf16] at 3N
+     (diverse), C=128 (d_model 128) and C=130 (pooling's feature gradient),
+     D and ``attention_bwd`` on a mask that ``use_mask`` made in a real forward
+     (one image's keys then all masked) at head widths 8 and 16, each against
+     its plain version, twice bitwise, timed; serving at full width in bf16
+     and f32: ``colorize(diverse=True)`` and a diverse forward at batch 8,
+     ``anchor_mask``, a ``Colorizer(random_hint=True)`` and a
+     ``Colorizer(hint2regress=True)`` batch, a ``spix_pos, use_mask`` forward
+     and a ``sampled_T=-1`` forward (launches per forward as phases 4 and 9,
+     images/s); ``cli.train_colorizer.train`` at batch 24 with
+     ``--spix_pos --hint2regress --n_dec 3``, ``--learning_pos --d_model 128
+     --d_mlp 512 --compute_dtype bfloat16`` and without ``--enhanced``, and a
+     ``use_mask`` model's train step (launches per step asserted, images/s,
+     peak memory, finite losses, the loss of a fixed-draw forward lower after
+     6 steps on one repeated batch); two options steps at 2x32x32 on the card
+     against the CPU within phase 5's 1e-3.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -111,6 +128,7 @@ All f32 work runs with TF32 off for both cuDNN and matmuls, except the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -856,20 +874,40 @@ def drive_training(device, steps: int = 10, tf32_steps: int = 5, batch: int = 24
     return counts
 
 
-def centering_shift(out, gap: float):
+def centering_shift(out, gap: float, mean: float = 0.5):
     """Per-channel shift (dim 1 of an NCHW ``out``) that moves each channel's
-    mean to about 0.5 std and, where one of 50 candidates allows, keeps every
-    entry at least ``gap`` std from 0 (else the first candidate)."""
-    mean, std = out.mean(dim=(0, 2, 3)), out.std(dim=(0, 2, 3))
-    shifts = (0.5 + 0.01 * torch.arange(50.0, device=out.device))[:, None] * std - mean  # (candidates, C)
+    mean to about ``mean`` std and, where one of 50 candidates allows, keeps every
+    entry at least ``gap`` std from 0 (else the candidate farthest from 0)."""
+    std = out.std(dim=(0, 2, 3))
+    shifts = (mean + 0.01 * torch.arange(50.0, device=out.device))[:, None] * std - out.mean(dim=(0, 2, 3))
     dist = torch.stack([(out + sh[None, :, None, None]).abs().amin(dim=(0, 2, 3)) for sh in shifts])
-    first = torch.argmax((dist >= gap * std).int(), dim=0)  # the first candidate with the gap (else 0)
-    return shifts[first, torch.arange(out.shape[1], device=out.device)]
+    ok = dist >= gap * std
+    pick = torch.where(ok.any(0), torch.argmax(ok.int(), dim=0), torch.argmax(dist, dim=0))
+    return shifts[pick, torch.arange(out.shape[1], device=out.device)]
 
 
-def _center_conv_biases(model, gray, color, gap: float = 1e-3):
+@contextlib.contextmanager
+def grouped_batchnorm(groups):
+    """Training BatchNorms take their statistics per group (a slice of the
+    batch), so that one forward over several batches put end to end runs each
+    of them as its own forward would."""
+    from disentangledcolorization_tpu_torch.models.layers import BatchNorm
+
+    plain = BatchNorm.forward
+    BatchNorm.forward = lambda self, x, train=False: (
+        torch.cat([plain(self, x[g], True) for g in groups]) if train else plain(self, x, train))
+    try:
+        yield
+    finally:
+        BatchNorm.forward = plain
+
+
+def center_conv_biases(model, gray, color, gap: float = 1e-3, groups=None, mean: float = 0.5, l1_kink: bool = False):
     """Shift each trainable conv's bias so its output channels have mean about
-    0.5 std on this batch, and no output lies within ``gap`` std of 0.
+    ``mean`` std on this batch, and no output lies within ``gap`` std of 0.
+    ``groups`` (slices of the batch): the batch is several batches put end to
+    end, each with its own BatchNorm statistics (a step's microbatches beside
+    the whole batch), and the gap holds in each of their forwards.
 
     With random weights some ReLU channels before a BatchNorm are otherwise
     nearly dead, and a batch variance near 0 makes the f32 gradient
@@ -879,25 +917,33 @@ def _center_conv_biases(model, gray, color, gap: float = 1e-3):
     its max, measured at 32x32). The gap keeps every ReLU input out of reach
     of f32 rounding for this batch's training forward: a conv's output, or
     where a ReLU takes a sum (the residual blocks, repnet's conv8 input),
-    the sum that the conv's output completes."""
+    the sum that the conv's output completes. ``l1_kink``: the output conv is
+    held the same way from the L1 reconstruction term's kink, where the
+    predicted ab equals the ground truth: one pixel on the other side of it
+    moves every gradient by a few percent (measured: 5e-2 of the largest
+    entry when the thread count changes, at 32x32)."""
     from disentangledcolorization_tpu_torch.models.layers import SNConv
 
     partner = {}  # conv -> the tensor its output is added to before a ReLU
 
     def center(mod, inp, out):
         with torch.no_grad():
-            shift = centering_shift(out + partner.pop(mod, 0.0), gap)
+            shift = centering_shift(out + partner.pop(mod, 0.0), gap, mean)
             mod.bias += shift
             return out + shift[None, :, None, None]
 
     hooks = [m.register_forward_hook(center) for name, m in model.named_modules()
              if isinstance(m, (torch.nn.Conv2d, SNConv)) and not name.startswith("segnet.")]
-    for block in model.enhanceNet.residual:  # relu(x + conv(x))
+    for block in model.enhanceNet.residual if model.enhanced else ():  # relu(x + conv(x))
         hooks.append(block.register_forward_pre_hook(lambda m, inp: partner.__setitem__(m.conv[3], inp[0])))
     rep = model.repnet  # relu(conv8up(f7) + conv3short8(f3)), conv8up first
     hooks.append(rep.conv8up[1].register_forward_hook(lambda m, inp, out: partner.__setitem__(rep.conv3short8[0], out)))
+    if l1_kink and model.enhanced:  # the L1 reconstruction term's kink, tanh(outConv) = color
+        kink = -torch.atanh(color.float().clamp(-0.999, 0.999)).permute(0, 3, 1, 2)
+        out_conv = model.enhanceNet.outConv
+        hooks.append(out_conv.register_forward_pre_hook(lambda m, inp: partner.__setitem__(m, kink)))
     buffers = {k: v.clone() for k, v in model.named_buffers()}
-    with torch.no_grad():
+    with torch.no_grad(), grouped_batchnorm(groups) if groups else contextlib.nullcontext():
         model(gray, color, test_mode=False, train=True)
     for h in hooks:
         h.remove()
@@ -952,32 +998,37 @@ def condition_vgg(vgg, rgb, gap: float = 1e-4):
         h.remove()
 
 
-def train_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = 1e-3):
+def train_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = 1e-3, options=None):
     """One training step on the card against the same step on the CPU (plain
     versions): full widths, dropout 0, pinned anchors, SGD. Losses relative,
-    gradients per tensor against its largest entry."""
+    gradients per tensor against its largest entry. ``options``: the model's
+    (phase 11; the segnet head tilted under ``use_mask``)."""
     import warnings
 
     from disentangledcolorization_tpu_torch.models import AnchorColorProb, anchor
     from disentangledcolorization_tpu_torch.train import data, losses, state, steps as steps_lib
 
+    options = options or {}
     hc = size // 16
     hint = torch.zeros(batch, hc, hc, 1)
     hint[:, 0, 0] = hint[:, -1, -1] = 1.0
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        loss = losses.AnchorColorProbLoss(enhanced=True)
+        loss = losses.AnchorColorProbLoss(enhanced=options.get("enhanced", True),
+                                          hint2regress=options.get("hint2regress", False))
     results = []
     pinned = anchor.clustering_hint_mask
     anchor.clustering_hint_mask = lambda feats, *a, **k: (hint.to(feats.device), None)
     try:
         torch.manual_seed(7)
-        model = AnchorColorProb(dropout=0.0)
+        model = AnchorColorProb(dropout=0.0, **options)
+        if options.get("use_mask"):
+            tilt_segnet_head(model)
         b = data.synthetic_dataset(batch, size, "cpu", seed=8)
-        _center_conv_biases(model, b["gray"], b["color"])  # on the step's own forward: anchors pinned
+        center_conv_biases(model, b["gray"], b["color"])  # on the step's own forward: anchors pinned
         sd = model.state_dict()
         for dev in (device, torch.device("cpu")):
-            m = AnchorColorProb(dropout=0.0)
+            m = AnchorColorProb(dropout=0.0, **options)
             m.load_state_dict(sd)
             m.to(dev)
             st = state.TrainState.create(m, name="sgd", schedule=0.1, momentum=0.0)
@@ -990,13 +1041,15 @@ def train_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = 1e-3)
     finally:
         anchor.clustering_hint_mask = pinned
     (m_dev, g_dev), (m_cpu, g_cpu) = results
-    loss_err = max(abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    # recLoss is 0 on both without enhanceNet
+    loss_err = max(abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k]) if m_cpu[k] else abs(m_dev[k]) for k in m_cpu)
     grad_err = {k: float((g_dev[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu}
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
-    log(f"training step card vs CPU ({batch}x{size}x{size}, full widths): losses rel {loss_err:.3e}; "
-        f"gradients max|d|/max|g| worst {json.dumps(worst)} over {len(grad_err)} tensors")
+    log(f"training step card vs CPU ({batch}x{size}x{size}, full widths{', ' + json.dumps(options) if options else ''}): "
+        f"losses rel {loss_err:.3e}; gradients max|d|/max|g| worst {json.dumps(worst)} over {len(grad_err)} tensors")
     if sorted(g_dev) != sorted(g_cpu) or not loss_err <= tol or not all(v <= tol for v in grad_err.values()):
         raise AssertionError(f"training step: card and CPU disagree beyond {tol}")
+    return {"losses_rel": loss_err, "gradients_worst": worst}
 
 
 def drive_labels(device):
@@ -2088,7 +2141,7 @@ def bf16_train_card_vs_cpu(device, size: int = 32, batch: int = 2) -> dict:
         # the L1 term's gradient has one sign everywhere
         corners = torch.tensor([[1.0, -1.0], [-1.0, 1.0]]).repeat(batch, 1)[:batch]
         b["color"] = corners[:, None, None, :].expand(batch, size, size, 2).contiguous()
-        _center_conv_biases(model, b["gray"], b["color"])
+        center_conv_biases(model, b["gray"], b["color"])
         sd = model.state_dict()
         for name, dev, dtype in (("card_bf16", device, torch.bfloat16), ("cpu_bf16", torch.device("cpu"), torch.bfloat16),
                                  ("cpu_f32", torch.device("cpu"), torch.float32)):
@@ -2135,6 +2188,329 @@ def bf16_train_card_vs_cpu(device, size: int = 32, batch: int = 2) -> dict:
                 and out[f"{stack}bf16_share_cpu_f32"] <= BF16_CHANCE):
             raise AssertionError(f"bf16 training step, {stack}: the weight gradients are not rounded to bf16 once")
     return out
+
+
+# phase 11: the model options and anchor modes. Every mode of a forward
+# launches what the recipe's forward does (the diverse hintpath on 3N images,
+# kernel A at C=130 under spix_pos); a step without enhanceNet has no
+# unpooling of the hintpath's tokens, so neither its kernel C nor its token
+# gradient (A without counts, then F)
+F32_PER_FORWARD = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 12,
+                   "prob_grad": 0, "attention_bwd": 0}
+NOT_ENHANCED_PER_STEP = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "shift_add": 1, "attention": 12,
+                         "attention_bwd": 12, "prob_grad": 0}
+# the options step on the card against the CPU, as phase 5's
+OPTIONS_CARD_CPU_TOL = 1e-3
+
+
+def tilt_segnet_head(model, direction: int = 1, by: float = 4.0):
+    """Favour one of the affinity head's 9 directions, so that pixels join
+    the cell on that side and the cells they leave win fewer than 25 pixels:
+    with random weights no superpixel is that small, and ``use_mask`` would
+    mask nothing."""
+    with torch.no_grad():
+        model.segnet.net.pred_mask0.bias[direction] += by
+
+
+def options_model(device, dtype=torch.float32, **options):
+    """A seeded random-weight serving model with ``options``, built as
+    ``Colorizer`` builds its model (folded spectral norm, channels_last, held
+    bf16 copies), the segnet head tilted under ``use_mask``."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.models.layers import hold_compute_copies
+
+    torch.manual_seed(130)
+    model = AnchorColorProb(sn_folded=True, compute_dtype=dtype, **options)
+    if options.get("use_mask"):
+        tilt_segnet_head(model)
+    model = model.to(device).eval().to(memory_format=torch.channels_last)
+    if dtype != torch.float32:
+        hold_compute_copies(model, dtype)
+    return model
+
+
+def captured_attention(model, grays):
+    """The first attention call of a forward: (q, k, v, key-padding mask)."""
+    from disentangledcolorization_tpu_torch.models import transformer
+
+    seen, real = [], transformer.attn_ops.attention
+    transformer.attn_ops.attention = lambda q, k, v, nh, m=None, *a: seen.append((q, k, v, m)) or real(q, k, v, nh, m, *a)
+    try:
+        with torch.no_grad():
+            model(grays)
+    finally:
+        transformer.attn_ops.attention = real
+    return seen[0]
+
+
+def kernel_case(name, shape, fn, plain, out, ref, err, bytes_moved, flops, device, tol):
+    """One kernel at an option's shape against its plain version: bitwise
+    equal to itself, within ``tol``, timed with its bound."""
+    again = fn()
+    same = all(torch.equal(a, b) for a, b in zip(out, again) if a is not None) if isinstance(out, (tuple, list)) \
+        else torch.equal(out, again)
+    if not same or not err <= tol:
+        raise AssertionError(f"{name} at {shape}: error {err} (tolerance {tol}), or two runs not bitwise equal")
+    b_ms, b_by = bound(bytes_moved, flops)
+    row = dict(name=name, shape=shape, max_err=err, tolerance=tol, ms=time_ms(fn, device), device_ms=device_ms(fn)[0],
+               plain_ms=time_ms(plain, device), bound_ms=b_ms, bound_by=b_by)
+    log(f"{name} at {shape}: err {err:.3e} (tol {tol}), bitwise twice; ms {row['ms']:.4f}, device {row['device_ms']}, "
+        f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+    return row
+
+
+def compare_option_kernels(device, n: int = 8, batch: int = 24, h: int = 256, w: int = 256, sp_size: int = 16):
+    """Phase 11: kernels A, A[bf16], C, C[bf16], D and ``attention_bwd`` at the
+    options' shapes against their plain versions: A at C=130 (spix_pos:
+    bf16 serving at batch 8, f32 training at batch 24), C at 3N (diverse),
+    C=128 (d_model 128) and C=130 (pooling's feature gradient under
+    spix_pos), D and its backward on a mask that ``use_mask`` made in a real
+    forward (one image's keys then all masked) at head widths 8 and 16."""
+    from disentangledcolorization_tpu_torch.ops import attention, superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rows = []
+    hc, wc = h // sp_size, w // sp_size
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device, dtype)
+
+    def probs(m):
+        logits = rand(m, h, w, 9)
+        logits[..., 4] = logits[..., 3]  # exact ties in the 9-way max
+        return torch.softmax(logits, dim=-1).contiguous()
+
+    for m, dtype, label in ((n, torch.bfloat16, "pool_stats[bf16]"), (batch, torch.float32, "pool_stats")):
+        feat, prob = rand(m, h, w, 130, dtype=dtype), probs(m)
+        fn = lambda feat=feat, prob=prob: superpixel.pool_stats(feat, prob, sp_size, sp_size)  # noqa: E731
+        out, ref = fn(), superpixel.pool_stats_plain(feat, prob, sp_size, sp_size)
+        if not torch.equal(out[2], ref[2]):
+            raise AssertionError(f"{label} at C=130: winner counts differ from the plain version")
+        rows.append(kernel_case(label, (m, h, w, 130), fn,
+                                lambda feat=feat, prob=prob: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size),
+                                out, ref, rel_err(out, ref), nbytes(feat, prob, *out), 2.0 * m * h * w * 9 * 130,
+                                device, TOLERANCES["pool_stats"]))
+    for m, c, dtype, label in ((3 * n, 64, torch.bfloat16, "upfeat[bf16]"), (batch, 128, torch.float32, "upfeat"),
+                               (n, 128, torch.bfloat16, "upfeat[bf16]"), (batch, 130, torch.float32, "upfeat")):
+        tokens, prob = rand(m, hc, wc, c, dtype=dtype), probs(m)
+        fn = lambda t=tokens, p=prob: superpixel.upfeat(t, p, sp_size, sp_size)  # noqa: E731
+        plain = lambda t=tokens, p=prob: superpixel.upfeat_plain(t, p, sp_size, sp_size)  # noqa: E731
+        out, ref = fn(), plain()
+        err, tol = (bf16_ulps(out, ref), 1.0) if dtype == torch.bfloat16 else (max_err(out, ref), TOLERANCES["upfeat"])
+        rows.append(kernel_case(label, (m, hc, wc, c), fn, plain, out, ref, err, nbytes(tokens, prob, out),
+                                2.0 * m * h * w * 9 * c, device, tol))
+
+    for d_model, label in ((64, "hd8"), (128, "hd16")):
+        model = options_model(device, use_mask=True, d_model=d_model, d_mlp=4 * d_model, n_enc_layers=1)
+        grays = (torch.rand(n, h, w, 1, generator=g) * 2 - 1).to(device)
+        q, k, v, mask = captured_attention(model, grays)
+        del model
+        if mask is None or not mask.any() or mask.all():
+            raise AssertionError(f"use_mask ({label}): the forward's key-padding mask is {mask}")
+        masked_share = float(mask.float().mean())
+        mask = mask.clone()
+        mask[0] = True  # one image with every key masked
+        dout = rand(*q.shape)
+        t, d = q.shape[1], q.shape[2]
+        fwd = lambda: attention._attention(q, k, v, 8, mask, None, 0.0, with_stats=True)  # noqa: E731
+        out, stats = fwd()
+        ref, ref_stats = attention.attention_plain(q, k, v, 8, mask, return_stats=True)
+        flops = 4.0 * n * 8 * t * t * (d // 8)
+        rows.append(kernel_case(f"attention ({label}, use_mask)", (n, t, d, 8), fwd,
+                                lambda: attention.attention_plain(q, k, v, 8, mask), (out, stats), (ref, ref_stats),
+                                max(max_err(out, ref), stats_err(stats, ref_stats)), nbytes(q, k, v, mask, out, stats),
+                                flops, device, TOLERANCES["attention"]))
+        bwd = lambda: attention.attention_bwd(q, k, v, dout, 8, mask, None, 0.0, out, stats)  # noqa: E731
+        grads, ref_grads = bwd(), attention.attention_bwd_plain(q, k, v, dout, 8, mask)
+        rows.append(kernel_case(f"attention_bwd ({label}, use_mask)", (n, t, d, 8), bwd,
+                                lambda: attention.attention_bwd_plain(q, k, v, dout, 8, mask), grads, ref_grads,
+                                max_err(grads, ref_grads), nbytes(q, k, v, dout, out, stats, mask, *grads),
+                                2.5 * flops, device, TOLERANCES["attention_bwd"]))
+        rows[-1]["masked_share"] = rows[-2]["masked_share"] = masked_share
+    return rows
+
+
+def drive_options_serving(device, smi: str, batch: int = 8, size: int = 256):
+    """Phase 11: at full width (6+6 layers, seeded random weights), in bf16 and
+    f32: ``Colorizer.colorize(diverse=True)`` and a diverse forward at batch 8,
+    ``anchor_mask``, a ``Colorizer(random_hint=True)`` and a
+    ``Colorizer(hint2regress=True)`` batch, a ``spix_pos=True, use_mask=True``
+    forward and a ``sampled_T=-1`` forward; launches per forward asserted,
+    images/s. Returns the launch counts of the counted forwards and the numbers."""
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(2)
+    imgs = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(batch)]
+    hc = size // 16
+    total, res = {}, {"card": smi, "batch": batch, "size": size, "tf32": False}
+    for dtype in ("bfloat16", "float32"):
+        per = BF16_PER_FORWARD if dtype == "bfloat16" else F32_PER_FORWARD
+        col = Colorizer(device=device, seed=130, compute_dtype=dtype)
+        grays = torch.cat([col._prep(img)[0] for img in imgs])
+        rand_col = Colorizer(device=device, seed=130, compute_dtype=dtype, random_hint=True)
+        regress = Colorizer(device=device, seed=130, compute_dtype=dtype, hint2regress=True)
+        spix = options_model(device, torch.bfloat16 if dtype == "bfloat16" else torch.float32, spix_pos=True,
+                             use_mask=True)
+
+        def diverse_one():
+            outs = col.colorize(imgs[0], diverse=True)
+            if len(outs) != 3 or any(o.shape != (size, size, 3) or o.dtype != np.uint8 for o in outs):
+                raise AssertionError("colorize(diverse=True): expected three uint8 (H, W, 3) images")
+
+        def forward_check(out, n_out, ref_width=313):
+            if out["ref_logit"].shape != (n_out, hc, hc, ref_width) or out["pred_colors"].shape != (n_out, size, size, 2) \
+                    or not torch.isfinite(out["pred_colors"]).all():
+                raise AssertionError(f"forward: ref_logit {tuple(out['ref_logit'].shape)}, "
+                                     f"pred_colors {tuple(out['pred_colors'].shape)}")
+
+        def mask_one():
+            m = col.anchor_mask(imgs[0])
+            if m.shape != (hc, hc) or not 1 <= m.sum() <= 8:
+                raise AssertionError(f"anchor_mask: shape {m.shape}, {m.sum()} anchors")
+
+        def batch_of(c):
+            outs = c.colorize_batch(imgs)
+            if len(outs) != batch or any(o.shape != (size, size, 3) or o.dtype != np.uint8 for o in outs):
+                raise AssertionError("colorize_batch: expected uint8 (H, W, 3) outputs")
+
+        modes = {
+            "diverse_request": (diverse_one, 1),
+            "diverse_forward": (lambda: forward_check(col.model(grays, sampled_T=2), 3 * batch), batch),
+            "anchor_mask": (mask_one, 1),
+            "random_hint_batch": (lambda: batch_of(rand_col), batch),
+            "hint2regress_batch": (lambda: batch_of(regress), batch),
+            "spix_pos_use_mask_forward": (lambda: forward_check(spix(grays), batch), batch),
+            "gt_anchors_forward": (lambda: forward_check(col.model(grays, sampled_T=-1), batch), batch),
+        }
+        res[dtype] = {}
+        for name, (fn, n_img) in modes.items():
+            with torch.no_grad():
+                fn()  # warm-up: cuDNN's algorithm choice
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                fn()
+                torch.cuda.synchronize()
+                counts = dict(kernels.LAUNCHES)
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                bad = {k: counts[k] for k, v in per.items() if counts[k] != v}
+                if bad:
+                    raise AssertionError(f"{dtype} {name}: launches {bad} in one forward, expected {per}")
+                ms = time_ms(fn, device, warmup=1, iters=5)
+            res[dtype][name] = {"ms": ms, "images_per_s": n_img / ms * 1e3}
+            log(f"options serving, {dtype}, {name} on {smi}: {ms:.2f} ms, {n_img / ms * 1e3:.2f} images/s "
+                f"({n_img} image(s) in); launches {json.dumps({k: v for k, v in counts.items() if v})}")
+        del col, rand_col, regress, spix
+        torch.cuda.empty_cache()
+    return total, res
+
+
+OPTION_RUNS = {
+    "spix_pos+hint2regress+n_dec3": (["--enhanced", "--spix_pos", "--hint2regress", "--n_dec", "3"], TRAIN_PER_STEP),
+    "learning_pos+d128+bf16": (["--enhanced", "--learning_pos", "--d_model", "128", "--d_mlp", "512",
+                                "--compute_dtype", "bfloat16"], BF16_TRAIN_PER_STEP),
+    "not_enhanced": ([], NOT_ENHANCED_PER_STEP),
+}
+
+
+def repeated_batch_losses(step, st, loss, batch_data, n_steps: int) -> dict:
+    """``n_steps`` steps on one batch: every loss finite, and the total loss of
+    a training forward with fixed anchors and dropout masks (the step's own
+    draw anew each step) lower after them than before."""
+    from disentangledcolorization_tpu_torch.train import steps as steps_lib
+
+    def fixed():
+        gen, drop = steps_lib.step_generators(batch_data["gray"].device, 7)
+        with torch.no_grad():
+            return float(steps_lib.colorizer_losses(st.model, loss, batch_data["gray"], batch_data["color"], 0.5, True,
+                                                    gen, drop)["totalLoss"])
+
+    before = fixed()
+    seen = [float(step(st, batch_data, 130)["totalLoss"]) for _ in range(n_steps)]
+    after = fixed()
+    if not all(np.isfinite(seen + [before, after])) or not after < before:
+        raise AssertionError(f"repeated batch: step losses {seen}, fixed-draw loss {before} -> {after}: "
+                             "not finite and falling")
+    return {"step_losses": seen, "fixed_draw_before": before, "fixed_draw_after": after}
+
+
+def drive_options_training(device, smi: str, batch: int = 24, size: int = 256, n_images: int = 48, n_val: int = 24,
+                           timed: int = 5, repeats: int = 6):
+    """Phase 11: ``cli.train_colorizer.train`` at the recipe's width, batch 24,
+    256x256, on in-memory images (1 epoch of 2 steps with validation and a
+    dump), with (a) ``--spix_pos --hint2regress --n_dec 3``, (b)
+    ``--learning_pos --d_model 128 --d_mlp 512 --compute_dtype bfloat16``,
+    (c) without ``--enhanced``; and (d) ``make_colorizer_train_step`` on a
+    ``use_mask=True`` model. For each: finite losses, ``timed`` steps with
+    TF32 off (images/s, peak memory, launches per step asserted), then
+    ``repeats`` steps on one repeated batch whose loss must fall."""
+    import tempfile
+    import warnings
+
+    from disentangledcolorization_tpu_torch.cli import train_colorizer
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps as steps_lib
+    from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser
+
+    syn = data.synthetic_dataset(n_images + n_val, size, device, seed=12)
+    train_ds = data.ArrayDataset({k: v[:n_images] for k, v in syn.items()})
+    val_ds = data.ArrayDataset({k: v[n_images:] for k, v in syn.items()})
+    dd = data.stack_dataset(train_ds, device=device)
+    one = {k: v[:batch] for k, v in dd.items()}
+    total, res = {}, {"card": smi, "batch": batch, "size": size, "tf32": False}
+
+    def measure(name, st, loss, expected):
+        step = steps_lib.make_colorizer_train_step(loss, class_lambda=0.5)
+        timing, counts = timed_steps(step, st, dd, timed, batch, False, n_images)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        per = {k: counts[k] // timed for k in counts if counts[k]}
+        if any(counts[k] != v * timed for k, v in expected.items()):
+            raise AssertionError(f"options training {name}: launches {counts} over {timed} steps, expected {expected}")
+        # the run's poly schedule has decayed to 0 by now: Adam at the recipe's 2e-4, constant
+        fresh = state.TrainState.create(st.model, name="adam", schedule=2e-4)
+        rep = repeated_batch_losses(step, fresh, loss, one, repeats)
+        res[name] = {**timing, "launches_per_step": per, "repeated_batch": rep}
+        log(f"options training {name} on {smi}: {timing['images_per_s']:.2f} images/s at batch {batch}, "
+            f"{timing['s_per_step']:.4f} s/step, peak {timing['peak_gb']:.2f} GB, device {timing['step_device_ms']} ms a "
+            f"step; launches per step {json.dumps(per)}; repeated batch: step losses "
+            f"{[round(x, 4) for x in rep['step_losses']]}, fixed-draw loss {rep['fixed_draw_before']:.4f} -> "
+            f"{rep['fixed_draw_after']:.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no --vgg_npz: the documented L1 fallback
+        for name, (flags, expected) in OPTION_RUNS.items():
+            argv = ["--save_dir", tmp, "--name", name, "--batch_size", str(batch), "--input_size", str(size),
+                    "--epochs", "1", "--device_data", "--n_enc", "6", "--n_clusters", "8", "--lr", "2e-4",
+                    "--scheduler", "poly", "--seed", "130", "--device", str(device), *flags]
+            run = train_colorizer.train(pcolor_argparser().parse_args(argv), train_ds, val_ds)
+            step_losses = run["step_losses"]
+            if len(step_losses) != n_images // batch or not all(np.isfinite(v) for m in step_losses for v in m.values()) \
+                    or not np.isfinite(run["history"][0]["val_loss"]):
+                raise AssertionError(f"options command line {name}: losses {step_losses}, history {run['history']}")
+            measure(name, run["state"], run["loss"], expected)
+            del run
+            torch.cuda.empty_cache()
+        torch.manual_seed(130)
+        model = AnchorColorProb(use_mask=True, dropout=0.1)
+        tilt_segnet_head(model)
+        st = state.TrainState.create(model.to(device), name="adam",
+                                     schedule=optim.build_schedule("poly", 2e-4, 1, n_images // batch))
+        measure("use_mask (train step)", st, losses.AnchorColorProbLoss(enhanced=True), TRAIN_PER_STEP)
+    return total, res
+
+
+def options_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = OPTIONS_CARD_CPU_TOL) -> dict:
+    """One options step at 2x32x32 on the card against the CPU, as phase 5's:
+    (spix_pos, hint2regress, use_mask, d_model 128) and (learning_pos,
+    without enhanceNet), full depth, dropout 0, pinned anchors, SGD."""
+    res = {}
+    for name, options in (("spix_pos+hint2regress+use_mask+d128",
+                           dict(spix_pos=True, hint2regress=True, use_mask=True, d_model=128, d_mlp=512)),
+                          ("learning_pos+not_enhanced", dict(learning_pos=True, enhanced=False, token_grid=(2, 2)))):
+        res[name] = train_card_vs_cpu(device, size, batch, tol, options=options)
+    return res
 
 
 def main() -> int:
@@ -2228,6 +2604,13 @@ def main() -> int:
     paths["training_bf16"], extras["training_bf16"] = drive_bf16_training(device, smi)
     extras["training_bf16"]["card_vs_cpu"] = bf16_train_card_vs_cpu(device)
     mark(10)
+
+    # 11. the model options and anchor modes: kernels at their shapes, serving, training, card vs CPU
+    extras["options_kernels"] = compare_option_kernels(device)
+    paths["options_serving"], extras["options_serving"] = drive_options_serving(device, smi)
+    paths["options_training"], extras["options_training"] = drive_options_training(device, smi)
+    extras["options_training"]["card_vs_cpu"] = options_card_vs_cpu(device)
+    mark(11)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}

@@ -6,7 +6,9 @@ Counterpart of ``disentangledcolorization_tpu/api.py``:
     c = Colorizer(device="cuda")                     # seeded random weights
     c = Colorizer(checkpoint="disco.pth.tar")        # reference checkpoint
     rgb = c.colorize(gray_or_rgb_uint8_image)        # (H, W, 3) uint8 RGB
+    variants = c.colorize(img, diverse=True)         # list of 3 arrays
     rgb = c.colorize(img, hints=(mask, ab))          # interactive hints
+    mask = c.anchor_mask(img)                        # where the model puts its anchors
     rgbs = c.colorize_batch([img0, img1, img2])      # one forward
 
 The model runs with spectral norm folded into the weights, in bf16 by default
@@ -50,6 +52,8 @@ class Colorizer:
         checkpoint: str = "",
         n_clusters: int = 8,
         sp_size: int = 16,
+        random_hint: bool = False,
+        hint2regress: bool = False,
         compute_dtype: str = "bfloat16",
         seed: int = 130,
         bucket: int = 16,
@@ -65,7 +69,9 @@ class Colorizer:
         its spectral norm is folded at load. Neither: random weights from
         ``seed``. ``device`` defaults to the card and raises without one.
         ``compute_dtype``: "bfloat16" or "float32"; the parameters stay f32,
-        and bf16 serving holds one bf16 copy of the layers' weights, made here."""
+        and bf16 serving holds one bf16 copy of the layers' weights, made here.
+        ``random_hint``: random anchors instead of k-means; ``hint2regress``:
+        the model that takes the anchors' ab (both as in the JAX package)."""
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}")
         if wire_dtype not in ("float32", "uint8"):
@@ -81,7 +87,8 @@ class Colorizer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = AnchorColorProb(sp_size=sp_size, n_clusters=n_clusters, sn_folded=True,
-                                    compute_dtype=_DTYPES[compute_dtype])
+                                    compute_dtype=_DTYPES[compute_dtype], random_hint=random_hint,
+                                    hint2regress=hint2regress)
         if state_dict is None and checkpoint:
             data = torch.load(checkpoint, map_location="cpu", weights_only=True)
             sd = data.get("state_dict", data)
@@ -155,10 +162,10 @@ class Colorizer:
 
     @torch.no_grad()
     def colorize(self, image: np.ndarray, diverse: bool = False, hints: Optional[tuple] = None, generator=None):
-        """Colorize one image -> (H, W, 3) uint8 RGB. ``hints`` is
-        (mask (h, w), ab (h, w, 2)) on the token grid, ab normalized."""
-        if diverse:
-            raise NotImplementedError(f"diverse=True {_NEXT}")
+        """Colorize one image -> (H, W, 3) uint8 RGB, or a list of 3 with
+        ``diverse`` (the anchor colors sampled with T = 0, 1, 2: JAX's
+        ``sampled_T=2``). ``hints`` is (mask (h, w), ab (h, w, 2)) on the
+        token grid, ab normalized."""
         gray, (h, w) = self._prep(image)
         hint_mask = hint_colors = None
         if hints is not None:
@@ -170,7 +177,10 @@ class Colorizer:
             hint_mask_override=hint_mask,
             anchor_colors_override=hint_colors,
             generator=generator or self.generator,
+            sampled_T=2 if diverse else 0,
         )["pred_colors"]
+        if diverse:
+            return self._to_rgb(gray.expand(3, -1, -1, -1), pred, [(h, w)] * 3)
         return self._to_rgb(gray, pred, [(h, w)])[0]
 
     def _batch_bucket(self, n: int) -> int:
@@ -193,5 +203,12 @@ class Colorizer:
         pred = self.model(self._wire_in(grays), generator=generator or self.generator)["pred_colors"]
         return self._to_rgb(grays[: len(preps)], pred[: len(preps)], [hw for _, hw in preps])
 
-    def anchor_mask(self, image: np.ndarray):
-        raise NotImplementedError(f"anchor_mask {_NEXT}")
+    @torch.no_grad()
+    def anchor_mask(self, image: np.ndarray, generator=None) -> np.ndarray:
+        """Where the model itself puts its anchors: the hint mask over the
+        token grid of the padded image, (h, w) f32 in {0, 1} (k-means, or
+        random with ``random_hint``). As the JAX ``anchor_mask``, the model
+        sees the image's L without the wire codec."""
+        gray, _ = self._prep(image)
+        mask = self.model(gray, generator=generator or self.generator)["hint_mask"]
+        return mask[0, ..., 0].cpu().numpy()

@@ -9,7 +9,7 @@ import torch
 _ROADMAP = "is not ported yet: ROADMAP.md, queue 1, item"
 
 
-def refuse_unported(args, colorizer: bool = False) -> None:
+def refuse_unported(args) -> None:
     """Raise for a flag that would change the run but is not ported yet, so
     that no flag is silently ignored."""
     if args.coordinator is not None or args.num_processes not in (None, 1) or args.process_id not in (None, 0):
@@ -17,17 +17,6 @@ def refuse_unported(args, colorizer: bool = False) -> None:
     if args.checkpt:
         raise ValueError("--checkpt is not read by the trainers: they resume from <save_dir>/<name>/checkpts "
                          "with --resume, as the JAX package's trainers do")
-    if not colorizer:
-        return
-    for flag in ("random_hint", "spix_pos", "learning_pos", "hint2regress"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {_ROADMAP} 2 (model options and anchors)")
-    if not args.enhanced:
-        raise NotImplementedError(f"training without --enhanced {_ROADMAP} 2 (model options and anchors)")
-    if (args.d_model, args.d_mlp) != (64, 256) or args.n_dec != args.n_enc:
-        raise NotImplementedError(
-            f"--d_model {args.d_model} --d_mlp {args.d_mlp} --n_dec {args.n_dec}: the port's model has the "
-            f"recipe's widths (64, 256) and --n_enc layers in both encoders; other widths {_ROADMAP} 2")
 
 
 def configure_backends(args, logger) -> None:

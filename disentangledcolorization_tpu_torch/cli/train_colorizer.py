@@ -7,7 +7,10 @@ pixel L1 with a warning), Adam + poly decay, validation every ``--eval_freq``
 epochs with image dumps, last/best checkpoints, ``--resume``, ``--remat``,
 ``--grad_accum``, ``--device_data``, ``--compute_dtype bfloat16`` (bf16 convs
 with f32 parameters, as ``models/disco.py`` says; the checkpoints keep f32
-parameters), and a clean checkpoint on SIGTERM/SIGINT.
+parameters), the model options ``--d_model``/``--d_mlp``, ``--spix_pos``,
+``--learning_pos``, ``--random_hint``, ``--hint2regress`` and training
+without ``--enhanced`` (recLoss 0), and a clean checkpoint on SIGTERM/SIGINT.
+``--n_dec`` is logged and not read, as in the JAX trainer.
 Runs on the card unless ``--device cpu``:
 
     python -m disentangledcolorization_tpu_torch.cli.train_colorizer --data <root with train/ val/> \\
@@ -49,7 +52,7 @@ from ._common import configure_backends, host_metrics, refuse_unported, to_devic
 
 def main(argv=None) -> dict:
     args = pcolor_argparser().parse_args(argv)
-    refuse_unported(args, colorizer=True)
+    refuse_unported(args)
     resolve_device(args.device)  # before decoding a dataset: no card, no run
     train_ds = data_lib.build_dataset(args.dataset, args.data, "train", args.input_size, cache=args.cache_data)
     val_ds = data_lib.build_dataset(args.dataset, args.data, "val", args.input_size, cache=args.cache_data)
@@ -68,7 +71,7 @@ def train(args, train_ds, val_ds) -> dict:
     """Train AnchorColorProb on ``train_ds`` with validation on ``val_ds``.
     Returns the state, the loss bundle and the run's record: 'history' (per
     epoch), 'step_losses', 'step_seconds', 'start_epoch', 'best_loss', 'run_dir'."""
-    refuse_unported(args, colorizer=True)
+    refuse_unported(args)
     device = resolve_device(args.device)
     register_stack_dump()  # kill -USR1 <pid> = thread dump, not termination
     run_dir = os.path.join(args.save_dir, args.name)
@@ -98,10 +101,17 @@ def train(args, train_ds, val_ds) -> dict:
                 idx = torch.as_tensor(b, device=device)
                 yield {k: dd[k][idx] for k in ("gray", "color")}
 
+    if args.n_dec != args.n_enc:  # the JAX trainer builds both encoders with --n_enc layers too
+        logger.info(f"--n_dec {args.n_dec} is not read: both encoders have --n_enc {args.n_enc} layers, "
+                    "as in the JAX package")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = AnchorColorProb(sp_size=args.psize, n_clusters=args.n_clusters, n_enc_layers=args.n_enc,
-                                compute_dtype=getattr(torch, args.compute_dtype))
+        model = AnchorColorProb(
+            sp_size=args.psize, n_clusters=args.n_clusters, n_enc_layers=args.n_enc,
+            compute_dtype=getattr(torch, args.compute_dtype), d_model=args.d_model, d_mlp=args.d_mlp,
+            use_dense_pos=args.dense_pos, spix_pos=args.spix_pos, learning_pos=args.learning_pos,
+            random_hint=args.random_hint, hint2regress=args.hint2regress, enhanced=args.enhanced,
+            token_grid=(args.input_size // args.psize,) * 2)
     # the reference's blanket xavier re-init, then the frozen stage-1 segnet
     xavier_reinit_params(model, generator_for(args.seed, "xavier", device="cpu"))
     if args.spixel_ckpt:
@@ -213,18 +223,21 @@ def train(args, train_ds, val_ds) -> dict:
 @torch.no_grad()
 def _dump_val_images(model, batch, run_dir, epoch, args, max_n: int = 4):
     """The eval forward on the first images of a batch, decoded: palette
-    (pal), refined (ref) and enhanced colours, and the anchor panel (hints),
-    as normalized-Lab PNGs under ``<run_dir>/val_imgs``."""
+    (pal), refined (ref; ``ref_logit`` itself with ``--hint2regress``) and,
+    with ``--enhanced``, enhanced colours, and the anchor panel (hints), as
+    normalized-Lab PNGs under ``<run_dir>/val_imgs``."""
     gray, color = batch["gray"][:max_n], batch["color"][:max_n]
     out = model(gray, color, generator=torch.Generator(device=gray.device).manual_seed(epoch), test_mode=False,
                 train=False)
     psize = args.psize
     pal_full = sp.upfeat(cl.decode_ind2ab(out["pal_logit"], T=0.38), out["affinity_map"], psize, psize)
-    ref_full = sp.upfeat(cl.decode_ind2ab(out["ref_logit"], T=0), out["affinity_map"], psize, psize)
+    ref_ab = out["ref_logit"] if args.hint2regress else cl.decode_ind2ab(out["ref_logit"], T=0)
+    ref_full = sp.upfeat(ref_ab, out["affinity_map"], psize, psize)
     anchor_masks = sp.upfeat(out["hint_mask"], out["affinity_map"], psize, psize)
     marked = hints_ops.mark_color_hints(gray, ref_full, anchor_masks, base_abs=ref_full)
     dump_dir = os.path.join(run_dir, "val_imgs")
-    for suffix, ab in (("pal", pal_full), ("ref", ref_full), ("enhanced", out["pred_colors"])):
+    panels = (("pal", pal_full), ("ref", ref_full)) + ((("enhanced", out["pred_colors"]),) if args.enhanced else ())
+    for suffix, ab in panels:
         io_lib.save_normLabs_from_batch(torch.cat([gray, ab], dim=-1), dump_dir, [], epoch, suffix=suffix)
     io_lib.save_normLabs_from_batch(marked, dump_dir, [], epoch, suffix="hints")
 

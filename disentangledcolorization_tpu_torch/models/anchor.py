@@ -1,8 +1,10 @@
-"""Anchor locations (k-means) and anchor-color sampling over the token grid.
+"""Anchor locations (k-means or random), anchor-color sampling and anchor
+merging over the token grid.
 
 Counterpart of ``disentangledcolorization_tpu/models/anchor.py``
-(``clustering_hint_mask``, ``sample_anchor_colors``). Argmax and argmin take
-the first index on ties, as in JAX; no ``topk`` shortcuts.
+(``clustering_hint_mask``, ``random_hint_mask``, ``sample_anchor_colors``,
+``detect_correlation``). Argmax and argmin take the first index on ties, as
+in JAX; no ``topk`` shortcuts.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import colorlabel as cl
+from ..ops import hints as hints_ops
 from ..ops import kmeans as km
 
 _TOPK = 10  # candidate bins per token for T >= 1
@@ -28,6 +31,33 @@ def clustering_hint_mask(feats, n_anchors: int, spixel_sizes, generator=None):
     best = torch.argmax(cluster_prob.reshape(n, h * w, n_anchors), dim=1)  # (N, K)
     hint = F.one_hot(best, h * w).float().sum(1).reshape(n, h, w, 1)
     return hint, cluster_mask
+
+
+def random_hint_mask(n: int, h: int, w: int, n_anchors: int, generator=None, device=None):
+    """``n_anchors`` distinct random anchors per image (``random_hint``):
+    hint_mask (N, H, W, 1) and an all-zero cluster_mask (N, H, W, K)."""
+    hint = hints_ops.get_random_mask(n, h, w, n_anchors, n_anchors, generator, device)
+    return hint, hint.new_zeros((n, h, w, n_anchors))
+
+
+def detect_correlation(data, color_probs, hint_mask, thres: float = 0.1, n_anchors: int = 8):
+    """Merge the color distributions of anchors whose features are
+    cosine-close (distance below ``thres``), through two hops of the anchor
+    graph (JAX ``anchor.py:115-144``; the reference leaves it off its main
+    path, and so does the model here). data (N, H, W, C), color_probs
+    (N, H, W, Q), hint_mask (N, H, W, 1) -> the updated (N, H, W, Q)."""
+    n, h, w, c = data.shape
+    vecs = data.reshape(n, h * w, c)
+    mask = hint_mask.reshape(n, h * w, 1)
+    probs = color_probs.reshape(n, h * w, -1)
+    anchor_mask = mask @ mask.transpose(1, 2)
+    unit = vecs / (torch.linalg.vector_norm(vecs, dim=-1, keepdim=True) + 1e-12)
+    dist = 1.0 - 0.5 * (unit @ unit.transpose(1, 2) + 1.0)
+    adj = ((dist < thres) & (anchor_mask > 0)).to(vecs.dtype)
+    adj = adj @ adj
+    adj = adj / (1e-7 + adj)
+    merged = (adj @ probs) / adj.sum(-1, keepdim=True)
+    return (merged * mask + (1.0 - mask) * probs).reshape(n, h, w, -1)
 
 
 def _take(topk_abs, idx):

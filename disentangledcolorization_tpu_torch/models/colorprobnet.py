@@ -1,4 +1,4 @@
-"""ColorProbNet: VGG-style grayscale encoder-decoder -> 64-channel full-res features.
+"""ColorProbNet: VGG-style grayscale encoder-decoder -> d_model-channel full-res features.
 
 Counterpart of ``disentangledcolorization_tpu/models/colorprobnet.py``. Encoder
 stages are ``Sequential([SNConv, LeakyReLU(0.2)] * n + [BN])``; the decoder's
@@ -28,9 +28,10 @@ def _up() -> nn.Upsample:
 
 
 class ColorProbNet(nn.Module):
-    """Grayscale (N, H, W, 1) -> features (N, H, W, 64)."""
+    """Grayscale (N, H, W, 1) -> features (N, H, W, out_channels): the model's
+    d_model, 64 in the recipe."""
 
-    def __init__(self, sn_folded: bool = False):
+    def __init__(self, sn_folded: bool = False, out_channels: int = 64):
         super().__init__()
         f = sn_folded
         self.conv1_2 = _sn_stage(1, 64, 2, 1, f)
@@ -48,7 +49,7 @@ class ColorProbNet(nn.Module):
         self.conv9up = nn.Sequential(_up(), conv(256, 128))
         self.conv9_2 = Seq(conv(128, 128), nn.ReLU(), BatchNorm(128))
         self.conv10up = nn.Sequential(_up(), conv(128, 64))
-        self.conv10_2 = nn.Sequential(nn.ReLU(), conv(64, 64), nn.ReLU())
+        self.conv10_2 = nn.Sequential(nn.ReLU(), conv(64, out_channels), nn.ReLU())
 
     def forward(self, x, train: bool = False):
         """``train``: BatchNorm batch statistics and SNConv u updates."""

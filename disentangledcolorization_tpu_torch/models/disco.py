@@ -1,44 +1,58 @@
 """AnchorColorProb: the DISCO colorization model, serving and training forwards.
 
-Counterpart of ``disentangledcolorization_tpu/models/disco.py`` for
-``sampled_T=0``, ``enhanced=True``, dense positions, at the JAX defaults
-d_model=64, 8 heads, FFN 256, 313 bins, in both of its modes:
+Counterpart of ``disentangledcolorization_tpu/models/disco.py`` with its
+options: ``d_model``/``nhead``/``d_mlp`` (64/8/256 in the recipe),
+``use_dense_pos``, ``spix_pos``, ``learning_pos``, ``random_hint``,
+``hint2regress``, ``enhanced``, ``use_mask``, and the forward's
+``sampled_T``. The defaults are the recipe's. Both of its modes:
 
-  * ``test_mode=True`` (serving): anchors by k-means over the wildpath output,
-    anchor colors the most probable bin, no autograd;
+  * ``test_mode=True`` (serving): anchors by k-means over the wildpath output
+    (or random with ``random_hint``, or the caller's override); anchor colors
+    by ``sampled_T``: 0 the most probable bin, < 0 the ground-truth
+    superpixel colors, > 0 three samplings (T = 0, 1, 2) tiled into a batch of
+    3N; no autograd;
   * ``test_mode=False`` (training and validation, ``disco.py:232-252``): the
     segnet runs without autograd, k-means runs on the detached ground-truth
-    superpixel colors, and their bin labels feed the hintpath. ``train=True``
-    adds dropout, BatchNorm batch statistics and spectral-norm updates to
-    repnet, the encoders and HourGlass2; the segnet stays in eval mode.
+    superpixel colors, and their bin labels (or, with ``hint2regress``, the
+    colors themselves) feed the hintpath. ``train=True`` adds dropout,
+    BatchNorm batch statistics and spectral-norm updates to repnet, the
+    encoders and HourGlass2; the segnet stays in eval mode.
 
 The stages:
 
   segnet (SpixelNet, kernel B head)        -> 9-way affinity
-  repnet (ColorProbNet)                     -> 64-ch pixel features
-  pool_and_sizes([feats | ab]) (kernel A)   -> 256 tokens + sizes
+  repnet (ColorProbNet)                     -> d-ch pixel features
+  pool_and_sizes([feats | ab (| pos)]) (A)  -> tokens + sizes (+ pooled positions)
   wildpath (post-norm encoder, kernel D)    -> pal_logit (313-way per token)
-  k-means anchors + sample_anchor_colors    -> hint mask and anchor colors
-  hintpath (post-norm encoder, kernel D)    -> ref_logit
-  upfeat (kernel C) + HourGlass2 + tanh     -> full-res ab
+  anchors + sample_anchor_colors            -> hint mask and anchor colors
+  hintpath (post-norm encoder, kernel D)    -> ref_logit (313-way, or ab)
+  upfeat (kernel C) + HourGlass2 + tanh     -> full-res ab (``enhanced``)
+
+``spix_pos`` pools the full-resolution sine code of the pixels with the
+features (kernel A at C = 2d + 2); ``learning_pos`` learns the token grid's
+row and column tables (``pos_enc.*``), sized by ``token_grid``; else the
+token grid's sine code. ``use_mask`` masks the keys of superpixels under 25
+pixels in both encoders (kernel D and its backward take the mask).
 
 Parameter names follow the reference torch ``state_dict`` (``segnet.net.*``,
-``repnet.*``, ``wildpath.layers.*``, ``enhanceNet.*``, ...).
+``repnet.*``, ``wildpath.layers.*``, ``enhanceNet.*``, ``pos_enc.*``, ...).
 
 ``compute_dtype=torch.bfloat16`` (the serving default of the JAX
 ``Colorizer``, and the JAX trainer's ``--compute_dtype bfloat16``) rounds
 where the JAX model does (``disco.py:101-282``): the gray input to bf16 for
 the segnet, repnet and HourGlass2, whose convs run in bf16 with f32
 parameters; the segnet head in f32 (the affinity map is f32); in test mode
-the proxy [features | ab] in bf16, pooled in f32 and rounded to bf16; with
-``test_mode=False`` (training and validation) the repnet's features cast to
-f32 and the f32 proxy pooled by f32 kernel A (JAX's ``precise`` pooling,
-``disco.py:132-137``), so the ground-truth token labels come from f32 colors;
-the encoders, projections, k-means and anchor colors in f32; the hintpath's
-output rounded to bf16 before unpooling, whose f32 sums are rounded to bf16;
-``tanh`` in f32. The parameters stay f32. In training the BatchNorms of the
-repnet and HourGlass2 normalise in f32 and cast back, and the backward rounds
-as ``models/layers.py`` says; the unpooling's token gradient is bf16.
+the proxy [features | ab (| positions)] in bf16 (the ``spix_pos`` code made
+in bf16), pooled in f32 and rounded to bf16; with ``test_mode=False``
+(training and validation) the repnet's features cast to f32 and the f32
+proxy pooled by f32 kernel A (JAX's ``precise`` pooling,
+``disco.py:132-137``), so the ground-truth token labels come from f32
+colors; the encoders, projections, k-means and anchor colors in f32; the
+hintpath's output rounded to bf16 before unpooling, whose f32 sums are
+rounded to bf16; ``tanh`` in f32. The parameters stay f32. In training the
+BatchNorms of the repnet and HourGlass2 normalise in f32 and cast back, and
+the backward rounds as ``models/layers.py`` says; the unpooling's token
+gradient is bf16.
 """
 
 from __future__ import annotations
@@ -52,12 +66,11 @@ from ..ops import superpixel as sp
 from . import anchor
 from .colorprobnet import ColorProbNet
 from .hourglass import HourGlass2
-from .position import sine_position_encoding
+from .position import PositionEmbeddingLearned, sine_position_encoding
 from .spixelnet import SpixelSeg
 from .transformer import TransformerEncoder, _linear
 
 
-D_MODEL, NHEAD, D_MLP = 64, 8, 256
 N_VOCAB = cl.NUM_BINS
 
 
@@ -70,18 +83,38 @@ class AnchorColorProb(nn.Module):
         sn_folded: bool = False,
         dropout: float = 0.1,
         compute_dtype: torch.dtype = torch.float32,
+        d_model: int = 64,
+        nhead: int = 8,
+        d_mlp: int = 256,
+        use_dense_pos: bool = True,
+        spix_pos: bool = False,
+        learning_pos: bool = False,
+        random_hint: bool = False,
+        hint2regress: bool = False,
+        enhanced: bool = True,
+        use_mask: bool = False,
+        token_grid: tuple = (16, 16),
     ):
+        """``token_grid`` (rows, columns): the size of the learned position
+        tables (``learning_pos``), the input size over ``sp_size`` (JAX sizes
+        them from the grid of its init example)."""
         super().__init__()
-        self.sp_size, self.n_clusters = sp_size, n_clusters
-        self.compute_dtype = compute_dtype
+        self.sp_size, self.n_clusters, self.compute_dtype = sp_size, n_clusters, compute_dtype
+        self.d_model, self.spix_pos, self.random_hint = d_model, spix_pos, random_hint
+        self.learning_pos = learning_pos and not spix_pos  # spix_pos pools its positions
+        self.hint2regress, self.enhanced, self.use_mask = hint2regress, enhanced, use_mask
         self.segnet = SpixelSeg()
-        self.repnet = ColorProbNet(sn_folded=sn_folded)
-        self.wildpath = TransformerEncoder(n_enc_layers, D_MODEL, NHEAD, D_MLP, dropout)
-        self.hintpath = TransformerEncoder(n_enc_layers, D_MODEL, NHEAD, D_MLP, dropout)
-        self.mid_word_prj = _linear(D_MODEL, N_VOCAB, bias=False)
-        self.trg_word_emb = _linear(D_MODEL + N_VOCAB + 1, D_MODEL, bias=False)
-        self.trg_word_prj = _linear(D_MODEL, N_VOCAB, bias=False)
-        self.enhanceNet = HourGlass2(sn_folded=sn_folded)
+        self.repnet = ColorProbNet(sn_folded=sn_folded, out_channels=d_model)
+        if self.learning_pos:
+            self.pos_enc = PositionEmbeddingLearned(token_grid[1], token_grid[0], d_model // 2)
+        self.wildpath = TransformerEncoder(n_enc_layers, d_model, nhead, d_mlp, dropout, use_dense_pos)
+        self.hintpath = TransformerEncoder(n_enc_layers, d_model, nhead, d_mlp, dropout, use_dense_pos)
+        self.mid_word_prj = _linear(d_model, N_VOCAB, bias=False)
+        hint_width = 2 if hint2regress else N_VOCAB
+        self.trg_word_emb = _linear(d_model + hint_width + 1, d_model, bias=False)
+        self.trg_word_prj = _linear(d_model, hint_width, bias=False)
+        if enhanced:
+            self.enhanceNet = HourGlass2(sn_folded=sn_folded, in_channels=d_model + 1)
 
     def forward(
         self,
@@ -93,26 +126,69 @@ class AnchorColorProb(nn.Module):
         test_mode: bool = True,
         train: bool = False,
         dropout_generator: torch.Generator | None = None,
+        sampled_T: int = 0,
     ) -> dict:
         """input_grays (N, H, W, 1) normalized L; input_colors (N, H, W, 2)
         normalized ab (zeros when None: at test time they only reach
-        ``token_labels``). ``generator`` drives k-means, ``dropout_generator``
-        the dropout masks (``train=True``).
+        ``token_labels``, and the anchor colors with ``sampled_T < 0``).
+        ``generator`` drives k-means and the random anchors,
+        ``dropout_generator`` the dropout masks (``train=True``).
 
-        Test mode (under ``no_grad``): anchor colors are the most probable bin
-        (``sampled_T=0``); hint_mask_override (N, h, w, 1) and
-        anchor_colors_override (N, h, w, 2) replace the k-means anchors and the
-        sampled colors. ``test_mode=False``: the training forward, with autograd
-        as the caller has it; ``spix_colors`` are then the ground-truth ones.
+        Test mode (under ``no_grad``): ``sampled_T`` picks the anchor colors
+        (0 the most probable bin; < 0 the ground-truth superpixel colors; > 0
+        T = 0, 1, 2 on the batch tiled x3, so every output but ``pal_logit``
+        and ``token_labels`` has 3N images, the three samplings one after the
+        other); hint_mask_override (N, h, w, 1) and anchor_colors_override
+        (N, h, w, 2) replace the anchors and their colors. ``test_mode=False``:
+        the training forward, with autograd as the caller has it;
+        ``spix_colors`` are then the ground-truth ones. ``pred_colors`` is
+        None without ``enhanced``; ``ref_logit`` holds ab with ``hint2regress``.
         """
         with torch.set_grad_enabled(torch.is_grad_enabled() and not test_mode):
             return self._forward(input_grays, input_colors, hint_mask_override, anchor_colors_override,
-                                 generator, test_mode, train, dropout_generator)
+                                 generator, test_mode, train, dropout_generator, sampled_T)
+
+    def _positions(self, n, h, w, hc, wc, device, dtype):
+        """The token grid's positions (N, hc, wc, d), f32, unless ``spix_pos``
+        pools them; with ``spix_pos`` the pixels' sine code (N, H, W, d) in
+        the features' dtype, to be pooled."""
+        d = self.d_model
+        if self.spix_pos:
+            return sine_position_encoding(h, w, d // 2, device=device, dtype=dtype)[None].expand(n, h, w, d)
+        if self.learning_pos:
+            rows, cols = self.pos_enc.row_embed.num_embeddings, self.pos_enc.col_embed.num_embeddings
+            if hc > rows or wc > cols:
+                raise ValueError(f"learning_pos: a {hc}x{wc} token grid outgrows the {rows}x{cols} position "
+                                 f"tables (token_grid)")
+            return self.pos_enc(hc, wc)[None].expand(n, hc, wc, d)
+        return sine_position_encoding(hc, wc, d // 2, device=device)[None].expand(n, hc, wc, d)
+
+    def _test_anchors(self, enc_out, pal_logit, spix_colors, spixel_sizes, hint_mask_override,
+                      anchor_colors_override, generator, sampled_T):
+        """Test-mode hint mask (N, hc, wc, 1) and anchor colors (N or 3N, hc, wc, 2)."""
+        n, hc, wc, _ = spixel_sizes.shape
+        if hint_mask_override is not None:
+            hint_mask = hint_mask_override.float()
+        elif self.random_hint:
+            hint_mask, _ = anchor.random_hint_mask(n, hc, wc, self.n_clusters, generator, enc_out.device)
+        else:
+            hint_mask, _ = anchor.clustering_hint_mask(enc_out.reshape(n, hc, wc, -1), self.n_clusters,
+                                                       spixel_sizes, generator)
+        pred_prob = torch.softmax(pal_logit, dim=-1)
+        if sampled_T < 0:
+            colors = spix_colors
+        elif sampled_T > 0:
+            colors = torch.cat([anchor.sample_anchor_colors(pred_prob, T=i) for i in (0, 1, 2)], dim=0)
+        else:
+            colors = anchor.sample_anchor_colors(pred_prob, T=0)
+        if anchor_colors_override is not None:
+            colors = anchor_colors_override.float()
+        return hint_mask, colors
 
     def _forward(self, input_grays, input_colors, hint_mask_override, anchor_colors_override,
-                 generator, test_mode, train, dropout_generator):
+                 generator, test_mode, train, dropout_generator, sampled_T):
         n, h, w, _ = input_grays.shape
-        spn, d, cdt = self.sp_size, D_MODEL, self.compute_dtype
+        spn, d, cdt = self.sp_size, self.d_model, self.compute_dtype
         hc, wc = h // spn, w // spn
         t = hc * wc
         grays = input_grays.float()
@@ -125,41 +201,48 @@ class AnchorColorProb(nn.Module):
         pred_feats = self.repnet(grays_c, train)
         if not test_mode:  # precise pooling: the ground-truth token labels come from f32 pooled colors
             pred_feats = pred_feats.float()
-        proxy = torch.cat([pred_feats, input_colors.to(pred_feats.dtype)], dim=-1)
-        pooled, _, spixel_sizes = sp.pool_and_sizes(proxy, affinity_map, spn, spn)
+        pos = self._positions(n, h, w, hc, wc, grays.device, pred_feats.dtype)
+        parts = [pred_feats, input_colors.to(pred_feats.dtype)] + ([pos] if self.spix_pos else [])
+        pooled, _, spixel_sizes = sp.pool_and_sizes(torch.cat(parts, dim=-1), affinity_map, spn, spn)
         pooled = pooled.float()
-        feat_tokens, spix_colors = pooled[..., :d], pooled[..., d:]
-        pos = sine_position_encoding(hc, wc, d // 2, device=grays.device)
+        feat_tokens, spix_colors = pooled[..., :d], pooled[..., d:d + 2]
+        if self.spix_pos:
+            pos = pooled[..., d + 2:]
         token_labels = cl.nearest_bin_index(spix_colors)
+        pad_mask = (spixel_sizes < 25.0 / (spn * spn)).reshape(n, t) if self.use_mask else None
 
         src_seq = feat_tokens.reshape(n, t, d)
-        pos_seq = pos.reshape(1, t, d).expand(n, t, d)
-        enc_out = self.wildpath(src_seq, pos_seq, None, train, dropout_generator)
+        pos_seq = pos.reshape(n, t, d)
+        enc_out = self.wildpath(src_seq, pos_seq, pad_mask, train, dropout_generator)
         pal_logit = self.mid_word_prj(enc_out).reshape(n, hc, wc, N_VOCAB)
 
-        if not test_mode:
+        if test_mode:
+            hint_mask, spix_colors = self._test_anchors(enc_out, pal_logit, spix_colors, spixel_sizes,
+                                                        hint_mask_override, anchor_colors_override,
+                                                        generator, sampled_T)
+            if sampled_T > 0:  # diverse: the batch tiled x3, one sampling each
+                n = 3 * n
+                grays_c, hint_mask, affinity_map, src_seq, pos_seq = (
+                    x.repeat(3, *(1,) * (x.ndim - 1)) for x in (grays_c, hint_mask, affinity_map, src_seq, pos_seq))
+                pad_mask = None if pad_mask is None else pad_mask.repeat(3, 1)
+            labels = cl.nearest_bin_index(spix_colors)
+        else:
             hint_mask, _ = anchor.clustering_hint_mask(spix_colors.detach(), self.n_clusters, spixel_sizes, generator)
             labels = token_labels
-        else:
-            if hint_mask_override is not None:
-                hint_mask = hint_mask_override.float()
-            else:
-                hint_mask, _ = anchor.clustering_hint_mask(
-                    enc_out.reshape(n, hc, wc, d), self.n_clusters, spixel_sizes, generator
-                )
-            spix_colors = anchor.sample_anchor_colors(torch.softmax(pal_logit, dim=-1), T=0)
-            if anchor_colors_override is not None:
-                spix_colors = anchor_colors_override.float()
-            labels = cl.nearest_bin_index(spix_colors)
 
         mask_seq = hint_mask.reshape(n, t, 1)
-        label_seq = F.one_hot(labels.reshape(n, t), N_VOCAB).float()
-        hint_seq = self.trg_word_emb(torch.cat([src_seq, mask_seq * label_seq, mask_seq], dim=-1))
-        dec_out = self.hintpath(hint_seq, pos_seq, None, train, dropout_generator)
-        ref_logit = self.trg_word_prj(dec_out).reshape(n, hc, wc, N_VOCAB)
+        if self.hint2regress:  # the anchor colors themselves (ground truth in training)
+            hint = spix_colors.reshape(n, t, 2)
+        else:
+            hint = F.one_hot(labels.reshape(n, t), N_VOCAB).float()
+        hint_seq = self.trg_word_emb(torch.cat([src_seq, mask_seq * hint, mask_seq], dim=-1))
+        dec_out = self.hintpath(hint_seq, pos_seq, pad_mask, train, dropout_generator)
+        ref_logit = self.trg_word_prj(dec_out).reshape(n, hc, wc, -1)
 
-        full_feats = sp.upfeat(dec_out.reshape(n, hc, wc, d).to(cdt), affinity_map, spn, spn)
-        pred_colors = torch.tanh(self.enhanceNet(torch.cat([grays_c, full_feats], dim=-1), train).float())
+        pred_colors = None
+        if self.enhanced:
+            full_feats = sp.upfeat(dec_out.reshape(n, hc, wc, d).to(cdt), affinity_map, spn, spn)
+            pred_colors = torch.tanh(self.enhanceNet(torch.cat([grays_c, full_feats], dim=-1), train).float())
 
         return {
             "pal_logit": pal_logit,

@@ -14,12 +14,13 @@ from .layers import ConvBlock, DownsampleBlock, ResidualBlock, UpsampleBlock, co
 
 
 class HourGlass2(nn.Module):
-    """The enhancement net as AnchorColorProb builds it: 65 -> 2 channels,
-    3 residual blocks, BatchNorm in the other blocks."""
+    """The enhancement net as AnchorColorProb builds it: 1 + d_model (65 in
+    the recipe) -> 2 channels, 3 residual blocks, BatchNorm in the other
+    blocks."""
 
-    def __init__(self, sn_folded: bool = False):
+    def __init__(self, sn_folded: bool = False, in_channels: int = 65):
         super().__init__()
-        self.inConv = ConvBlock(65, 64, conv_num=2)
+        self.inConv = ConvBlock(in_channels, 64, conv_num=2)
         self.down1 = DownsampleBlock(64, 128, conv_num=2)
         self.down2 = DownsampleBlock(128, 256, conv_num=2)
         self.residual = nn.Sequential(*[ResidualBlock(256, sn_folded=sn_folded) for _ in range(3)])
@@ -28,7 +29,7 @@ class HourGlass2(nn.Module):
         self.outConv = conv(64, 2)
 
     def forward(self, x, train: bool = False):
-        """(N, H, W, 65) gray + unpooled features -> (N, H, W, 2). ``train``:
+        """(N, H, W, in_channels) gray + unpooled features -> (N, H, W, 2). ``train``:
         BatchNorm batch statistics and SNConv u updates."""
         f1 = self.inConv(x.permute(0, 3, 1, 2), train)
         f2 = self.down1(f1, train)

@@ -254,7 +254,7 @@ class BatchNorm(nn.BatchNorm2d):
             return x * a[:, None, None] + b[:, None, None]
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
-        if x.dtype != torch.float32:
+        if x.dtype.itemsize < 4:  # bf16: normalised in f32
             return self.forward(x.float(), True).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)

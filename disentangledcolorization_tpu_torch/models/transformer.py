@@ -93,16 +93,21 @@ class EncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of post-norm layers; pos is added to (q, k) at every layer (the
-    dense positions that DISCO's inference always uses)."""
+    """Stack of post-norm layers. ``use_dense_pos=True`` adds pos to (q, k) at
+    every layer (the dense positions of DISCO's recipe); otherwise pos is
+    added to the input once (JAX ``transformer.py:94-119``)."""
 
-    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 256, dropout: float = 0.1):
+    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 256, dropout: float = 0.1,
+                 use_dense_pos: bool = True):
         super().__init__()
+        self.use_dense_pos = use_dense_pos
         self.layers = nn.ModuleList(
             EncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers)
         )
 
     def forward(self, src, pos, padding_mask=None, train: bool = False, generator=None):
+        if not self.use_dense_pos:
+            src, pos = src + pos, None
         for layer in self.layers:
             src = layer(src, pos, padding_mask, train, generator)
         return src

@@ -1,15 +1,27 @@
-"""Anchor-hint visualization: seed dilation and the anchor panel of stage 2's
-validation dumps.
+"""Anchor hints: random hint masks, seed dilation, and the anchor panel of
+stage 2's validation dumps.
 
-Counterpart of ``disentangledcolorization_tpu/ops/hints.py`` (``dilate_seeds``,
-``mark_color_hints``), NHWC. The random hint masks (``get_random_mask``) come
-with ``random_hint`` (ROADMAP.md, queue 1, model options).
+Counterpart of ``disentangledcolorization_tpu/ops/hints.py``
+(``get_random_mask``, ``dilate_seeds``, ``mark_color_hints``), NHWC.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def get_random_mask(n: int, h: int, w: int, min_num: int, max_num: int, generator=None, device=None) -> torch.Tensor:
+    """(N, H, W, 1) binary f32 masks, each with a count of ones drawn
+    uniformly from [min_num, max_num], at distinct locations: the ``count``
+    lowest-ranked of uniform scores (JAX ``ops/hints.py:16-31``). torch's
+    generator gives other numbers than ``jax.random``; the same generator
+    state gives the same mask."""
+    device = generator.device if generator is not None else device
+    counts = torch.randint(min_num, max_num + 1, (n,), generator=generator, device=device)
+    scores = torch.rand((n, h * w), generator=generator, device=device)
+    ranks = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
+    return (ranks < counts[:, None]).float().reshape(n, h, w, 1)
 
 
 def dilate_seeds(gate_maps: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:

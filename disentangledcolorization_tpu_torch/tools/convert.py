@@ -183,13 +183,20 @@ def _hourglass(b: _StateDictBuilder, tprefix: str, path: tuple):
 
 
 def _anchor_color_prob(b: _StateDictBuilder) -> None:
+    """Every option's layout: the widths come from the tree, ``pos_enc`` and
+    ``enhanceNet`` are read where the tree has them (``learning_pos``,
+    ``enhanced``)."""
     _spixelnet(b, "segnet.net.", ("segnet", "net"))
     _colorprobnet(b, "repnet.", ("repnet",))
     _encoder(b, "wildpath.", ("wildpath",))
     _encoder(b, "hintpath.", ("hintpath",))
     for name in ("mid_word_prj", "trg_word_emb", "trg_word_prj"):
         b.linear(name, (name,))
-    _hourglass(b, "enhanceNet.", ("enhanceNet",))
+    if b._has(b.params, ("pos_enc",)):  # flax nn.Embed tables (rows, features), as torch's
+        for table in ("row_embed", "col_embed"):
+            b.sd[f"pos_enc.{table}.weight"] = b._get(b.params, ("pos_enc", table, "embedding"))
+    if b._has(b.params, ("enhanceNet",)):
+        _hourglass(b, "enhanceNet.", ("enhanceNet",))
 
 
 def _spixel_seg(b: _StateDictBuilder) -> None:
@@ -207,7 +214,8 @@ def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tens
     -> the port's AnchorColorProb ``state_dict``.
 
     ``sn_folded`` must match how the variables were made; the port model is
-    then built with the same flag. The encoder depth is read from the tree.
+    then built with the same flag and options. The encoder depth and the
+    widths are read from the tree.
     """
     return _build(_StateDictBuilder(variables, sn_folded))
 

@@ -50,7 +50,10 @@ def to_jax_variables(sd: dict, sn_folded: bool) -> dict:
     """Port state_dict -> JAX variables through ``convert_disco_state_dict``.
 
     The converter reads six encoder layers; a shallower model's layers are
-    padded with copies for it and dropped from the variables afterwards.
+    padded with copies for it and dropped from the variables afterwards. A
+    model without ``enhanceNet`` is converted with ``enhanced=False``; the
+    converter has no ``pos_enc`` (``learning_pos``), so its two tables are put
+    into the params here, as flax ``nn.Embed`` keeps them (rows, features).
     """
     n_layers = len({k.split(".")[2] for k in sd if k.startswith("wildpath.layers.")})
     full = dict(sd)
@@ -59,7 +62,10 @@ def to_jax_variables(sd: dict, sn_folded: bool) -> dict:
             for k, v in sd.items():
                 if k.startswith(f"{path}.layers.0."):
                     full[k.replace(".layers.0.", f".layers.{i}.", 1)] = v
-    variables = cvt.convert_disco_state_dict(full, sn_folded=sn_folded)
+    variables = cvt.convert_disco_state_dict(
+        full, sn_folded=sn_folded, enhanced=any(k.startswith("enhanceNet.") for k in sd))
+    if "pos_enc.row_embed.weight" in sd:
+        variables["params"]["pos_enc"] = {t: {"embedding": sd[f"pos_enc.{t}.weight"]} for t in ("row_embed", "col_embed")}
     for coll in variables.values():
         for path in ("wildpath", "hintpath"):
             for i in range(n_layers, 6):

@@ -10,11 +10,15 @@ tiny image folder: 32x32 images, batch 2, a 2+2-layer colorizer, 2 clusters.
   ``--remat`` and ``--grad_clip`` switched on;
 * ``train`` runs on in-memory datasets (``train.data.ArrayDataset``), with
   ``--device_data``;
-* flags whose feature is not ported raise ``NotImplementedError``, and
-  without a card the entry points raise instead of running on the CPU.
+* flags whose feature is not ported (multi-process training) raise
+  ``NotImplementedError``, and without a card the entry points raise instead
+  of running on the CPU.
 
 ``--compute_dtype bfloat16`` no longer raises: ``test_torch_bf16_train_cli.py``
-runs both trainers with it.
+runs both trainers with it. Nor do the model options (``--random_hint``,
+``--spix_pos``, ``--learning_pos``, ``--hint2regress``, ``--d_model``/``--d_mlp``,
+``--n_dec``, training without ``--enhanced``): ``test_torch_options_cli.py``
+runs the stage-2 trainer with each.
 """
 
 import os
@@ -117,17 +121,13 @@ def test_train_on_in_memory_datasets_with_device_data(tmp_path):
     assert len(sp_out["step_losses"]) == 3 and np.isfinite(sp_out["history"][0]["val_loss"])
 
 
-@pytest.mark.parametrize("flags", [["--num_processes", "2"], ["--random_hint"],
-                                   ["--spix_pos"], ["--learning_pos"], ["--hint2regress"], ["--d_model", "32"],
-                                   ["--n_dec", "3"]])
+@pytest.mark.parametrize("flags", [["--num_processes", "2"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_colorizer.main(["--data", str(tmp_path), *SMALL, *COLOR, *flags])
 
 
 def test_unported_and_unread_flags_raise_for_both(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_colorizer.main(["--data", str(tmp_path), *SMALL])  # without --enhanced
     with pytest.raises(NotImplementedError, match="DDP"):
         train_spixel.main(["--data", str(tmp_path), *SMALL, "--num_processes", "2"])
     with pytest.raises(ValueError, match="--resume"):

@@ -621,3 +621,83 @@ def test_superpixel_function_gradients(cuda, s):
             grads.append(torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, gs)), (xa, pa)))
         for a, b in zip(*grads):
             torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+
+
+# the model options' shapes (spix_pos, diverse, d_model 128, use_mask)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pool_stats_at_spix_pos_width(cuda, bf16):
+    """Kernel A and its bf16 instance at C = 2d + 2 = 130 ([features | ab |
+    positions]), the 8-byte f32 / 4-byte bf16 vector path."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    feat, prob = _rand(cuda, 2, 64, 64, 130), _tied_prob(cuda, 2, 64, 64)
+    if bf16:
+        feat = feat.bfloat16()
+    out, ref = sp.pool_stats(feat, prob, 16, 16), sp.pool_stats_plain(feat, prob, 16, 16)
+    for a, b in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
+    assert torch.equal(out[2], ref[2]) and all(torch.equal(a, b) for a, b in zip(out, sp.pool_stats(feat, prob, 16, 16)))
+
+
+@pytest.mark.parametrize("n,c,bf16", [(6, 64, True), (6, 64, False), (2, 128, False), (2, 128, True), (2, 130, False)])
+def test_upfeat_at_option_shapes(cuda, n, c, bf16):
+    """Kernel C at batch 3N (diverse), C=128 (d_model 128) and C=130 (pooling's
+    feature gradient under spix_pos)."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    tok = _rand(cuda, n, 4, 4, c)
+    tok = tok.bfloat16() if bf16 else tok
+    prob = torch.softmax(_rand(cuda, n, 64, 64, 9, seed=1), -1).contiguous()
+    out, ref = sp.upfeat(tok, prob, 16, 16), sp.upfeat_plain(tok, prob, 16, 16)
+    if bf16:
+        assert out.dtype == torch.bfloat16 and _bf16_ulps(out, ref) <= 1.0
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert torch.equal(out, sp.upfeat(tok, prob, 16, 16))
+
+
+@pytest.mark.parametrize("d_model,nhead", [(64, 8), (128, 8)], ids=["hd8", "hd16"])
+def test_attention_with_a_use_mask_mask(cuda, d_model, nhead):
+    """Kernel D and attention_bwd on a key-padding mask that use_mask makes in
+    a real forward (a 64x64 batch whose segnet head favours one direction, so
+    that small superpixels are masked), the first image's keys all masked."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.models import transformer
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    torch.manual_seed(0)
+    model = AnchorColorProb(n_clusters=2, n_enc_layers=1, use_mask=True, d_model=d_model, d_mlp=4 * d_model)
+    with torch.no_grad():
+        model.segnet.net.pred_mask0.bias[1] += 4.0
+    model = model.to(cuda).eval()
+    seen = []
+    real = transformer.attn_ops.attention
+    transformer.attn_ops.attention = lambda q, k, v, nh, m=None, *a: seen.append((q, k, v, m)) or real(q, k, v, nh, m, *a)
+    try:
+        model(_rand(cuda, 3, 64, 64, 1).clamp(-1, 1))
+    finally:
+        transformer.attn_ops.attention = real
+    q, k, v, mask = seen[0]
+    assert mask is not None and mask.any() and not mask.all()
+    mask = mask.clone()
+    mask[0] = True
+    dout = _rand(cuda, *q.shape, seed=7)
+    out, stats = attention._attention(q, k, v, nhead, mask, None, 0.0, with_stats=True)
+    ref, ref_stats = attention.attention_plain(q, k, v, nhead, mask, return_stats=True)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 0], ref_stats[..., 0], atol=1e-5, rtol=0)
+    grads = attention.attention_bwd(q, k, v, dout, nhead, mask, None, 0.0, out, stats)
+    for a, b in zip(grads, attention.attention_bwd_plain(q, k, v, dout, nhead, mask)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, attention.attention_bwd(q, k, v, dout, nhead, mask, None, 0.0,
+                                                                                  out, stats)))
+
+
+def test_head_width_without_a_kernel_raises(cuda):
+    """d_model 32 over 8 heads is head width 4, which kernel D has no instance
+    for: the card raises and names it (the CPU runs it)."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+
+    model = AnchorColorProb(n_clusters=2, n_enc_layers=1, d_model=32, d_mlp=128).to(cuda).eval()
+    with pytest.raises(ValueError, match="head width 32/8"):
+        model(_rand(cuda, 1, 32, 32, 1))

@@ -45,6 +45,7 @@ from disentangledcolorization_tpu_torch.models import anchor as tanchor
 from disentangledcolorization_tpu_torch.models.layers import SNConv
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables, grads_from_jax
 from disentangledcolorization_tpu_torch.train import losses, state, steps
+from chip_smoke import center_conv_biases
 from test_torch_bridge import random_state_dict, to_jax_variables
 
 LR = 0.5
@@ -56,6 +57,12 @@ SIZE = 32
 # The losses and buffers are held as tightly as in the one-microbatch step.
 ACCUM_TOL = 5e-2
 LOSSES = ("totalLoss", "palLoss", "refLoss", "recLoss")
+# The conv outputs' channel means, in std, after conditioning. At 1 std (84%
+# of ReLU inputs on the active side) each package's f32 gradients lie within
+# 0.25-0.35 of the 1e-4 tolerance of a float64 run of the port, and within
+# 0.4-0.5 of it of each other; at 0.5 std JAX's lay at 1.0 and the two 1.2
+# apart (tools/grad_precision.py, at one thread and at eight).
+CENTER = 1.0
 
 
 def _quiet(fn):
@@ -70,7 +77,8 @@ def _conditioned(sd: dict, gray, color) -> dict:
     every later layer seeing the shifted output). Random weights otherwise
     leave ReLU channels nearly dead before a BatchNorm, and a batch variance
     near 0 makes the f32 gradient so ill-conditioned that neither package is
-    within 1e-4 of the exact one. Buffers keep their values."""
+    within 1e-4 of the exact one. Buffers keep their values. The VGG and bf16
+    step tests use it; this module's steps use :func:`_gap_conditioned`."""
     model = AnchorColorProb(n_clusters=2, n_enc_layers=2, dropout=0.0)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
 
@@ -89,6 +97,41 @@ def _conditioned(sd: dict, gray, color) -> dict:
     return {k: biases.get(k, v) for k, v in sd.items()}
 
 
+def _gap_conditioned(sd: dict, gray, color, hints, microbatches: bool = True, **model_kwargs) -> dict:
+    """Data-dependent conv biases (``chip_smoke.center_conv_biases``): each
+    trainable conv's output channels are shifted to mean about ``CENTER`` std
+    on the test batch, with no output within 1e-3 std of 0, in the training
+    forward of the whole batch and, with ``microbatches``, of each one-image
+    microbatch (BatchNorm statistics per forward), each forward's anchors
+    ``hints`` pinned (every later layer sees the shifted outputs). Where a
+    ReLU takes a sum (the residual blocks, repnet's conv8 input) the gap
+    holds for the sum, and the output conv keeps it from the L1 term's kink.
+    Random weights otherwise leave ReLU channels nearly dead before a
+    BatchNorm, and ReLU inputs within rounding of 0: a batch variance near 0,
+    or an input that takes the other side of 0 under another reduction order
+    (another thread count), moves the f32 gradient of either package by far
+    more than 1e-4 of its max. The forward runs on one thread, so every
+    thread count gets the same weights. Buffers keep their values.
+    ``model_kwargs``: the model's options (2+2 layers, 2 clusters, dropout 0)."""
+    model = AnchorColorProb(**{"n_clusters": 2, "n_enc_layers": 2, "dropout": 0.0, **model_kwargs})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    n = gray.shape[0]
+    order, groups = list(range(n)), None
+    if microbatches:  # the whole batch, then its microbatches of one image
+        order, groups = order * 2, [slice(0, n)] + [slice(n + i, n + i + 1) for i in range(n)]
+    pinned, threads = tanchor.clustering_hint_mask, torch.get_num_threads()
+    tanchor.clustering_hint_mask = lambda *a, **k: (torch.from_numpy(np.concatenate(hints)), None)
+    torch.set_num_threads(1)
+    try:
+        center_conv_biases(model, torch.from_numpy(gray[order]), torch.from_numpy(color[order]), groups=groups,
+                           mean=CENTER, l1_kink=True)
+    finally:
+        tanchor.clustering_hint_mask = pinned
+        torch.set_num_threads(threads)
+    biases = {k: v.numpy() for k, v in model.state_dict().items() if k.endswith("bias")}
+    return {k: biases.get(k, v) for k, v in sd.items()}
+
+
 @pytest.fixture(scope="module")
 def ref():
     """The JAX side: variables, batch, keys, pinned hint masks, and the
@@ -98,18 +141,25 @@ def ref():
     color = rng.uniform(-0.5, 0.5, (2, SIZE, SIZE, 2)).astype(np.float32)
     torch.manual_seed(4)
     sd = random_state_dict(AnchorColorProb(n_clusters=2, n_enc_layers=2), seed=4)
-    variables = to_jax_variables(_conditioned(sd, gray, color), False)
     jm = JAnchorColorProb(sp_size=16, n_clusters=2, n_enc_layers=2, enhanced=True, dropout=0.0)
     loss = _quiet(lambda: jlosses.AnchorColorProbLoss(enhanced=True))
     base_key = jax.random.key(6)
     anchor_key, dropout_key = jax.random.split(jax.random.fold_in(base_key, 0))
     g, c = jnp.asarray(gray), jnp.asarray(color)
 
-    @functools.partial(jax.jit, static_argnums=3)
-    def hint(gray_, color_, key, train):
-        out = jm.apply(variables, gray_, color_, False, 0, train, rngs={"anchor": key, "dropout": dropout_key},
+    @functools.partial(jax.jit, static_argnums=4)
+    def hint_of(variables_, gray_, color_, key, train):
+        out = jm.apply(variables_, gray_, color_, False, 0, train, rngs={"anchor": key, "dropout": dropout_key},
                        mutable=["batch_stats", "spectral"])[0]
         return out["hint_mask"]
+
+    # the anchors come from the ground-truth colors and the frozen segnet alone,
+    # so the unconditioned weights give the steps' anchors
+    variables = to_jax_variables(sd, False)
+    hints = [hint_of(variables, g, c, anchor_key, True)]
+    hints += [hint_of(variables, g[i : i + 1], c[i : i + 1], jax.random.fold_in(anchor_key, i), True) for i in range(2)]
+    variables = to_jax_variables(_gap_conditioned(sd, gray, color, [np.asarray(h) for h in hints]), False)
+    hint = functools.partial(hint_of, variables)
 
     micro = jax.jit(jsteps.make_micro_grads(jm, loss))
     grads, metrics, mutated = micro(variables["params"], variables["batch_stats"], variables["spectral"], g, c,

@@ -47,7 +47,7 @@ from disentangledcolorization_tpu_torch.train import losses, state, steps
 from chip_smoke import condition_vgg
 from disentangledcolorization_tpu_torch.utils.color import lab2rgb
 from test_torch_bridge import REPO, random_state_dict, to_jax_variables
-from test_torch_train import LOSSES, SIZE, _conditioned, _quiet
+from test_torch_train import LOSSES, SIZE, _gap_conditioned, _quiet
 
 
 @pytest.fixture(scope="module")
@@ -123,30 +123,36 @@ def test_train_step_with_vgg_matches_jax(npz, monkeypatch, tmp_path):
     gray = rng.uniform(-1, 1, (2, SIZE, SIZE, 1)).astype(np.float32)
     color = rng.uniform(-0.5, 0.5, (2, SIZE, SIZE, 2)).astype(np.float32)
     torch.manual_seed(4)
-    sd = _conditioned(random_state_dict(AnchorColorProb(n_clusters=2, n_enc_layers=2), seed=4), gray, color)
-    variables = to_jax_variables(sd, False)
+    sd = random_state_dict(AnchorColorProb(n_clusters=2, n_enc_layers=2), seed=4)
+    jm = JAnchorColorProb(sp_size=16, n_clusters=2, n_enc_layers=2, enhanced=True, dropout=0.0)
+    anchor_key, dropout_key = jax.random.split(jax.random.fold_in(jax.random.key(6), 0))
+    g, c = jnp.asarray(gray), jnp.asarray(color)
+    hint_of = jax.jit(lambda v: jm.apply(v, g, c, False, 0, True, rngs={"anchor": anchor_key, "dropout": dropout_key},
+                                         mutable=["batch_stats", "spectral"])[0]["hint_mask"])
+    # the anchors come from the ground-truth colors and the frozen segnet alone
+    hint = np.asarray(hint_of(to_jax_variables(sd, False)))
+    variables = to_jax_variables(_gap_conditioned(sd, gray, color, [hint], microbatches=False), False)
     model = AnchorColorProb(n_clusters=2, n_enc_layers=2, sn_folded=False, dropout=0.0)
     model.load_state_dict(from_jax_variables(variables, sn_folded=False))
     buffers = {k: v.clone() for k, v in model.named_buffers()}
-    with torch.no_grad():
-        pred = model(torch.from_numpy(gray), torch.from_numpy(color), test_mode=False, train=True)["pred_colors"]
+    monkeypatch.setattr(tanchor, "clustering_hint_mask", lambda *a, **k: (torch.from_numpy(hint), None))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the same VGG biases whatever the thread count of the run
+    try:
+        with torch.no_grad():
+            pred = model(torch.from_numpy(gray), torch.from_numpy(color), test_mode=False, train=True)["pred_colors"]
+        vgg = load_vgg19(npz, "lpips", device="cpu")
+        condition_vgg(vgg, lab2rgb(torch.cat([torch.from_numpy(gray), pred], dim=-1)), gap=1e-3)
+    finally:
+        torch.set_num_threads(threads)
     model.load_state_dict({**model.state_dict(), **buffers})
-    vgg = load_vgg19(npz, "lpips", device="cpu")
-    condition_vgg(vgg, lab2rgb(torch.cat([torch.from_numpy(gray), pred], dim=-1)), gap=1e-3)
     npz = str(tmp_path / "conditioned.npz")
     np.savez(npz, **{k: v.numpy() for k, v in vgg.state_dict().items()})
-
-    jm = JAnchorColorProb(sp_size=16, n_clusters=2, n_enc_layers=2, enhanced=True, dropout=0.0)
     jloss = jlosses.AnchorColorProbLoss(enhanced=True, vgg_variables=load_vgg19_params(npz))
-    anchor_key, dropout_key = jax.random.split(jax.random.fold_in(jax.random.key(6), 0))
-    g, c = jnp.asarray(gray), jnp.asarray(color)
-    hint = jax.jit(lambda v: jm.apply(v, g, c, False, 0, True, rngs={"anchor": anchor_key, "dropout": dropout_key},
-                                      mutable=["batch_stats", "spectral"])[0]["hint_mask"])(variables)
     grads, metrics, _ = jax.jit(jsteps.make_micro_grads(jm, jloss))(
         variables["params"], variables["batch_stats"], variables["spectral"], g, c, anchor_key, dropout_key)
     ref_grads = grads_from_jax(jax.tree_util.tree_map(np.asarray, grads))
 
-    monkeypatch.setattr(tanchor, "clustering_hint_mask", lambda *a, **k: (torch.from_numpy(np.asarray(hint)), None))
     st = state.TrainState.create(model, name="sgd", schedule=0.0, momentum=0.0)
     ours_grads, apply = {}, st.optimizer.step
     st.optimizer.step = lambda: ours_grads.update(

@@ -43,6 +43,7 @@ def _grads(ref, dtype, onednn: bool) -> dict:
     kmeans = ttrain.tanchor.clustering_hint_mask
     model, st, batch, loss = ttrain._port(ref, _Patch(), ref["hint1"])
     model.to(dtype)
+    model.compute_dtype = dtype  # the f32 casts of the forward follow it
     st = ttrain.state.TrainState.create(model, name="sgd", schedule=ttrain.LR, momentum=0.0)
     grads, apply = {}, st.optimizer.step
     st.optimizer.step = lambda: grads.update(
@@ -64,7 +65,8 @@ def main() -> None:
     runs = []
     for size in args.sizes:
         ttrain.SIZE = size
-        ref = ttrain.ref.__wrapped__()
+        ref = getattr(ttrain.ref, "_fixture_function", None) or ttrain.ref.__wrapped__  # pytest 8.4+ or older
+        ref = ref()
         runs.append((size, ref, _grads(ref, torch.float32, True), _grads(ref, torch.float32, False)))
     torch.Tensor.float = lambda self: self
     torch.set_default_dtype(torch.float64)

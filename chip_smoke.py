@@ -119,6 +119,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      peak memory, finite losses, the loss of a fixed-draw forward lower after
      6 steps on one repeated batch); two options steps at 2x32x32 on the card
      against the CPU within phase 5's 1e-3.
+ 12. the inference command lines and the server: kernel C at (8,16,16,2) and
+     (8,16,16,1) (``--save_guided``, ``--save_anchors``), D and
+     ``attention_bwd`` at head width 4 ((8,256,32), 8 heads, without and with a
+     key mask, the backward from the saved statistics), each against its
+     plain version, twice bitwise, timed beside its bound and SDPA;
+     ``cli.infer.infer`` at full width on ``.pkl`` weights written from a
+     seeded port model, 16 in-memory 256x256 images at batch 8, in bf16 and
+     f32 with ``--save_guided --save_anchors``, bf16 ``--diverse``, bf16
+     ``--no_resize`` on a ragged 300x452 image, f32 ``--d_model 32`` (PNG
+     count, names and shapes read back with ``read_png``, launches per
+     forward, images/s with the writes); ``cli.infer_spixel.infer_spixel`` on
+     4 images (B, A, F, C once an image); the HTTP server (``serve.start``,
+     bf16, uint8 wire, ``--warmup 1,8``, ``--max_batch 56``) under 1, 8 and
+     32 concurrent clients (images/s, p50/p99 latency, batches, each answer
+     within 2 levels of ``colorize_batch`` replayed with the batch's draws),
+     ``/healthz``, 413 above the body cap, 429 with ``--max_queue 1``.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -279,8 +295,9 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
     """Registers, static shared memory and spills of every kernel instance, as
     ``nvcc -Xptxas -v`` printed them, and the dynamic shared memory the
     attention kernels' launches ask for at T = ``t``. The head-width-8
-    instances of the two attention kernels (the main path's) must not spill and
-    must fit 128 registers."""
+    instances of the two attention kernels (the main path's) and the
+    head-width-4 ones (``--d_model 32``), which share their block shape, must
+    not spill and must fit 128 registers."""
     from disentangledcolorization_tpu_torch.ops import attention
 
     seen = set()
@@ -301,7 +318,7 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
                 label = f"{inst.group(1)}<hd={hd}, keep-mask={keep}>"
                 kv, q_do = attention._smem_bytes(t, hd, keep)
                 dynamic = f", {q_do if inst.group(1).endswith('dkv') else kv} bytes dynamic smem at T={t}"
-                if hd == 8 and (max(spills) > 0 or regs > 128):
+                if hd <= 8 and (max(spills) > 0 or regs > 128):
                     raise AssertionError(f"{label}: {regs} registers, spills {spills}")
             log(f"  ptxas {kname}: {label}: {regs} registers, {static.group(1) if static else 0} bytes static smem{dynamic}, "
                 f"{spills[0]} bytes spill stores, {spills[1]} bytes spill loads")
@@ -2243,9 +2260,10 @@ def captured_attention(model, grays):
     return seen[0]
 
 
-def kernel_case(name, shape, fn, plain, out, ref, err, bytes_moved, flops, device, tol):
+def kernel_case(name, shape, fn, plain, out, ref, err, bytes_moved, flops, device, tol, library=None):
     """One kernel at an option's shape against its plain version: bitwise
-    equal to itself, within ``tol``, timed with its bound."""
+    equal to itself, within ``tol``, timed with its bound (and, where given,
+    beside one PyTorch call that computes the same function)."""
     again = fn()
     same = all(torch.equal(a, b) for a, b in zip(out, again) if a is not None) if isinstance(out, (tuple, list)) \
         else torch.equal(out, again)
@@ -2253,9 +2271,12 @@ def kernel_case(name, shape, fn, plain, out, ref, err, bytes_moved, flops, devic
         raise AssertionError(f"{name} at {shape}: error {err} (tolerance {tol}), or two runs not bitwise equal")
     b_ms, b_by = bound(bytes_moved, flops)
     row = dict(name=name, shape=shape, max_err=err, tolerance=tol, ms=time_ms(fn, device), device_ms=device_ms(fn)[0],
-               plain_ms=time_ms(plain, device), bound_ms=b_ms, bound_by=b_by)
+               plain_ms=time_ms(plain, device), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None if library is None else time_ms(library, device),
+               library_device_ms=None if library is None else device_ms(library)[0])
     log(f"{name} at {shape}: err {err:.3e} (tol {tol}), bitwise twice; ms {row['ms']:.4f}, device {row['device_ms']}, "
-        f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+        f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), library {row['library_ms']} "
+        f"(device {row['library_device_ms']})")
     return row
 
 
@@ -2513,6 +2534,422 @@ def options_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = OPT
     return res
 
 
+# phase 12: the inference command lines and the server. The command line's
+# --save_guided unpools the guided ab once a forward (kernel C at C=2) and
+# --save_anchors the hint mask once an image (C=1), both in f32; the segnet
+# command line pools the ab without counts (A, then F) and unpools it (C)
+SPIXEL_PER_IMAGE = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 0,
+                    "affinity_head[bf16]": 0}
+# the server's answers against colorize_batch replayed on the same batch with
+# the same draws, in levels of 8-bit RGB (the PNG round trip is lossless)
+SERVER_TOL = 2
+
+
+def compare_inference_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int = 16):
+    """Phase 12: kernel C at the command line's new widths, (8,16,16,2) (the
+    guided ab) and (8,16,16,1) (the anchor mask), and D and ``attention_bwd``
+    at head width 4 (``--d_model 32`` over 8 heads: (8,256,32)), without and
+    with a key mask whose first image has every key masked, the backward from
+    the forward's saved statistics; each against its plain version, twice
+    bitwise, timed beside its bound and SDPA."""
+    from disentangledcolorization_tpu_torch.ops import attention, superpixel
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    hc, wc = h // sp_size, w // sp_size
+    rows = []
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    logits = rand(n, h, w, 9)
+    logits[..., 4] = logits[..., 3]  # exact ties in the 9-way max
+    prob = torch.softmax(logits, dim=-1).contiguous()
+    for c in (2, 1):
+        tokens = rand(n, hc, wc, c)
+        fn = lambda t=tokens: superpixel.upfeat(t, prob, sp_size, sp_size)  # noqa: E731
+        plain = lambda t=tokens: superpixel.upfeat_plain(t, prob, sp_size, sp_size)  # noqa: E731
+        out, ref = fn(), plain()
+        rows.append(kernel_case("upfeat", (n, hc, wc, c), fn, plain, out, ref, max_err(out, ref),
+                                nbytes(tokens, prob, out), 2.0 * n * h * w * 9 * c, device, TOLERANCES["upfeat"]))
+    t, d, nhead = 256, 32, 8
+    q, k, v, dout = (rand(n, t, d) for _ in range(4))
+    mask = torch.rand(n, t, generator=g).to(device) < 0.3
+    mask[0] = True
+    flops = 4.0 * n * nhead * t * t * (d // nhead)
+
+    def heads(x, grad=False):
+        x = x.view(n, t, nhead, d // nhead).transpose(1, 2)
+        return x.detach().requires_grad_() if grad else x
+
+    for label, m in (("hd4", None), ("hd4, key mask", mask)):
+        attn_mask = None if m is None else ~m[:, None, None, :]  # SDPA: True attends
+        fwd = lambda m=m: attention._attention(q, k, v, nhead, m, None, 0.0, with_stats=True)  # noqa: E731
+        out, stats = fwd()
+        ref, ref_stats = attention.attention_plain(q, k, v, nhead, m, return_stats=True)
+        rows.append(kernel_case(f"attention ({label})", (n, t, d, nhead), fwd,
+                                lambda m=m: attention.attention_plain(q, k, v, nhead, m), (out, stats),
+                                (ref, ref_stats), max(max_err(out, ref), stats_err(stats, ref_stats)),
+                                nbytes(q, k, v, m, out, stats), flops, device, TOLERANCES["attention"],
+                                library=lambda a=attn_mask: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                                                          attn_mask=a)))
+        bwd = lambda m=m, out=out, stats=stats: attention.attention_bwd(q, k, v, dout, nhead, m, None, 0.0, out, stats)  # noqa: E731
+        grads, ref_grads = bwd(), attention.attention_bwd_plain(q, k, v, dout, nhead, m)
+        lib_in = [heads(x, grad=True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=attn_mask)
+        rows.append(kernel_case(f"attention_bwd ({label})", (n, t, d, nhead), bwd,
+                                lambda m=m: attention.attention_bwd_plain(q, k, v, dout, nhead, m), grads, ref_grads,
+                                max_err(grads, ref_grads), nbytes(q, k, v, dout, out, stats, m, *grads), 2.5 * flops,
+                                device, TOLERANCES["attention_bwd"],
+                                library=lambda o=lib_out, i=lib_in: torch.autograd.grad(o, i, heads(dout),
+                                                                                      retain_graph=True)))
+    return rows
+
+
+def lab_batch(rgb_u8: np.ndarray):
+    """(N, H, W, 3) uint8 RGB -> normalized L (N, H, W, 1) and ab (N, H, W, 2),
+    f32 numpy, by the port's Lab chain: what the command lines' decoders give,
+    made in memory (the card's host has no image decoder)."""
+    from disentangledcolorization_tpu_torch.utils.color import rgb2lab
+
+    lab = rgb2lab(torch.from_numpy(rgb_u8).float() / 255.0)
+    return np.ascontiguousarray(lab[..., :1].numpy()), np.ascontiguousarray(lab[..., 1:].numpy())
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn`` (host work, no device time)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def read_pngs(folder: str) -> dict:
+    from disentangledcolorization_tpu_torch.utils.io import read_png
+
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = read_png(f.read())
+    return out
+
+
+def drive_infer_cli(device, smi: str, batch: int = 8, size: int = 256, n_images: int = 16, ragged=(300, 452)):
+    """Phase 12: ``cli.infer.infer`` (the command line's loop) at full width
+    (6+6 layers, 8 clusters) on ``.pkl`` weights written here from a seeded
+    port model, fed 16 in-memory 256x256 images at ``--batch_size 8``: in bf16
+    and f32 with ``--save_guided --save_anchors``, in bf16 with ``--diverse``,
+    in bf16 with ``--no_resize`` on one ragged 300x452 image, and in f32 with
+    ``--d_model 32`` (attention at head width 4). Each run: the PNGs' count,
+    names and shapes, read back with ``read_png``; launches per forward (as
+    phases 4 and 9, plus kernel C once a forward for the guided ab and once an
+    image for the anchors); images/s end to end, PNG writes through the
+    ``AsyncWriter`` included."""
+    import pickle
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.cli import infer
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.tools.convert import to_jax_variables
+    from disentangledcolorization_tpu_torch.utils import io as io_lib
+    from disentangledcolorization_tpu_torch.utils.config import inference_argparser
+
+    rng = np.random.default_rng(12)
+    grays, colors = lab_batch(rng.integers(0, 256, (n_images, size, size, 3), dtype=np.uint8))
+    names = [f"img{i:02d}.png" for i in range(n_images)]
+    rh, rw = ragged
+    ragged_g, ragged_c = lab_batch(np.pad(rng.integers(0, 256, (1, rh, rw, 3), dtype=np.uint8),
+                                          ((0, 0), (0, -rh % 16), (0, -rw % 16), (0, 0)), mode="edge"))  # bucket 16
+
+    def resized():
+        for s in range(0, n_images, batch):
+            yield grays[s:s + batch], colors[s:s + batch], names[s:s + batch], [(size, size)] * batch
+
+    def ragged_one():
+        yield ragged_g, ragged_c, ["ragged.png"], [ragged]
+
+    plus_outputs = lambda per: {**per, "upfeat": per.get("upfeat", 0) + 1 + batch}  # noqa: E731
+    runs = {  # name: (flags, d_model, batches, forwards, launches per forward, suffixes, image shape)
+        "bf16+guided+anchors": (["--compute_dtype", "bfloat16", "--save_guided", "--save_anchors"], 64, resized,
+                                n_images // batch, plus_outputs(BF16_PER_FORWARD), ["", "-guided", "-anchors"],
+                                (size, size)),
+        "f32+guided+anchors": (["--save_guided", "--save_anchors"], 64, resized, n_images // batch,
+                               plus_outputs(F32_PER_FORWARD), ["", "-guided", "-anchors"], (size, size)),
+        "bf16+diverse": (["--compute_dtype", "bfloat16", "--diverse"], 64, resized, n_images // batch,
+                         BF16_PER_FORWARD, ["-c0", "-c1", "-c2"], (size, size)),
+        "bf16+no_resize+ragged": (["--compute_dtype", "bfloat16", "--no_resize"], 64, ragged_one, 1,
+                                  BF16_PER_FORWARD, [""], tuple(ragged)),
+        "f32+d_model32": (["--d_model", "32"], 32, resized, n_images // batch, F32_PER_FORWARD, [""], (size, size)),
+    }
+    total, res = {}, {"card": smi, "batch": batch, "size": size, "images": n_images, "tf32": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        pkls = {}
+        for d_model in (64, 32):
+            torch.manual_seed(130)
+            sd = AnchorColorProb(n_clusters=8, sn_folded=True, d_model=d_model).state_dict()
+            pkls[d_model] = os.path.join(tmp, f"disco_d{d_model}.pkl")
+            with open(pkls[d_model], "wb") as f:
+                pickle.dump(to_jax_variables(sd, sn_folded=True), f)
+        for name, (flags, d_model, batches, forwards, per, suffixes, shape) in runs.items():
+            args = inference_argparser().parse_args(
+                ["--checkpt", pkls[d_model], "--batch_size", str(batch), "--n_clusters", "8", "--device", str(device),
+                 "--save_dir", tmp, "--name", name, *flags])
+            kernels.reset_launch_counts()
+            run = infer.infer(args, batches())
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            bad = {k: counts[k] for k, v in per.items() if counts[k] != v * forwards}
+            if bad or not run["loaded"]:
+                raise AssertionError(f"infer {name}: launches {bad} over {forwards} forwards, expected {per} each; "
+                                     f"weights loaded: {run['loaded']}")
+            out_names = [n.replace(".png", f"{s}.png") for n in (["ragged.png"] if shape != (size, size) else names)
+                         for s in suffixes]
+            pngs = read_pngs(run["save_dir"])
+            if sorted(pngs) != sorted(out_names) or any(p.shape != shape + (3,) for p in pngs.values()):
+                raise AssertionError(f"infer {name}: wrote {sorted(pngs)[:6]}... "
+                                     f"{sorted({p.shape for p in pngs.values()})}, expected {len(out_names)} PNGs "
+                                     f"of {shape}")
+            if all(p.std() == 0 for p in pngs.values()):
+                raise AssertionError(f"infer {name}: every PNG is one flat colour")
+            res[name] = {"images": run["images"], "pngs": len(pngs), "seconds": run["seconds"],
+                         "images_per_s": run["images"] / run["seconds"],
+                         "launches_per_forward": {k: counts[k] // forwards for k in counts if counts[k]}}
+            log(f"infer {name} on {smi}: {run['images']} images, {len(pngs)} PNGs in {run['seconds']:.3f} s "
+                f"({res[name]['images_per_s']:.2f} images/s end to end, PNG writes included); launches per forward "
+                f"{json.dumps(res[name]['launches_per_forward'])}")
+        # the writer's share: one 256x256 PNG as the command line writes it (Lab -> RGB on the host, zlib)
+        lab = np.concatenate([grays[:1], colors[:1]], axis=-1)
+        res["png_write_ms"] = host_ms(lambda: io_lib.save_normLabs_from_batch(lab, tmp, ["one.png"], -1))
+        log(f"infer: one {size}x{size} PNG written in {res['png_write_ms']:.2f} ms (host, median of 5)")
+    return total, res
+
+
+def drive_infer_spixel(device, smi: str, n_images: int = 4, size: int = 256):
+    """Phase 12: ``cli.infer_spixel.infer_spixel`` (the segnet command line's
+    loop) on 4 in-memory 256x256 images, seeded random weights: the ``spix``
+    and ``recon`` PNGs, launches per image (B 1, A 1, F 1, C 1)."""
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.cli import infer_spixel
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    rgb = np.random.default_rng(13).integers(0, 256, (n_images, size, size, 3), dtype=np.uint8)
+    grays, colors = lab_batch(rgb)
+    items = [(f"sp{i}.png", grays[i], colors[i], rgb[i] / 127.5 - 1.0) for i in range(n_images)]
+    args = infer_spixel.spixel_inference_argparser().parse_args(["--device", str(device), "--name", "spixel", "--input_size",
+                                                       str(size)])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the command line writes under ./<name>-s<psize>, as JAX's
+        try:
+            kernels.reset_launch_counts()
+            run = infer_spixel.infer_spixel(args, items)
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            pngs = read_pngs(run["save_dir"])
+        finally:
+            os.chdir(cwd)
+    bad = {k: counts[k] for k, v in SPIXEL_PER_IMAGE.items() if counts[k] != v * n_images}
+    want = sorted(f"sp{i}-{s}.png" for i in range(n_images) for s in ("recon", "spix"))
+    if bad or sorted(pngs) != want or any(p.shape != (size, size, 3) for p in pngs.values()):
+        raise AssertionError(f"infer_spixel: launches {bad} over {n_images} images (expected {SPIXEL_PER_IMAGE} "
+                             f"each), PNGs {sorted(pngs)}")
+    res = {"card": smi, "images": n_images, "seconds": run["seconds"], "images_per_s": n_images / run["seconds"]}
+    log(f"infer_spixel on {smi}: {json.dumps(res)}; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts, res
+
+
+class RecordingColorizer:
+    """The server's ``Colorizer`` as its batcher sees it: each batch's images,
+    the generator's state before it and the answers, so that the batch can
+    be replayed through ``colorize_batch`` with the same k-means draws."""
+
+    def __init__(self, colorizer):
+        self.colorizer, self.bucket, self.device = colorizer, colorizer.bucket, colorizer.device
+        self.batches = []
+
+    def colorize_batch(self, images):
+        state = self.colorizer.generator.get_state()
+        out = self.colorizer.colorize_batch(images)
+        self.batches.append((state, images, out))
+        return out
+
+
+def post(port: int, body: bytes, timeout: float = 120.0):
+    """POST /colorize on 127.0.0.1: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/colorize", data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def drive_server(device, smi: str, size: int = 256, levels=((1, 24), (8, 8), (32, 4)), max_batch: int = 56):
+    """Phase 12: the HTTP server (``serve.start``: the default bf16
+    ``Colorizer`` with the uint8 wire, ``--warmup 1,8``, ``--max_batch 56``)
+    on a free port of 127.0.0.1. 1, 8 and 32 concurrent client threads post
+    256x256 PNGs (24, 8 and 4 each, every image different); sustained
+    images/s, p50/p99 latency, the batches and the largest; launches per
+    batch (as phase 9); each answer equal to what the batcher got from
+    ``colorize_batch`` and within ``SERVER_TOL`` levels of ``colorize_batch``
+    replayed on the same batch with the same draws; ``/healthz``; 413 for a
+    body above the cap; 429 from a server with ``--max_queue 1`` under 32
+    clients. ``colorize_batch`` at batch 8 is timed in the same call."""
+    import hashlib
+    import http.client
+    import threading
+    import urllib.request
+
+    from disentangledcolorization_tpu_torch import serve
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.utils.io import encode_png, read_png
+
+    args = serve.serve_argparser().parse_args(["--device", str(device), "--port", "0", "--warmup", "1,8",
+                                               "--max_batch", str(max_batch)])
+    t0 = time.perf_counter()
+    col, batcher, srv = serve.start(args)
+    start_s = time.perf_counter() - t0
+    rec = RecordingColorizer(col)
+    batcher.colorizer = rec
+    port = srv.server_address[1]
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    rng = np.random.default_rng(14)
+    key = lambda img: hashlib.sha1(img.tobytes()).hexdigest()  # noqa: E731
+    answers, res = {}, {"card": smi, "size": size, "max_batch": max_batch, "wire": args.wire,
+                        "compute_dtype": "bfloat16", "start_with_warmup_s": start_s, "levels": {}}
+    try:
+        kernels.reset_launch_counts()
+        for clients, per_client in levels:
+            imgs = rng.integers(0, 256, (clients, per_client, size, size, 3), dtype=np.uint8)
+            bodies = [[encode_png(im) for im in row] for row in imgs]
+            lat, codes, before = [], [], batcher.stats()
+            barrier = threading.Barrier(clients)
+
+            def client(c):
+                barrier.wait()
+                for j in range(per_client):
+                    t = time.perf_counter()
+                    code, body = post(port, bodies[c][j])
+                    lat.append(time.perf_counter() - t)
+                    codes.append(code)
+                    if code == 200:
+                        answers[key(imgs[c, j])] = read_png(body)
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            wall = time.perf_counter() - t
+            after = batcher.stats()
+            if any(th.is_alive() for th in threads) or codes != [200] * clients * per_client:
+                raise AssertionError(f"server, {clients} clients: codes {sorted(set(codes))}, {len(codes)} answers")
+            lat_ms = np.asarray(lat) * 1e3
+            res["levels"][clients] = {
+                "requests": len(codes), "wall_s": wall, "images_per_s": len(codes) / wall,
+                "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+                "batches": after["batches"] - before["batches"], "max_batch_seen": after["max_batch_seen"],
+            }
+            log(f"server, {clients} concurrent clients on {smi}: {json.dumps(res['levels'][clients])}")
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        n_batches = len(rec.batches)
+        bad = {k: counts[k] for k, v in BF16_PER_FORWARD.items() if counts[k] != v * n_batches}
+        if bad:
+            raise AssertionError(f"server: launches {bad} over {n_batches} batches, expected {BF16_PER_FORWARD} each")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health["status"] != "ok" or health["devices"] != [torch.cuda.get_device_name(0)] \
+                or health["requests"] != len(answers):
+            raise AssertionError(f"/healthz: {health}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.putrequest("POST", "/colorize")
+        conn.putheader("Content-Length", str(args.max_body_bytes + 1))
+        conn.endheaders()
+        conn.send(b"x" * 16)
+        too_large = conn.getresponse()
+        too_large_code = too_large.status
+        conn.close()
+        if too_large_code != 413:
+            raise AssertionError(f"a body above the cap: {too_large_code}, expected 413")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.close()
+        server_thread.join(timeout=30)
+
+    # each answer: what the batcher got, and colorize_batch replayed with the same draws
+    gaps = []
+    for state, images, outs in rec.batches:
+        gen = torch.Generator(device=device)
+        gen.set_state(state)
+        again = col.colorize_batch(images, generator=gen)
+        for img, out, ref in zip(images, outs, again):
+            if not np.array_equal(answers[key(img)], out):
+                raise AssertionError("server: an answer differs from what colorize_batch gave the batcher")
+            gaps.append(int(np.abs(out.astype(int) - ref.astype(int)).max()))
+    if len(gaps) != len(answers) or max(gaps) > SERVER_TOL:
+        raise AssertionError(f"server: {len(gaps)} answers replayed of {len(answers)}, largest gap {max(gaps)} levels")
+    res.update(answers=len(answers), batches=len(rec.batches), largest_gap_levels=max(gaps),
+               health=health, too_large=too_large_code)
+
+    # 429: one request queued at most, 32 clients at once
+    b2 = serve.DynamicBatcher(col, max_batch=max_batch, max_queue=1)
+    srv2 = serve.build_server("127.0.0.1", 0, b2)
+    t2 = threading.Thread(target=srv2.serve_forever, daemon=True)
+    t2.start()
+    try:
+        body = encode_png(rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+        barrier, codes = threading.Barrier(32), []
+
+        def shed():
+            barrier.wait()
+            codes.append(post(srv2.server_address[1], body)[0])
+
+        threads = [threading.Thread(target=shed) for _ in range(32)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        srv2.shutdown()
+        srv2.server_close()
+        b2.close()
+        t2.join(timeout=30)
+    if 429 not in codes or set(codes) - {200, 429} or len(codes) != 32:
+        raise AssertionError(f"--max_queue 1 under 32 clients: codes {codes}")
+    res["max_queue_1"] = {"200": codes.count(200), "429": codes.count(429)}
+
+    # colorize_batch alone at batch 8, in this call, for comparison
+    imgs = list(rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8))
+    col.colorize_batch(imgs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        col.colorize_batch(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    res["colorize_batch_b8_images_per_s"] = 8 * len(times) / sum(times)
+    # the host work of one request outside the batch: decode the body, encode the answer
+    body = encode_png(imgs[0])
+    res["png_decode_ms"] = host_ms(lambda: serve.decode_image(body))
+    res["png_encode_ms"] = host_ms(lambda: encode_png(imgs[0]))
+    res["colorize_batch_b1_ms"] = host_ms(lambda: (col.colorize_batch(imgs[:1]), torch.cuda.synchronize()))
+    log(f"server on {smi}: {json.dumps({k: v for k, v in res.items() if k != 'levels'})}")
+    return counts, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2611,6 +3048,13 @@ def main() -> int:
     paths["options_training"], extras["options_training"] = drive_options_training(device, smi)
     extras["options_training"]["card_vs_cpu"] = options_card_vs_cpu(device)
     mark(11)
+
+    # 12. the inference command lines and the server: C at C=2 and C=1, D and its backward at head width 4
+    extras["inference_kernels"] = compare_inference_kernels(device)
+    paths["infer_cli"], extras["infer_cli"] = drive_infer_cli(device, smi)
+    paths["infer_spixel"], extras["infer_spixel"] = drive_infer_spixel(device, smi)
+    paths["server"], extras["server"] = drive_server(device, smi)
+    mark(12)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}

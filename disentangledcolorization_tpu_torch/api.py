@@ -4,12 +4,13 @@ Counterpart of ``disentangledcolorization_tpu/api.py``:
 
     from disentangledcolorization_tpu_torch.api import Colorizer
     c = Colorizer(device="cuda")                     # seeded random weights
-    c = Colorizer(checkpoint="disco.pth.tar")        # reference checkpoint
+    c = Colorizer(checkpoint="disco-beta.pkl")       # or .pth.tar, or a trainer's run dir
     rgb = c.colorize(gray_or_rgb_uint8_image)        # (H, W, 3) uint8 RGB
     variants = c.colorize(img, diverse=True)         # list of 3 arrays
     rgb = c.colorize(img, hints=(mask, ab))          # interactive hints
     mask = c.anchor_mask(img)                        # where the model puts its anchors
     rgbs = c.colorize_batch([img0, img1, img2])      # one forward
+    c.warmup()                                       # first builds and blocks before a request
 
 The model runs with spectral norm folded into the weights, in bf16 by default
 (``compute_dtype``, the JAX ``Colorizer``'s default; ``models/disco.py`` says
@@ -27,18 +28,15 @@ codec's.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import resolve_device
 from .models import AnchorColorProb
-from .models.layers import hold_compute_copies
-from .tools.convert import fold_spectral_norm
 from .utils.color import lab2rgb, rgb2lab
 
-_NEXT = "is not ported yet: it comes with the next slice of the port (see ROADMAP.md)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -63,46 +61,50 @@ class Colorizer:
         data_parallel: bool = False,
         wire_dtype: str = "float32",
     ):
-        """``state_dict``: port-layout weights for a folded model (as
-        ``tools.convert.from_jax_variables(..., sn_folded=True)`` makes).
-        ``checkpoint``: a reference torch checkpoint (``.pth``/``.pth.tar``);
-        its spectral norm is folded at load. Neither: random weights from
-        ``seed``. ``device`` defaults to the card and raises without one.
-        ``compute_dtype``: "bfloat16" or "float32"; the parameters stay f32,
-        and bf16 serving holds one bf16 copy of the layers' weights, made here.
-        ``random_hint``: random anchors instead of k-means; ``hint2regress``:
-        the model that takes the anchors' ab (both as in the JAX package)."""
+        """``checkpoint``: a ``.pkl`` of flax variables, a reference torch
+        checkpoint (``.pth``/``.pth.tar``) or a run directory of the port's
+        trainers, read by ``cli/infer.py::load_variables`` as the JAX
+        ``Colorizer`` reads it; spectral norm is folded at load. A path that
+        does not exist raises ``FileNotFoundError`` (the JAX package warns and
+        serves random weights), a JAX trainer's Orbax directory ``ValueError``.
+        ``state_dict``: port-layout weights for a folded model (as
+        ``tools.convert.from_jax_variables(..., sn_folded=True)`` makes), in
+        place of a checkpoint. Neither: random weights from ``seed``
+        (``loaded`` says which). ``device`` defaults to the card and raises
+        without one. ``compute_dtype``: "bfloat16" or "float32"; the
+        parameters stay f32, and bf16 serving holds one bf16 copy of the
+        layers' weights, made here. ``random_hint``: random anchors instead of
+        k-means; ``hint2regress``: the model that takes the anchors' ab (both
+        as in the JAX package). ``data_parallel=True`` is accepted on one
+        card, where the JAX ``Colorizer`` ignores it too, and raises with more
+        than one visible card (ROADMAP.md, queue 1, item 4). ``quantize``
+        other than "none" raises (item 5)."""
+        from .cli.infer import load_variables, to_serving
+
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}")
         if wire_dtype not in ("float32", "uint8"):
             raise ValueError(f"wire_dtype={wire_dtype!r}")
         if quantize != "none":
-            raise NotImplementedError(f"quantize={quantize!r} {_NEXT}")
-        if data_parallel:
-            raise NotImplementedError(f"data_parallel=True {_NEXT}")
+            raise NotImplementedError(f"quantize={quantize!r} is not ported yet: ROADMAP.md, queue 1, item 5 (int8)")
         self.wire_uint8 = wire_dtype == "uint8"
         self.device = resolve_device(device)
+        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError(f"data_parallel=True over {torch.cuda.device_count()} cards is not ported yet: "
+                                      "ROADMAP.md, queue 1, item 4 (DDP)")
         self.sp_size = sp_size
         self.bucket = max(bucket, sp_size)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = AnchorColorProb(sp_size=sp_size, n_clusters=n_clusters, sn_folded=True,
-                                    compute_dtype=_DTYPES[compute_dtype], random_hint=random_hint,
-                                    hint2regress=hint2regress)
-        if state_dict is None and checkpoint:
-            data = torch.load(checkpoint, map_location="cpu", weights_only=True)
-            sd = data.get("state_dict", data)
-            sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-            state_dict = fold_spectral_norm(sd)
+
+        def build():
+            return AnchorColorProb(sp_size=sp_size, n_clusters=n_clusters, sn_folded=True,
+                                   compute_dtype=_DTYPES[compute_dtype], random_hint=random_hint,
+                                   hint2regress=hint2regress)
+
+        model, self.loaded = load_variables("" if state_dict is not None else checkpoint, build, seed)
         if state_dict is not None:
             model.load_state_dict(state_dict)
-        model = model.to(self.device).eval()
-        if self.device.type == "cuda":
-            # NHWC activations: the kernels read the convs' outputs without a copy
-            model = model.to(memory_format=torch.channels_last)
-        if model.compute_dtype != torch.float32:
-            hold_compute_copies(model, model.compute_dtype)
-        self.model = model
+            self.loaded = True
+        self.model = to_serving(model, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _host_image(self, image: np.ndarray):
@@ -212,3 +214,16 @@ class Colorizer:
         gray, _ = self._prep(image)
         mask = self.model(gray, generator=generator or self.generator)["hint_mask"]
         return mask[0, ..., 0].cpu().numpy()
+
+    def warmup(self, size: int = 256, buckets: Sequence[int] = (1, 8, 56)) -> None:
+        """Run ``colorize_batch`` once at each batch bucket on a black
+        ``size`` x ``size`` image, so that the kernels' first builds, cuDNN's
+        algorithm choice and the allocator's first blocks fall before the
+        first request (JAX ``api.py:292-297`` compiles its graphs here). Its
+        own generator, so the serving draws stay as they were."""
+        dummy = np.zeros((size, size), np.uint8)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        for b in buckets:
+            self.colorize_batch([dummy] * b, generator=gen)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

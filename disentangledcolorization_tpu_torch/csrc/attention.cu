@@ -209,6 +209,7 @@ extern "C" int disco_attention(const float* q, const float* k, const float* v, c
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d / nhead) {
+    case 4: return launch_hd<4>(q, k, v, mask, keep, out, stats, n, t, d, nhead, inv_keep, s);
     case 8: return launch_hd<8>(q, k, v, mask, keep, out, stats, n, t, d, nhead, inv_keep, s);
     case 16: return launch_hd<16>(q, k, v, mask, keep, out, stats, n, t, d, nhead, inv_keep, s);
     case 32: return launch_hd<32>(q, k, v, mask, keep, out, stats, n, t, d, nhead, inv_keep, s);

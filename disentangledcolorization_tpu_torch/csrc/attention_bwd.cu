@@ -320,6 +320,7 @@ extern "C" int disco_attention_bwd(const float* q, const float* k, const float* 
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d / nhead) {
+    case 4: return launch_hd<4>(q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, t, d, nhead, inv_keep, s);
     case 8: return launch_hd<8>(q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, t, d, nhead, inv_keep, s);
     case 16: return launch_hd<16>(q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, t, d, nhead, inv_keep, s);
     case 32: return launch_hd<32>(q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, t, d, nhead, inv_keep, s);

@@ -14,7 +14,9 @@
 // Shape::rows = 2 rows of the tile (row and row + 32) and every K, V, Q or dO
 // row it loads from shared memory serves both; a block then has 128 threads.
 // Wider heads keep one row a thread (their row vectors fill the registers) and
-// 256 threads.
+// 256 threads. Head width 4 (d_model 32 over 8 heads) takes hd = 8's shape: a
+// row is one 16-byte load, every loop below runs with HD / 4 = 1, and the
+// padded layout keeps rows 16-byte aligned (4 j + 8 floats per 16 rows).
 //
 // Key split in kernel D and in the dq phase. Per step, lane `ln` takes the
 // kGroup = 16 consecutive keys [j0, j0 + 16), j0 = step * 64 + ln * 16, so one

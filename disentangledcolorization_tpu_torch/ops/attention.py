@@ -22,7 +22,7 @@ import torch
 
 from .kernels import check_cuda, launch
 
-_HEAD_WIDTHS = (8, 16, 32, 64)
+_HEAD_WIDTHS = (4, 8, 16, 32, 64)
 _MAX_SMEM = 227 * 1024
 
 

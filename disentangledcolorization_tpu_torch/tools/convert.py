@@ -1,9 +1,11 @@
-"""JAX package flax variables -> this package's ``state_dict``.
+"""JAX package flax variables <-> this package's ``state_dict``.
 
-The inverse of the layout transforms in
+:func:`from_jax_variables` is the inverse of the layout transforms in
 ``disentangledcolorization_tpu/tools/convert_torch.py`` (which maps a reference
-torch ``state_dict`` onto the flax tree). The flax variables come as nested
-dicts of numpy arrays:
+torch ``state_dict`` onto the flax tree); :func:`to_jax_variables` applies
+them, so that a port model's weights can be written as the ``.pkl`` the JAX
+package's loaders read. The flax variables come as nested dicts of numpy
+arrays:
 
   HWIO conv kernel (kh, kw, I, O)            -> Conv2d weight (O, I, kh, kw)
   pre-flipped deconv kernel (kh, kw, I, O)   -> ConvTranspose2d weight (I, O, kh, kw), unflipped
@@ -63,6 +65,15 @@ class _StateDictBuilder:
                 return False
             tree = tree[p]
         return True
+
+    def n_layers(self, tprefix: str, path: tuple) -> int:
+        return sum(1 for k in self.params[path[-1]] if k.startswith("layer"))
+
+    def has(self, tprefix: str, path: tuple) -> bool:
+        return self._has(self.params, path)
+
+    def copy(self, tkey: str, path: tuple):
+        self.sd[tkey] = self._get(self.params, path)
 
     def _bias(self, tkey: str, path: tuple):
         if self._has(self.params, path + ("bias",)):
@@ -145,11 +156,10 @@ def _colorprobnet(b: _StateDictBuilder, tprefix: str, path: tuple):
 
 
 def _encoder(b: _StateDictBuilder, tprefix: str, path: tuple):
-    n_layers = sum(1 for k in b.params[path[-1]] if k.startswith("layer"))
-    for i in range(n_layers):
+    for i in range(b.n_layers(tprefix, path)):
         tl, pl = f"{tprefix}layers.{i}.", path + (f"layer{i}",)
-        b.sd[tl + "self_attn.in_proj_weight"] = b._get(b.params, pl + ("self_attn", "in_proj_weight"))
-        b.sd[tl + "self_attn.in_proj_bias"] = b._get(b.params, pl + ("self_attn", "in_proj_bias"))
+        b.copy(tl + "self_attn.in_proj_weight", pl + ("self_attn", "in_proj_weight"))
+        b.copy(tl + "self_attn.in_proj_bias", pl + ("self_attn", "in_proj_bias"))
         b.linear(tl + "self_attn.out_proj", pl + ("self_attn", "out_proj"))
         b.linear(tl + "linear1", pl + ("linear1",))
         b.linear(tl + "linear2", pl + ("linear2",))
@@ -192,10 +202,10 @@ def _anchor_color_prob(b: _StateDictBuilder) -> None:
     _encoder(b, "hintpath.", ("hintpath",))
     for name in ("mid_word_prj", "trg_word_emb", "trg_word_prj"):
         b.linear(name, (name,))
-    if b._has(b.params, ("pos_enc",)):  # flax nn.Embed tables (rows, features), as torch's
+    if b.has("pos_enc.", ("pos_enc",)):  # flax nn.Embed tables (rows, features), as torch's
         for table in ("row_embed", "col_embed"):
-            b.sd[f"pos_enc.{table}.weight"] = b._get(b.params, ("pos_enc", table, "embedding"))
-    if b._has(b.params, ("enhanceNet",)):
+            b.copy(f"pos_enc.{table}.weight", ("pos_enc", table, "embedding"))
+    if b.has("enhanceNet.", ("enhanceNet",)):
         _hourglass(b, "enhanceNet.", ("enhanceNet",))
 
 
@@ -218,6 +228,89 @@ def from_jax_variables(variables: dict, sn_folded: bool) -> dict[str, torch.Tens
     widths are read from the tree.
     """
     return _build(_StateDictBuilder(variables, sn_folded))
+
+
+class _TreeBuilder:
+    """Reads torch keys and writes flax leaves by path: the converter's
+    transforms, with the method names of :class:`_StateDictBuilder`, so that
+    the same walkers drive both directions."""
+
+    def __init__(self, state_dict: dict, sn_folded: bool):
+        self.src = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                    for k, v in state_dict.items()}
+        self.sn_folded = sn_folded
+        self.params: dict = {}
+        self.stats: dict = {}
+        self.spectral: dict = {}
+
+    def _put(self, tree: dict, path: tuple, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+    def n_layers(self, tprefix: str, path: tuple) -> int:
+        return len({k[len(tprefix) + len("layers."):].split(".")[0] for k in self.src if k.startswith(tprefix + "layers.")})
+
+    def has(self, tprefix: str, path: tuple) -> bool:
+        return any(k.startswith(tprefix) for k in self.src)
+
+    def copy(self, tkey: str, path: tuple):
+        self._put(self.params, path, self.src[tkey])
+
+    def _bias(self, tkey: str, path: tuple):
+        if f"{tkey}.bias" in self.src:
+            self._put(self.params, path + ("bias",), self.src[f"{tkey}.bias"])
+
+    def conv(self, tkey: str, path: tuple):
+        self.raw_conv(tkey, path + ("conv",))
+
+    def raw_conv(self, tkey: str, path: tuple):
+        self._put(self.params, path + ("kernel",), np.transpose(self.src[f"{tkey}.weight"], (2, 3, 1, 0)))
+        self._bias(tkey, path)
+
+    def deconv(self, tkey: str, path: tuple):
+        w = self.src[f"{tkey}.weight"][:, :, ::-1, ::-1]
+        self._put(self.params, path + ("kernel",), np.transpose(w, (2, 3, 0, 1)))
+        self._bias(tkey, path)
+
+    def snconv(self, tkey: str, path: tuple):
+        self._put(self.params, path + ("kernel",), np.transpose(self.src[f"{tkey}.weight_orig"], (2, 3, 1, 0)))
+        self._bias(tkey, path)
+        if not self.sn_folded:
+            self._put(self.spectral, path + ("u",), self.src[f"{tkey}.weight_u"])
+
+    def bn(self, tkey: str, path: tuple):
+        self._put(self.params, path + ("bn", "scale"), self.src[f"{tkey}.weight"])
+        self._put(self.params, path + ("bn", "bias"), self.src[f"{tkey}.bias"])
+        self._put(self.stats, path + ("bn", "mean"), self.src[f"{tkey}.running_mean"])
+        self._put(self.stats, path + ("bn", "var"), self.src[f"{tkey}.running_var"])
+
+    def linear(self, tkey: str, path: tuple):
+        self._put(self.params, path + ("kernel",), self.src[f"{tkey}.weight"].T)
+        self._bias(tkey, path)
+
+    def layernorm(self, tkey: str, path: tuple):
+        self._put(self.params, path + ("scale",), self.src[f"{tkey}.weight"])
+        self._put(self.params, path + ("bias",), self.src[f"{tkey}.bias"])
+
+    def variables(self) -> dict:
+        out = {"params": self.params, "batch_stats": self.stats}
+        if not self.sn_folded:
+            out["spectral"] = self.spectral
+        return out
+
+
+def to_jax_variables(state_dict: dict, sn_folded: bool) -> dict:
+    """The port's AnchorColorProb ``state_dict`` -> the flax variables of the
+    JAX model built with the same options (nested dicts of f32 numpy arrays:
+    ``params``, ``batch_stats``, and ``spectral`` u when not ``sn_folded``),
+    as ``convert_disco_state_dict`` lays them out. ``sn_folded``: the weights
+    are a folded model's (``weight_orig`` already divided by sigma) and are
+    written as they are. Pickled, it is the ``.pkl`` that
+    ``cli/infer.py::load_variables`` of either package reads."""
+    b = _TreeBuilder(state_dict, sn_folded)
+    _anchor_color_prob(b)
+    return b.variables()
 
 
 def grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:

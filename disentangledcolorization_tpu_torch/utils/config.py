@@ -1,10 +1,12 @@
-"""Command-line flags of both trainers, with the reference's names and aliases.
+"""Command-line flags of the trainers and of the inference command line, with
+the reference's names and aliases.
 
 A copy of ``disentangledcolorization_tpu/utils/config.py``'s
-``spixel_argparser``/``pcolor_argparser`` (every flag, alias, default and
-choice), plus ``--device``: the port's entry points run on the card unless
-``--device cpu`` is given. Flags whose feature is not ported yet are accepted
-here and refused by the trainers (``cli/_common.py::refuse_unported``).
+``spixel_argparser``/``pcolor_argparser``/``inference_argparser`` (every
+flag, alias, default and choice), plus ``--device``: the port's entry points
+run on the card unless ``--device cpu`` is given. Flags whose feature is not
+ported yet are accepted here and refused by the entry points
+(``cli/_common.py::refuse_unported``, ``cli/infer.py``).
 """
 
 from __future__ import annotations
@@ -96,4 +98,52 @@ def pcolor_argparser() -> argparse.ArgumentParser:
                    help="gradient accumulation: split each batch into this many microbatches "
                         "and apply one averaged update (reproduces the reference's 4-GPU "
                         "global-batch-96 recipe on fewer chips)")
+    return p
+
+
+def inference_argparser() -> argparse.ArgumentParser:
+    """Flags of main/colorizer/inference.py:144-162 (names preserved), as the
+    JAX package's ``inference_argparser``, plus ``--device``."""
+    p = argparse.ArgumentParser("disco-torch inference")
+    p.add_argument("--name", type=str, default="test", help="save dir name")
+    p.add_argument("--seed", default=130, type=int)
+    p.add_argument("--psize", default=16, type=int)
+    p.add_argument("--data", type=str, default="./data")
+    p.add_argument("--model", type=str, default="AnchorColorProb")
+    p.add_argument("--checkpt", type=str, default="")
+    p.add_argument("--n_enc", default=6, type=int)
+    p.add_argument("--n_dec", default=6, type=int)
+    p.add_argument("--d_model", default=64, type=int)
+    p.add_argument("--dense_pos", action="store_true", default=False)
+    p.add_argument("--spix_pos", action="store_true", default=False)
+    p.add_argument("--learning_pos", action="store_true", default=False)
+    p.add_argument("--hint2regress", action="store_true", default=False)
+    p.add_argument("--n_clusters", default=8, type=int)
+    p.add_argument("--random_hint", action="store_true", default=False)
+    p.add_argument("--no_resize", action="store_true", default=False)
+    p.add_argument("--diverse", action="store_true", default=False)
+    p.add_argument("--batch_size", default=8, type=int, help="card batch (resize mode)")
+    p.add_argument("--save_anchors", action="store_true", default=False)
+    p.add_argument("--save_guided", action="store_true", default=False,
+                   help="also save the guided (pre-enhancement) colorization "
+                   "(reference inference.py:111-115 computes it; suffix 'guided')")
+    p.add_argument("--save_dir", type=str, default=".",
+                   help="output root (default: cwd, matching reference inference.py:62)")
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--quantize", default="none", choices=["none", "int8", "int8_safe"],
+                   help="int8 post-training quantization: not ported yet (ROADMAP.md, queue 1, item 5); "
+                   "anything but 'none' raises")
+    p.add_argument("--trace_dir", type=str, default="", help="torch.profiler trace output dir")
+    p.add_argument("--prefetch", default=2, type=int,
+                   help="decode-ahead depth: image batches are decoded on a background "
+                   "thread while the device computes, and PNGs are written by an async "
+                   "writer; set 0 for the fully serial reference behavior")
+    p.add_argument("--shard_spatial", action="store_true", default=False,
+                   help="no_resize: shard the image H axis over all devices: not ported yet "
+                   "(ROADMAP.md, queue 1, item 4); raises")
+    p.add_argument("--bucket", default=16, type=int,
+                   help="no_resize: pad H,W up to multiples of this (16 = exact reference "
+                   "semantics; larger values trade extra edge padding for fewer distinct shapes)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default, the card; raises without one) or 'cpu' (the plain versions)")
     return p

@@ -9,6 +9,12 @@ both so that the trainers run on a host without an image library:
   * the PNG writers convert Lab to RGB with the port's own chain
     (``utils/color.py``, on the tensor's device) in place of OpenCV's, and
     write 8-bit PNG files with the standard library (:func:`write_png`).
+
+PNG also goes the other way without an image library: :func:`read_png`
+decodes 8-bit gray, gray + alpha, RGB and RGBA PNGs (non-interlaced, filter
+types 0-4) with ``zlib`` and numpy, and :func:`encode_png` returns a PNG's
+bytes. The server (``serve.py``) answers PNG with them on a host without
+OpenCV.
 """
 
 from __future__ import annotations
@@ -81,18 +87,96 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """An 8-bit PNG of a uint8 (H, W) gray or (H, W, 3) RGB array: one IDAT
-    chunk, every row with filter 0, zlib level 6."""
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels (8-bit gray, RGB, gray + alpha, RGBA)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The bytes of an 8-bit PNG of a uint8 (H, W) gray or (H, W, 3) RGB
+    array: one IDAT chunk, every row with filter 0, zlib level 6."""
     img = np.ascontiguousarray(img, np.uint8)
     h, w = img.shape[:2]
     color_type = {2: 0, 3: 2}[img.ndim]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    return b"".join([
+        _PNG_SIGNATURE,
+        _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)),
+        _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        _png_chunk(b"IEND", b""),
+    ])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """:func:`encode_png` of ``img`` written to ``path``."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_png_chunk(b"IEND", b""))
+        f.write(data)
+
+
+def _unfilter(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """One scanline's bytes without its filter (PNG spec 9.2): None, Sub, Up
+    by numpy; Average and Paeth byte by byte, each byte depending on the one
+    ``bpp`` before it."""
+    if ftype == 0:
+        return row
+    if ftype == 1:
+        return np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+    if ftype == 2:
+        return row + prior
+    if ftype not in (3, 4):
+        raise ValueError(f"PNG: unknown filter type {ftype}")
+    out, up = bytearray(row.tobytes()), prior.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:
+            out[i] = (out[i] + ((a + b) >> 1)) & 0xFF
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            out[i] = (out[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """An 8-bit PNG's pixels as uint8: (H, W) gray, (H, W, 2) gray + alpha,
+    (H, W, 3) RGB or (H, W, 4) RGBA. Raises ``ValueError`` on anything else
+    (another bit depth, a palette, interlacing, a broken stream)."""
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError("not a PNG")
+    pos, header, idat = len(_PNG_SIGNATURE), None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError("PNG: truncated chunk")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise ValueError("PNG: no IHDR or no IDAT chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"PNG: bit depth {depth}, colour type {color_type}, interlace {interlace}: "
+                         "only non-interlaced 8-bit gray, gray + alpha, RGB and RGBA are read")
+    ch = _PNG_CHANNELS[color_type]
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG: {e}") from None
+    stride = w * ch
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG: {raw.size} bytes of image data for {h} rows of {stride}")
+    lines = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prior = out[y] = _unfilter(int(lines[y, 0]), lines[y, 1:], prior, ch)
+    return out.reshape(h, w) if ch == 1 else out.reshape(h, w, ch)
 
 
 def _dump_name(filename_list, i: int, n: int, batch_no: int, suffix) -> str:

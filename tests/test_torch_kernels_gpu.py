@@ -6,7 +6,7 @@ the CPU suite holds the plain versions against the JAX package). On a card:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Shapes here are small and ragged (every channel-vector width, sp=8 and a
-6x10 cell, rectangular grids, views at odd offsets, head widths 8..64, odd
+6x10 cell, rectangular grids, views at odd offsets, head widths 4..64, odd
 pixel counts and K on both sides of kernel E's two kernels, ties between bins,
 kernel B's ragged tiles and channel chunks, kernel G's cells up to rows wider
 than a block);
@@ -694,10 +694,57 @@ def test_attention_with_a_use_mask_mask(cuda, d_model, nhead):
 
 
 def test_head_width_without_a_kernel_raises(cuda):
-    """d_model 32 over 8 heads is head width 4, which kernel D has no instance
-    for: the card raises and names it (the CPU runs it)."""
+    """d_model 48 over 8 heads is head width 6, which kernel D has no instance
+    for: the card raises and names it (the CPU runs it). Head width 4 (d_model
+    32) has one since the inference slice."""
     from disentangledcolorization_tpu_torch.models import AnchorColorProb
 
-    model = AnchorColorProb(n_clusters=2, n_enc_layers=1, d_model=32, d_mlp=128).to(cuda).eval()
-    with pytest.raises(ValueError, match="head width 32/8"):
+    model = AnchorColorProb(n_clusters=2, n_enc_layers=1, d_model=48, d_mlp=192).to(cuda).eval()
+    with pytest.raises(ValueError, match="head width 48/8"):
         model(_rand(cuda, 1, 32, 32, 1))
+
+
+@pytest.mark.parametrize("t", [256, 50])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_head_width_4(cuda, t, masked, rate):
+    """Kernel D and attention_bwd at head width 4 (d_model 32 over 8 heads,
+    the inference command line's ``--d_model 32``): the output, the saved
+    statistics and the three gradients against the plain versions (1e-5,
+    2e-5 for the gradients), the first image's keys all masked, and bitwise
+    equal to themselves."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    n, d, nhead = 2, 32, 8
+    q, k, v, dout = (_rand(cuda, n, t, d, seed=i) for i in range(4))
+    mask = None
+    if masked:
+        mask = _rand(cuda, n, t, seed=4) > 0.5
+        mask[0] = True
+    keep = (_rand(cuda, n, nhead, t, t, seed=5).abs() > 0.1) if rate else None
+    out, stats = attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)
+    ref, ref_stats = attention.attention_plain(q, k, v, nhead, mask, keep, rate, return_stats=True)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 0], ref_stats[..., 0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 1] / ref_stats[..., 1], torch.ones_like(stats[..., 1]), atol=1e-5, rtol=0)
+    assert torch.equal(out, attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)[0])
+    grads = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats)
+    for a, b in zip(grads, attention.attention_bwd_plain(q, k, v, dout, nhead, mask, keep, rate)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    again = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_upfeat_at_the_inference_outputs_widths(cuda, c):
+    """Kernel C at C=2 (the guided ab of ``--save_guided``) and C=1 (the anchor
+    mask of ``--save_anchors``) at the command line's shapes, against the
+    plain version (1e-5), bitwise equal to itself."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n = 8 if c == 2 else 1
+    tok = _rand(cuda, n, 16, 16, c, seed=c)
+    prob = _tied_prob(cuda, n, 256, 256)
+    out = sp.upfeat(tok, prob, 16, 16)
+    torch.testing.assert_close(out, sp.upfeat_plain(tok, prob, 16, 16), atol=1e-5, rtol=0)
+    assert torch.equal(out, sp.upfeat(tok, prob, 16, 16))

@@ -135,6 +135,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      32 concurrent clients (images/s, p50/p99 latency, batches, each answer
      within 2 levels of ``colorize_batch`` replayed with the batch's draws),
      ``/healthz``, 413 above the body cap, 429 with ``--max_queue 1``.
+ 13. the quality pipeline: 32 structured 256x256 ground-truth PNGs (colour
+     fields with edges and noise) colorized by ``cli.infer.infer`` at full
+     width (bf16, batch 8, a seeded ``.pkl``; launches per forward as phase
+     9) and scored by ``cli.evaluate.main --fid --lpips --is_score --batch 16``
+     on a seeded VGG19 npz, Inception ``.pkl`` and LPIPS ``lin`` npz (PNGs
+     read by ``read_png``; the metrics launch no kernel), then FID with each
+     of its three extractors; the first 4 pairs on the card against the CPU
+     with TF32 off (PSNR, SSIM, colorfulness, LPIPS, Inception features and
+     logits, FID); SSIM equal with TF32 on and off; TF32's drift of FID and
+     LPIPS; pairs/s end to end and the device ms of SSIM, LPIPS (batch 16)
+     and the Inception (batch 32, 299x299) beside their bounds, FID's host ms.
+     Phase 11 also times SDPA forward and backward with the ``use_mask`` key
+     mask at head widths 8 and 16.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -159,6 +172,7 @@ import torch.nn.functional as F
 # published peaks of one H100 SXM at its full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 TOLERANCES = {
     # f32 sums of up to 256 products in another order than the plain einsum;
@@ -2286,7 +2300,8 @@ def compare_option_kernels(device, n: int = 8, batch: int = 24, h: int = 256, w:
     bf16 serving at batch 8, f32 training at batch 24), C at 3N (diverse),
     C=128 (d_model 128) and C=130 (pooling's feature gradient under
     spix_pos), D and its backward on a mask that ``use_mask`` made in a real
-    forward (one image's keys then all masked) at head widths 8 and 16."""
+    forward (one image's keys then all masked) at head widths 8 and 16, each
+    pair timed beside SDPA forward and backward with the same key mask."""
     from disentangledcolorization_tpu_torch.ops import attention, superpixel
 
     g = torch.Generator(device="cpu").manual_seed(11)
@@ -2337,16 +2352,28 @@ def compare_option_kernels(device, n: int = 8, batch: int = 24, h: int = 256, w:
         out, stats = fwd()
         ref, ref_stats = attention.attention_plain(q, k, v, 8, mask, return_stats=True)
         flops = 4.0 * n * 8 * t * t * (d // 8)
+
+        def heads(x, grad=False, t=t, d=d):
+            x = x.reshape(n, t, 8, d // 8).transpose(1, 2)
+            return x.detach().requires_grad_() if grad else x
+
+        attn_mask = ~mask[:, None, None, :]  # SDPA: True attends; the same key mask
         rows.append(kernel_case(f"attention ({label}, use_mask)", (n, t, d, 8), fwd,
                                 lambda: attention.attention_plain(q, k, v, 8, mask), (out, stats), (ref, ref_stats),
                                 max(max_err(out, ref), stats_err(stats, ref_stats)), nbytes(q, k, v, mask, out, stats),
-                                flops, device, TOLERANCES["attention"]))
+                                flops, device, TOLERANCES["attention"],
+                                library=lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                                               attn_mask=attn_mask)))
         bwd = lambda: attention.attention_bwd(q, k, v, dout, 8, mask, None, 0.0, out, stats)  # noqa: E731
         grads, ref_grads = bwd(), attention.attention_bwd_plain(q, k, v, dout, 8, mask)
+        lib_in = [heads(x, grad=True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=attn_mask)
         rows.append(kernel_case(f"attention_bwd ({label}, use_mask)", (n, t, d, 8), bwd,
                                 lambda: attention.attention_bwd_plain(q, k, v, dout, 8, mask), grads, ref_grads,
                                 max_err(grads, ref_grads), nbytes(q, k, v, dout, out, stats, mask, *grads),
-                                2.5 * flops, device, TOLERANCES["attention_bwd"]))
+                                2.5 * flops, device, TOLERANCES["attention_bwd"],
+                                library=lambda o=lib_out, i=lib_in: torch.autograd.grad(o, i, heads(dout),
+                                                                                      retain_graph=True)))
         rows[-1]["masked_share"] = rows[-2]["masked_share"] = masked_share
     return rows
 
@@ -2950,6 +2977,273 @@ def drive_server(device, smi: str, size: int = 256, levels=((1, 24), (8, 8), (32
     return counts, res
 
 
+# phase 13: the quality pipeline. The command line's colorizing runs phase 9's
+# bf16 forward; the metrics run cuDNN convolutions and torch ops only (the JAX
+# package's evaluation reaches no Pallas kernel), so no kernel launches there.
+# Card against CPU on the first 4 pairs, TF32 off: PSNR absolutely in dB,
+# SSIM, colorfulness and LPIPS relative to their size (f32 sums in another
+# order: SSIM's variances cancel, LPIPS sums 5 slices of 16 convs), the
+# Inception features and logits relative to their largest entry (94 convs).
+QUALITY_TOL = {"psnr_db": 1e-4, "ssim": 1e-5, "colorfulness": 1e-5, "lpips": 1e-4, "inception": 1e-4}
+# FID end to end, card against CPU, on 4 pairs: with n < 2048 the covariance
+# has rank n - 1, and the square roots of eigenvalues that are zero but for
+# the features' rounding carry that rounding into the trace. On the CPU, noise
+# of 1e-6 (1e-5) of the largest feature moved such an FID by 8.6e-7 (2.1e-5)
+# of itself; the card's features lie within 1e-4 of the largest
+QUALITY_FID_TOL = 1e-3
+
+
+def quality_ground_truth(n: int, size: int, seed: int = 16) -> np.ndarray:
+    """(n, size, size, 3) uint8 RGB: a smooth colour field (one sinusoid a
+    channel), a 4x4 grid of cells shifted by a random colour each (edges), and
+    a little noise, so SSIM and PSNR are neither 1 nor noise's."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size), indexing="ij")
+    cell = (np.minimum((yy * 4).astype(int), 3), np.minimum((xx * 4).astype(int), 3))
+    out = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        a = rng.uniform(-1, 1, (3, 3))
+        field = 0.5 + 0.25 * np.sin(np.pi * (2 * a[:, 0, None, None] * xx + 2 * a[:, 1, None, None] * yy
+                                              + a[:, 2, None, None]))
+        img = field.transpose(1, 2, 0) + rng.uniform(-0.2, 0.2, (4, 4, 3))[cell] + 0.02 * rng.normal(size=(size, size, 3))
+        out[i] = np.clip(np.round(img * 255), 0, 255).astype(np.uint8)
+    return out
+
+
+def layer_flops(model, *inputs) -> float:
+    """Multiply-adds x 2 of every ``Conv2d`` and ``Linear`` in one forward of ``model``."""
+    total, hooks = [0.0], []
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            total[0] += 2.0 * out.numel() * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        else:
+            total[0] += 2.0 * out.numel() * mod.in_features
+
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def drive_quality_pipeline(device, smi: str, n_images: int = 32, size: int = 256, batch: int = 8, n_cpu: int = 4):
+    """Phase 13: the infer -> evaluate pipeline on the card. 32 structured
+    256x256 ground-truth images written as PNG; ``cli.infer.infer`` colorizes
+    their grays at full width (bf16, batch 8, resize mode, a seeded ``.pkl``;
+    launches per forward as phase 9) into PNGs; ``cli.evaluate.main`` scores
+    that folder against the ground truth with ``--fid --lpips --is_score
+    --batch 16`` on a seeded random VGG19 npz, Inception ``.pkl`` and LPIPS
+    ``lin`` npz (PNGs read by ``read_png``; no kernel launches), then FID once
+    with each of the three extractors. The first 4 pairs on the card against
+    the CPU with TF32 off (``QUALITY_TOL``, FID ``QUALITY_FID_TOL``); SSIM with
+    the process-wide TF32 on equal to SSIM with it off; how far TF32 moves FID
+    and LPIPS; pairs/s end to end, the device ms of SSIM and LPIPS at batch 16
+    and of the Inception at batch 32 (299x299) beside their bounds, FID's host ms."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return _quality_pipeline(device, smi, tmp, n_images, size, batch, n_cpu)
+
+
+def _quality_pipeline(device, smi: str, tmp: str, n_images: int, size: int, batch: int, n_cpu: int):
+    import pickle
+
+    from disentangledcolorization_tpu_torch.cli import evaluate, infer
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.models.inception import load_inception, random_inception_state_dict
+    from disentangledcolorization_tpu_torch.models.vgg import load_vgg19, make_random_vgg19_npz
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.tools.convert import (
+        inception_from_jax_variables,
+        inception_to_jax_variables,
+        to_jax_variables,
+    )
+    from disentangledcolorization_tpu_torch.train import metrics as M
+    from disentangledcolorization_tpu_torch.utils import io as io_lib
+    from disentangledcolorization_tpu_torch.utils.config import inference_argparser
+
+    try:
+        reader = f"OpenCV {io_lib._cv2().__version__}"
+    except ImportError:
+        reader = "read_png"
+    res = {"card": smi, "images": n_images, "size": size, "infer_batch": batch, "eval_batch": 16, "reader": reader}
+    marks = [("setup", time.perf_counter())]
+    gt_u8 = quality_ground_truth(n_images, size)
+    names = [f"img{i:02d}.png" for i in range(n_images)]
+    gt_dir = os.path.join(tmp, "gt")
+    os.makedirs(gt_dir)
+    for img, name in zip(gt_u8, names):
+        io_lib.write_png(os.path.join(gt_dir, name), img)
+    torch.manual_seed(131)
+    disco_pkl = os.path.join(tmp, "disco.pkl")
+    with open(disco_pkl, "wb") as f:
+        pickle.dump(to_jax_variables(AnchorColorProb(n_clusters=8, sn_folded=True).state_dict(), sn_folded=True), f)
+    npz = make_random_vgg19_npz(os.path.join(tmp, "vgg19.npz"), seed=0)
+    inc_vars = inception_to_jax_variables(random_inception_state_dict(1), include_fc=True)
+    inc_pkl = os.path.join(tmp, "inception.pkl")
+    with open(inc_pkl, "wb") as f:
+        pickle.dump(inc_vars, f)
+    lin = os.path.join(tmp, "lin.npz")
+    rng = np.random.default_rng(17)
+    np.savez(lin, **{f"lin{i}": rng.uniform(0, 0.1, c).astype(np.float32)
+                     for i, c in enumerate((64, 128, 256, 512, 512))})
+
+    # colorize: cli.infer's loop on the grays in memory, bf16, batch 8
+    marks.append(("infer", time.perf_counter()))
+    grays, colors = lab_batch(gt_u8)
+    args = inference_argparser().parse_args(
+        ["--checkpt", disco_pkl, "--batch_size", str(batch), "--n_clusters", "8", "--device", str(device),
+         "--compute_dtype", "bfloat16", "--save_dir", tmp, "--name", "quality"])
+    kernels.reset_launch_counts()
+    run = infer.infer(args, ((grays[s:s + batch], colors[s:s + batch], names[s:s + batch], [(size, size)] * batch)
+                             for s in range(0, n_images, batch)))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    forwards = n_images // batch
+    bad = {k: counts[k] for k, v in BF16_PER_FORWARD.items() if counts[k] != v * forwards}
+    if bad or run["images"] != n_images or sorted(os.listdir(run["save_dir"])) != names:
+        raise AssertionError(f"quality: infer launches {bad} over {forwards} forwards, {run['images']} images, "
+                             f"{len(os.listdir(run['save_dir']))} PNGs")
+    pred_dir = run["save_dir"]
+    res["infer_images_per_s"] = run["images"] / run["seconds"]
+
+    # score: cli.evaluate.main on the two folders, on the card
+    marks.append(("evaluate", time.perf_counter()))
+    argv = ["--pred", pred_dir, "--gt", gt_dir, "--fid", "--lpips", "--is_score", "--batch", "16",
+            "--vgg_npz", npz, "--inception_pkl", inc_pkl, "--lpips_lin", lin, "--device", str(device)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = evaluate.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"quality: the metrics launched {dict(kernels.LAUNCHES)}")
+    keys = {"psnr", "ssim", "colorfulness", "n", "lpips", "lpips_extractor", "fid", "extractor", "is_mean",
+            "is_std", "is_extractor", "is_n"}
+    numbers = [result[k] for k in keys if not isinstance(result[k], str)]
+    if set(result) != keys or result["n"] != n_images or result["is_n"] != n_images \
+            or not all(np.isfinite(numbers)) or not -1.0 <= result["ssim"] <= 1.0 or result["lpips"] <= 0 \
+            or result["extractor"] != "inception-v3-pool3" or result["lpips_extractor"] != "lpips-vgg19-calibrated" \
+            or not result["is_extractor"].startswith("inception-v3-torchvision") or result["is_mean"] < 1.0:
+        raise AssertionError(f"quality: cli.evaluate gave {result}")
+    res.update(evaluate=result, evaluate_seconds=seconds, pairs_per_s=n_images / seconds)
+    log(f"quality on {smi}: cli.evaluate --fid --lpips --is_score over {n_images} pairs in {seconds:.3f} s "
+        f"({n_images / seconds:.2f} pairs/s end to end, PNG reads included): {json.dumps(result)}")
+    marks.append(("fid_by_extractor", time.perf_counter()))
+    fids = {}
+    for path in (inc_pkl, npz, None):
+        t0 = time.perf_counter()
+        out = M.fid_from_dirs(pred_dir, gt_dir, 16, path, device)
+        fids[out["extractor"]] = {"fid": out["fid"], "seconds": time.perf_counter() - t0}
+    if sorted(fids) != ["inception-v3-pool3", "randproj-512", "vgg19-slice5"] \
+            or not all(np.isfinite(v["fid"]) and v["fid"] > 0 for v in fids.values()):
+        raise AssertionError(f"quality: FID by extractor {fids}")
+    res["fid_by_extractor"] = fids
+    log(f"quality: FID by extractor {json.dumps(fids)}")
+
+    pred = np.stack([io_lib.load_rgb01(os.path.join(pred_dir, n), size) for n in names])
+    gt = np.stack([io_lib.load_rgb01(os.path.join(gt_dir, n), size) for n in names])
+
+    # card against CPU on the first 4 pairs, TF32 off
+    marks.append(("card_vs_cpu", time.perf_counter()))
+    cpu = torch.device("cpu")
+    sd = inception_from_jax_variables(inc_vars, include_fc=True)
+    side = {}
+    for side_name, dev in (("card", device), ("cpu", cpu)):
+        p, g = (torch.from_numpy(x[:n_cpu]).to(dev) for x in (pred, gt))
+        lp, _ = M.make_lpips(npz, lin, dev)
+        feats_model, logits_model = load_inception(sd, False, dev), load_inception(sd, True, dev)
+        with torch.inference_mode():
+            x299 = M.resize_299(p)
+            side[side_name] = {
+                "psnr": M.psnr(p, g).cpu().numpy(), "ssim": M.ssim(p, g).cpu().numpy(),
+                "colorfulness": M.colorfulness(p).cpu().numpy(), "lpips": lp(p, g).cpu().numpy(),
+                "features": feats_model(x299).cpu().numpy(), "logits": logits_model(x299).cpu().numpy(),
+            }
+        side[side_name]["fid"] = M.fid_from_arrays([pred[:n_cpu]], [gt[:n_cpu]], inc_pkl, dev)["fid"]
+    c, h = side["card"], side["cpu"]
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))  # noqa: E731
+    to_max = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())  # noqa: E731
+    errs = {"psnr_db": float(np.abs(c["psnr"] - h["psnr"]).max()), "ssim": rel(c["ssim"], h["ssim"]),
+            "colorfulness": rel(c["colorfulness"], h["colorfulness"]), "lpips": rel(c["lpips"], h["lpips"]),
+            "inception": max(to_max(c["features"], h["features"]), to_max(c["logits"], h["logits"])),
+            "fid_end_to_end": abs(c["fid"] - h["fid"]) / abs(h["fid"])}
+    # FID from statistics alone is host float64 arithmetic: the same statistics give the same bits
+    extract, _ = M.make_feature_extractor(inc_pkl, device)
+    st_a, st_b = M.FeatureStats(2048), M.FeatureStats(2048)
+    st_a.update(extract(pred[:n_cpu]))
+    st_b.update(extract(gt[:n_cpu]))
+    stats = (*st_a.finalize(), *st_b.finalize())
+    fid_host_s, fid_again = [], []
+    for _ in range(2):  # the host step at 2048 features, timed twice
+        t0 = time.perf_counter()
+        fid_again.append(M.frechet_distance(*stats))
+        fid_host_s.append(time.perf_counter() - t0)
+    same_stats = fid_again[0] == fid_again[1]
+    res["card_vs_cpu"] = {**errs, "fid_card": c["fid"], "fid_cpu": h["fid"], "fid_same_statistics_equal": same_stats,
+                          "fid_of_card_features_again": fid_again[0], "pairs": n_cpu,
+                          "tolerances": {**QUALITY_TOL, "fid_end_to_end": QUALITY_FID_TOL}}
+    log(f"quality card vs CPU (first {n_cpu} pairs, TF32 off): {json.dumps(res['card_vs_cpu'])}")
+    if not same_stats or errs["fid_end_to_end"] > QUALITY_FID_TOL or any(errs[k] > t for k, t in QUALITY_TOL.items()):
+        raise AssertionError(f"quality: card against CPU {errs} (tolerances {QUALITY_TOL}, FID {QUALITY_FID_TOL}); "
+                             f"FID from the same statistics equal: {same_stats}")
+
+    # SSIM under the process-wide TF32; TF32's drift of FID and LPIPS
+    marks.append(("tf32", time.perf_counter()))
+    p_all, g_all = torch.from_numpy(pred).to(device), torch.from_numpy(gt).to(device)
+    halves = lambda x: [x[:n_images // 2], x[n_images // 2:]]  # noqa: E731
+    lp, _ = M.make_lpips(npz, lin, device)
+    by_tf32 = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with torch.inference_mode():
+                by_tf32[tf32] = {"ssim": M.ssim(p_all, g_all), "lpips": float(lp(p_all, g_all).mean())}
+            by_tf32[tf32]["fid"] = M.fid_from_arrays(halves(pred), halves(gt), inc_pkl, device)["fid"]
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    off, on = by_tf32[False], by_tf32[True]
+    if not torch.equal(on["ssim"], off["ssim"]) or not bool(((off["ssim"] >= -1) & (off["ssim"] <= 1)).all()):
+        raise AssertionError(f"quality: SSIM with TF32 on {on['ssim'].tolist()[:4]}..., off {off['ssim'].tolist()[:4]}...")
+    res["tf32"] = {"ssim_equal": True, "ssim_range": [float(off["ssim"].min()), float(off["ssim"].max())],
+                   "lpips_off": off["lpips"], "lpips_on": on["lpips"],
+                   "lpips_rel_drift": abs(on["lpips"] - off["lpips"]) / off["lpips"], "fid_off": off["fid"],
+                   "fid_on": on["fid"], "fid_rel_drift": abs(on["fid"] - off["fid"]) / off["fid"]}
+    log(f"quality, TF32 on against off ({n_images} pairs): {json.dumps(res['tf32'])}")
+
+    # device times beside their bounds (f32 at 67 TFLOP/s; TF32 at 495)
+    marks.append(("timing", time.perf_counter()))
+    p16, g16 = p_all[:16], g_all[:16]
+    inc = load_inception(sd, False, device)
+    x32 = M.resize_299(p_all)
+    ssim_flops = 2.0 * 16 * 5 * 3 * (size - 10) ** 2 * 121  # five maps of 3 channels, 11x11 taps, VALID
+    vgg_flops = 2 * layer_flops(load_vgg19(npz, "lpips", device), p16)  # two images a pair
+    inc_flops = layer_flops(inc, x32)
+    timing = {}
+    for label, fn, flops, bytes_moved, iters in (
+            ("ssim_b16", lambda: M.ssim(p16, g16), ssim_flops, nbytes(p16, g16), 20),
+            ("lpips_b16", lambda: lp(p16, g16), vgg_flops, nbytes(p16, g16), 5),
+            ("inception_b32_299", lambda: inc(x32), inc_flops, nbytes(x32) + 32 * 2048 * 4, 10)):
+        with torch.inference_mode():
+            ms = time_ms(fn, device, warmup=2, iters=iters)
+            dev_ms = device_ms(fn, iters=iters)[0]
+        b_ms, b_by = bound(bytes_moved, flops)
+        timing[label] = {"ms": ms, "device_ms": dev_ms, "gflop": flops / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_tf32_ms": flops / TF32_FLOPS_PER_S * 1e3}
+    timing["fid_host_ms_2048"] = [x * 1e3 for x in fid_host_s]
+    res["timing"] = timing
+    res["section_seconds"] = {k: b - a for (k, a), (_, b) in zip(marks, marks[1:] + [("end", time.perf_counter())])}
+    log(f"quality timings on {smi}: {json.dumps(timing)}; reader {reader}; phase seconds "
+        f"{json.dumps(res['section_seconds'])}")
+    return counts, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3055,6 +3349,10 @@ def main() -> int:
     paths["infer_spixel"], extras["infer_spixel"] = drive_infer_spixel(device, smi)
     paths["server"], extras["server"] = drive_server(device, smi)
     mark(12)
+
+    # 13. the quality pipeline: cli.infer colorizes a folder, cli.evaluate scores it; card against CPU
+    paths["quality_pipeline"], extras["quality"] = drive_quality_pipeline(device, smi)
+    mark(13)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}

@@ -97,31 +97,42 @@ def load_vgg19(path: str | None = None, feat_type: str = "liu", device=None) -> 
     """A frozen ``VGG19Features`` with the weights of the torchvision-layout
     npz at ``path`` (else the JAX loader's other candidate paths), on
     ``device`` (channels_last on CUDA); None when no candidate exists."""
-    from .. import resolve_device
-
     for p in _candidates(path):
         if p and os.path.exists(p):
-            raw = np.load(p)
-            model = VGG19Features(feat_type)
-            model.load_state_dict({k: torch.from_numpy(np.asarray(raw[k])) for k in model.state_dict()})
-            dev = resolve_device(device)
-            model = model.to(dev).eval()
-            if dev.type == "cuda":
-                model = model.to(memory_format=torch.channels_last)
-            return model
+            return vgg19_from_arrays(np.load(p), feat_type, device)
     return None
+
+
+def vgg19_from_arrays(raw, feat_type: str = "liu", device=None) -> VGG19Features:
+    """A frozen ``VGG19Features`` holding the torchvision-layout arrays
+    ``raw[features.<i>.weight|bias]``, on ``device`` (channels_last on CUDA)."""
+    from .. import resolve_device
+
+    model = VGG19Features(feat_type)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(raw[k])) for k in model.state_dict()})
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
 
 
 def make_random_vgg19_npz(path: str, seed: int = 0) -> str:
     """Write a frozen random-init VGG19 ``features.*`` npz (torchvision layout):
     kaiming-normal fan-in weights, zero biases, from ``numpy.random.default_rng(seed)``;
     the same arrays as ``tools/make_random_vgg.py --seed``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **random_vgg19_arrays(seed))
+    return path
+
+
+def random_vgg19_arrays(seed: int = 0) -> dict[str, np.ndarray]:
+    """The arrays of :func:`make_random_vgg19_npz`: kaiming-normal fan-in
+    weights and zero biases, from ``numpy.random.default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     arrays = {}
     for idx, cin, c in _conv_indices():
         std = float(np.sqrt(2.0 / (cin * 3 * 3)))
         arrays[f"features.{idx}.weight"] = rng.normal(0.0, std, size=(c, cin, 3, 3)).astype(np.float32)
         arrays[f"features.{idx}.bias"] = np.zeros((c,), np.float32)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **arrays)
-    return path
+    return arrays

@@ -22,6 +22,9 @@ initialisation gives it, and ``weight_u`` is the ``spectral`` u.
 way: every transform above is a permutation, so it carries gradients too.
 :func:`spixel_from_jax_variables` and :func:`spixel_grads_from_jax` do both
 for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys).
+:func:`inception_from_jax_variables` and :func:`inception_to_jax_variables`
+bridge ``InceptionV3Features`` (torchvision's ``inception_v3`` keys) both ways,
+the second as ``convert_inception_torchvision`` lays the tree out.
 """
 
 from __future__ import annotations
@@ -369,3 +372,72 @@ def fold_spectral_norm(state_dict: dict) -> dict:
             sigma = (u * (w.reshape(w.shape[0], -1) * v).sum(-1)).sum()
             out[k] = w / sigma
     return out
+
+
+def inception_from_jax_variables(variables: dict, include_fc: bool = False) -> dict[str, torch.Tensor]:
+    """``InceptionV3Features`` flax variables (``params``, ``batch_stats``) ->
+    the port's ``state_dict``: ``<module>/conv/kernel`` (HWIO) ->
+    ``<module>.conv.weight`` (OIHW), ``bn/scale``/``bias`` -> ``bn.weight``/
+    ``bias``, ``batch_stats`` mean/var -> ``running_mean``/``running_var``
+    (``num_batches_tracked`` 0), and with ``include_fc`` the ``fc`` Dense
+    kernel transposed to ``fc.weight``. A tree that also holds ``fc`` converts
+    without it unless ``include_fc``."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+
+    def walk(params: dict, stats: dict, prefix: str):
+        for name, node in params.items():
+            path = prefix + name
+            if name == "conv":
+                sd[path + ".weight"] = t(_conv_w(np.asarray(node["kernel"])))
+            elif name == "bn":
+                sd[path + ".weight"], sd[path + ".bias"] = t(node["scale"]), t(node["bias"])
+                sd[path + ".running_mean"], sd[path + ".running_var"] = t(stats[name]["mean"]), t(stats[name]["var"])
+                sd[path + ".num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+            elif name == "fc" and not prefix:
+                if include_fc:
+                    sd["fc.weight"], sd["fc.bias"] = t(np.asarray(node["kernel"]).T), t(node["bias"])
+            else:
+                walk(node, stats.get(name, {}), path + ".")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
+    if include_fc and "fc.weight" not in sd:
+        raise KeyError("include_fc: the variables hold no fc head (convert with include_fc=True)")
+    return sd
+
+
+def inception_to_jax_variables(state_dict: dict, include_fc: bool = False) -> dict:
+    """The inverse of :func:`inception_from_jax_variables`, in numpy: a
+    torchvision-keyed InceptionV3 ``state_dict`` -> flax variables, as the
+    JAX package's ``convert_inception_torchvision`` builds them (``AuxLogits``
+    and ``num_batches_tracked`` dropped, ``fc`` only with ``include_fc``).
+    Pickled, it is an ``--inception_pkl`` both packages read."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, dotted: str, leaf):
+        *parents, last = dotted.split(".")
+        for p in parents:
+            tree = tree.setdefault(p, {})
+        tree[last] = np.asarray(leaf, dtype=np.float32)
+
+    for k, v in state_dict.items():
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if k.startswith("AuxLogits.") or k.endswith("num_batches_tracked"):
+            continue
+        if k.startswith("fc."):
+            if include_fc:
+                put(params, "fc.kernel" if k == "fc.weight" else "fc.bias", v.T if k == "fc.weight" else v)
+        elif k.endswith(".conv.weight"):
+            put(params, k[: -len(".weight")] + ".kernel", np.transpose(v, (2, 3, 1, 0)))
+        elif k.endswith(".bn.weight"):
+            put(params, k[: -len(".weight")] + ".scale", v)
+        elif k.endswith(".bn.bias"):
+            put(params, k, v)
+        elif k.endswith(".bn.running_mean"):
+            put(stats, k[: -len(".running_mean")] + ".mean", v)
+        elif k.endswith(".bn.running_var"):
+            put(stats, k[: -len(".running_var")] + ".var", v)
+    return {"params": params, "batch_stats": stats}

@@ -14,7 +14,8 @@ PNG also goes the other way without an image library: :func:`read_png`
 decodes 8-bit gray, gray + alpha, RGB and RGBA PNGs (non-interlaced, filter
 types 0-4) with ``zlib`` and numpy, and :func:`encode_png` returns a PNG's
 bytes. The server (``serve.py``) answers PNG with them on a host without
-OpenCV.
+OpenCV. :func:`load_rgb01` reads an image for the metrics: by OpenCV where
+it is installed, else a PNG already at the metric's size by :func:`read_png`.
 """
 
 from __future__ import annotations
@@ -177,6 +178,38 @@ def read_png(data: bytes) -> np.ndarray:
     for y in range(h):
         prior = out[y] = _unfilter(int(lines[y, 0]), lines[y, 1:], prior, ch)
     return out.reshape(h, w) if ch == 1 else out.reshape(h, w, ch)
+
+
+def load_rgb01(path: str, size: int | None = 256) -> np.ndarray:
+    """An image as float32 (H, W, 3) RGB in [0, 1], resized to (size, size)
+    as the JAX package's metrics read it: ``cv2.imread`` -> ``INTER_AREA``
+    resize -> RGB / 255. Without OpenCV a ``.png`` is decoded by
+    :func:`read_png` (gray widened to RGB, alpha dropped, as ``IMREAD_COLOR``
+    does) and must already be ``size`` square: another size raises
+    ``RuntimeError``, since a resize by another algorithm would give other
+    numbers. ``size=None`` reads the image as it is stored."""
+    try:
+        cv2 = _cv2()
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise FileNotFoundError(path)
+        if size is not None:
+            bgr = cv2.resize(bgr, (size, size), interpolation=cv2.INTER_AREA)
+        return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    if not path.lower().endswith(".png"):
+        raise RuntimeError(f"{path}: without OpenCV only PNG files are read (install opencv-python for other formats)")
+    with open(path, "rb") as f:
+        img = read_png(f.read())
+    if img.ndim == 2:
+        img = img[..., None]
+    img = np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] <= 2 else img[..., :3]
+    if size is not None and img.shape[:2] != (size, size):
+        raise RuntimeError(f"{path} is {img.shape[1]}x{img.shape[0]}, not {size}x{size}: resizing it as the metrics "
+                           "do (INTER_AREA) needs OpenCV; without it, give images at the metric's size")
+    return img.astype(np.float32) / 255.0
 
 
 def _dump_name(filename_list, i: int, n: int, batch_no: int, suffix) -> str:

@@ -748,3 +748,56 @@ def test_upfeat_at_the_inference_outputs_widths(cuda, c):
     out = sp.upfeat(tok, prob, 16, 16)
     torch.testing.assert_close(out, sp.upfeat_plain(tok, prob, 16, 16), atol=1e-5, rtol=0)
     assert torch.equal(out, sp.upfeat(tok, prob, 16, 16))
+
+
+def _edges(dev, n, size, seed):
+    """RGB in [0, 1]: a smooth field, an edge, a little noise (SSIM's variances cancel there)."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, size), torch.linspace(0, 1, size), indexing="ij")
+    a = torch.rand(n, 1, 1, 3, generator=g) * 2 - 1
+    img = 0.5 + 0.25 * torch.sin(3 * a * xx[..., None] + 2 * yy[..., None]) + 0.2 * (xx[..., None] > 0.5)
+    return (img + 0.02 * torch.randn(n, size, size, 3, generator=g)).clamp(0, 1).to(dev)
+
+
+def test_ssim_unchanged_by_tf32(cuda):
+    """SSIM with the process-wide TF32 on equals SSIM with it off (its filter
+    turns cuDNN's TF32 off for itself and restores it), within [-1, 1]."""
+    from disentangledcolorization_tpu_torch.train import metrics as M
+
+    a, b = _edges(cuda, 4, 256, 0), _edges(cuda, 4, 256, 1)
+    off = M.ssim(a, b)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = M.ssim(a, b)
+        assert torch.backends.cudnn.allow_tf32  # restored after the filter
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(on, off) and bool(((off >= -1) & (off <= 1)).all())
+
+
+def test_metrics_card_vs_cpu(cuda, tmp_path):
+    """PSNR (1e-4 dB), SSIM and colorfulness (1e-5 relative), LPIPS on a
+    seeded random VGG19 (1e-4 relative) and the Inception's features and
+    logits (1e-4 of the largest entry) on the card against the CPU, TF32 off,
+    as ``chip_smoke.py`` phase 13 holds them."""
+    from disentangledcolorization_tpu_torch.models.inception import load_inception, random_inception_state_dict
+    from disentangledcolorization_tpu_torch.models.vgg import make_random_vgg19_npz
+    from disentangledcolorization_tpu_torch.train import metrics as M
+
+    npz = make_random_vgg19_npz(str(tmp_path / "vgg19.npz"), seed=0)
+    sd = random_inception_state_dict(1)
+    a, b = _edges(cuda, 2, 64, 2), _edges(cuda, 2, 64, 3)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        x, y = a.to(dev), b.to(dev)
+        lp, _ = M.make_lpips(npz, None, dev)
+        with torch.inference_mode():
+            x299 = M.resize_299(x)
+            out[dev.type] = [M.psnr(x, y), M.ssim(x, y), M.colorfulness(x), lp(x, y),
+                             load_inception(sd, False, dev)(x299), load_inception(sd, True, dev)(x299)]
+    card, cpu = ([t.cpu().double() for t in out[k]] for k in ("cuda", "cpu"))
+    assert float((card[0] - cpu[0]).abs().max()) < 1e-4
+    for i, tol in ((1, 1e-5), (2, 1e-5), (3, 1e-4)):
+        assert float(((card[i] - cpu[i]).abs() / cpu[i].abs()).max()) < tol, i
+    for i in (4, 5):
+        assert float((card[i] - cpu[i]).abs().max() / cpu[i].abs().max()) < 1e-4, i

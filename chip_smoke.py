@@ -148,6 +148,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and the Inception (batch 32, 299x299) beside their bounds, FID's host ms.
      Phase 11 also times SDPA forward and backward with the ``use_mask`` key
      mask at head widths 8 and 16.
+ 14. data parallelism (``parallel/``): (a) two processes (start method spawn,
+     each with a timeout) on the one card over gloo, each one f32 stage-2
+     step at batch 8 (full width, 256x256, dropout 0, weights conditioned on
+     the step's own anchors) and one stage-1 step at batch 64, against one
+     process's steps on the global batches of 16 and 128: losses and every
+     parameter and buffer after the SGD update within 1e-4 of its largest
+     entry, both ranks equal, launches per rank as one process's; each rank's
+     step times and gradient all-reduce times (two processes sharing one
+     card over gloo: not a scaling number); (b) each command line
+     (``cli.*.train``, ``--deterministic``) for 3 steps with ``--coordinator
+     127.0.0.1:<port> --num_processes 1 --process_id 0`` (NCCL, world size
+     1) and without: the states equal bit for bit; the NCCL all-reduce's
+     device ms for the gradient buffer (163 MB, 9 MB) and the step times with
+     and without the group; (c) ``Colorizer(data_parallel=True)`` and
+     ``cli.infer.infer`` over two replicas on the card (``local_devices``
+     patched to [cuda:0, cuda:0]), bf16, batches of 8 and 5, float32 and
+     uint8 wires: equal bit for bit to one model answering each replica's
+     rows in turn; against one replica on the whole batch, the images whose
+     k-means anchors agree within phase 9's bf16 tolerance, the rest counted.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -164,6 +183,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -979,6 +999,36 @@ def center_conv_biases(model, gray, color, gap: float = 1e-3, groups=None, mean:
     for h in hooks:
         h.remove()
     model.load_state_dict({**model.state_dict(), **buffers})
+
+
+@contextlib.contextmanager
+def step_anchors(seed: int, segments, step: int = 0):
+    """Training forwards inside draw their k-means anchors as the train step
+    does: ``segments`` lists (microbatch index, rows) of the batch put end to
+    end (as ``center_conv_biases`` takes it with ``groups``), and each
+    segment's anchors come from ``train/steps.py::step_generators(seed, step,
+    index)``. Conditioning on the step's own anchors keeps the gap in the
+    layers after them (the hintpath, enhanceNet)."""
+    from disentangledcolorization_tpu_torch.models import anchor
+    from disentangledcolorization_tpu_torch.train import steps as steps_lib
+
+    plain = anchor.clustering_hint_mask
+
+    def drawn(feats, n_anchors, spixel_sizes, generator=None):
+        hints, clusters, start = [], [], 0
+        for idx, n in segments:
+            gen = steps_lib.step_generators(feats.device, seed, step, idx)[0]
+            h, c = plain(feats[start:start + n], n_anchors, spixel_sizes[start:start + n], gen)
+            hints.append(h)
+            clusters.append(c)
+            start += n
+        return torch.cat(hints), torch.cat(clusters)
+
+    anchor.clustering_hint_mask = drawn
+    try:
+        yield
+    finally:
+        anchor.clustering_hint_mask = plain
 
 
 def condition_spixelnet(model, gray, gap: float = 1e-4):
@@ -3244,6 +3294,611 @@ def _quality_pipeline(device, smi: str, tmp: str, n_images: int, size: int, batc
     return counts, res
 
 
+# phase 14: data parallelism. (a) Two ranks share the one card over gloo
+# (NCCL refuses two ranks on one device): each takes its half of a global
+# batch, and the step must equal one process's step on the whole batch. The
+# two steps differ by BatchNorm's statistics sums (over ranks, against
+# var_mean in one process) and other sums in other orders, a few f32
+# ulps that 40 layers carry: 1e-4 of each tensor's largest entry, as phase 5
+# holds the card to the CPU at 1e-3; or within DDP_FLOOR_FACTOR times what
+# rounding alone moves the step, whichever is larger: the one-process step
+# against itself with its gray input one ulp up (8.1e-5 of a weight's largest
+# entry at this size, measured on an H100: the two-rank step, 6.1e-5 to
+# 1.18e-4 in four runs, cannot be held below that). cuDNN's default algorithms
+# are not deterministic (PERF.md §7), so both sides run deterministic ones.
+DDP_TOL = 1e-4
+DDP_FLOOR_FACTOR = 3.0
+DDP_RANK_TIMEOUT = 300.0
+# Faults planted in the two-rank stage-2 step, each of which trains another
+# model without an error: the comparison must read each of the first two
+# above its tolerance, or it could not see them (measured on an H100:
+# per-rank statistics 1.23e-2, 131x the one-ulp floor; a sum not divided
+# 2.2e-1). The third is flax's one-pass variance, which the port does not use
+# (models/layers.py says why); its reading is logged (6.9e-5, under the floor).
+DDP_FAULTS = ("per_rank_batchnorm", "gradient_sum_not_mean", "one_pass_variance")
+DDP_MUST_SEE = DDP_FAULTS[:2]
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str):
+    """One of ``DDP_FAULTS`` in this process for the duration: BatchNorm on
+    this rank's statistics alone; gradients summed over the ranks and not
+    divided; the global variance as E[x^2] - E[x]^2 from one all-reduce."""
+    from disentangledcolorization_tpu_torch.models import layers
+    from disentangledcolorization_tpu_torch.parallel import mesh
+
+    saved = layers.mesh, layers._GlobalBatchNorm, mesh.all_reduce_gradients
+    if fault == "per_rank_batchnorm":
+        layers.mesh = types.SimpleNamespace(world_size=lambda: 1)
+    elif fault == "gradient_sum_not_mean":
+        def summed(params, mean=saved[2]):
+            mean(params)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(mesh.world_size())
+        mesh.all_reduce_gradients = summed
+    elif fault == "one_pass_variance":
+        class OnePass(layers._GlobalBatchNorm):
+            @staticmethod
+            def forward(ctx, x, weight, bias, eps):
+                c = x.shape[1]
+                count = x.numel() // c * mesh.world_size()
+                sums = mesh.all_reduce_sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))])) / count
+                mean, var = sums[:c], sums[c:] - sums[:c] * sums[:c]
+                invstd = torch.rsqrt(var + eps)
+                x_hat = (x - mean[:, None, None]) * invstd[:, None, None]
+                ctx.save_for_backward(x_hat, weight, invstd)
+                ctx.count = count
+                ctx.mark_non_differentiable(mean, var)
+                return x_hat * weight[:, None, None] + bias[:, None, None], mean, var
+        layers._GlobalBatchNorm = OnePass
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        layers.mesh, layers._GlobalBatchNorm, mesh.all_reduce_gradients = saved
+
+
+def _ddp_rank(rank: int, world: int, init_method: str, tmp: str, device: str) -> None:
+    """One rank of phase 14a: one f32 stage-2 step and one stage-1 step on
+    this rank's rows, on ``device`` (cuda:0 for every rank), over gloo;
+    launches, step times and the gradient all-reduce's time; the results
+    into ``tmp``."""
+    import traceback
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, SpixelSeg
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.parallel import mesh
+    from disentangledcolorization_tpu_torch.train import losses, state, steps as steps_lib
+
+    out = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        device = torch.device(device)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+            kernels.build()  # loads what the parent built
+        mesh.initialize_distributed(init_method, world, rank, backend="gloo", device=device, timeout=120)
+        reduce_ms, plain = [], mesh.all_reduce_gradients
+
+        def timed(params):
+            sync()
+            t = time.perf_counter()
+            plain(params)
+            sync()
+            reduce_ms.append((time.perf_counter() - t) * 1e3)
+
+        mesh.all_reduce_gradients = timed
+        payload = torch.load(os.path.join(tmp, "payload.pt"), weights_only=False)
+        for stage in ("stage2", "stage1"):
+            p = payload[stage]
+            if stage == "stage2":
+                model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.0)
+                loss = losses.AnchorColorProbLoss(enhanced=True)
+                step = steps_lib.make_colorizer_train_step(loss, class_lambda=0.5)
+            else:
+                model = SpixelSeg()
+                step = steps_lib.make_spixel_train_step(16)
+            model.load_state_dict(p["state"])
+            model.to(device)
+            st = state.TrainState.create(model, name="sgd", schedule=p["lr"], momentum=0.0)
+            b = mesh.shard_batch({k: v.to(device) for k, v in p["batch"].items()})
+            reduce_ms.clear()
+            kernels.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step(st, b, 130).items()}
+            secs = [time.perf_counter() - t0]
+            counts = dict(kernels.LAUNCHES)
+            after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            for _ in range(3):  # timed steps after the compared one
+                sync()
+                t0 = time.perf_counter()
+                float(step(st, b, 130)["totalLoss"])
+                secs.append(time.perf_counter() - t0)
+            out[stage] = {"metrics": metrics, "state": after, "counts": counts, "step_s": secs,
+                          "reduce_ms": list(reduce_ms)}
+        p, out["faults"] = payload["stage2"], {}
+        b = mesh.shard_batch({k: v.to(device) for k, v in p["batch"].items()})
+        step = steps_lib.make_colorizer_train_step(losses.AnchorColorProbLoss(enhanced=True), class_lambda=0.5)
+        for fault in DDP_FAULTS:
+            model = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.0)
+            model.load_state_dict(p["state"])
+            model.to(device)
+            st = state.TrainState.create(model, name="sgd", schedule=p["lr"], momentum=0.0)
+            with planted_fault(fault):
+                step(st, b, 130)
+            out["faults"][fault] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    except Exception:  # noqa: BLE001 - reported by the parent, which fails the phase
+        out = {"error": traceback.format_exc()}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    mesh.shutdown_distributed()
+
+
+def randomize_affine(model, seed: int) -> None:
+    """Every bias, norm scale and BatchNorm statistic of ``model`` drawn at
+    random (``tests/test_torch_bridge.py::random_state_dict``), so that no
+    parameter starts at 0: a bias that starts at 0 is its update alone after
+    one step, and a BatchNorm bias's gradient is a sum whose terms cancel, so
+    two summation orders of it differ by 1e-4 of itself (measured)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.endswith("running_var"):
+                v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+            elif k.endswith(("running_mean", "bias")):
+                v.copy_(0.1 * torch.randn(v.shape, generator=gen))
+            elif k.endswith(".weight") and v.ndim == 1:
+                v.copy_(0.8 + 0.4 * torch.rand(v.shape, generator=gen))
+
+
+def _ddp_payload(device, n2: int = 16, n1: int = 128, size: int = 256) -> dict:
+    """Seeded full-width weights with random biases and norm scales
+    (:func:`randomize_affine`), conditioned on their global batches (phase 5's
+    ``center_conv_biases``, stage 1's ``condition_spixelnet``), on the host."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, SpixelSeg
+    from disentangledcolorization_tpu_torch.train import data
+
+    torch.manual_seed(130)
+    col = AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.0)
+    randomize_affine(col, 130)
+    col.to(device)
+    b2 = data.synthetic_dataset(n2, size, device, seed=14)
+    with step_anchors(130, [(0, n2)]):  # the anchors of the compared step
+        center_conv_biases(col, b2["gray"], b2["color"], l1_kink=True)
+    torch.manual_seed(131)
+    seg = SpixelSeg()
+    randomize_affine(seg, 131)
+    seg.to(device)
+    b1 = data.synthetic_spixel_dataset(n1, size, device, seed=15)
+    condition_spixelnet(seg, b1["gray"])
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+    return {"stage2": {"state": cpu(col.state_dict()), "batch": cpu(b2), "lr": 0.1},
+            "stage1": {"state": cpu(seg.state_dict()), "batch": cpu(b1), "lr": 0.1}}
+
+
+def _spawn_ranks(target, world: int, args: tuple, timeout: float) -> None:
+    """Start ``world`` processes (start method spawn) and wait for them; a rank
+    that exits non-zero or outlasts ``timeout`` fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(target, args=(world, *args), nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks still running after {timeout:.0f} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def drive_two_ranks_one_card(device, smi: str, world: int = 2, **sizes) -> tuple[dict, dict]:
+    """Phase 14a: two gloo ranks on the one card, each one f32 stage-2 step at
+    batch 8 (256x256, full width, dropout 0, conditioned) and one stage-1 step
+    at batch 64, against one process's steps on the global batches (16, 128):
+    the losses within ``DDP_TOL``, every parameter and buffer after the SGD
+    update within ``DDP_TOL`` of its largest entry or ``DDP_FLOOR_FACTOR``
+    times how far one process's step moves when its input moves one ulp,
+    whichever is larger; launches per rank as one process's."""
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, SpixelSeg
+    from disentangledcolorization_tpu_torch.train import losses, state, steps as steps_lib
+
+    res, total = {"card": smi, "note": "two processes sharing one card over gloo; not a scaling number",
+                  "tolerance": DDP_TOL}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = _ddp_payload(device, **sizes)
+        torch.save(payload, os.path.join(tmp, "payload.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rank_device = "cuda:0" if device.type == "cuda" else "cpu"
+        _spawn_ranks(_ddp_rank, world, (f"file://{os.path.join(tmp, 'store')}", tmp, rank_device), DDP_RANK_TIMEOUT)
+        res["spawn_and_steps_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    for r, out in enumerate(ranks):
+        if "error" in out:
+            raise AssertionError(f"phase 14a: rank {r} failed:\n{out['error']}")
+    def reference(stage, p, nudge=False):
+        """One process's step on the global batch; ``nudge``: the gray input
+        one ulp up, which shows how far rounding alone moves the step."""
+        model = (AnchorColorProb(sp_size=16, n_clusters=8, n_enc_layers=6, dropout=0.0) if stage == "stage2"
+                 else SpixelSeg())
+        model.load_state_dict(p["state"])
+        model.to(device)
+        st = state.TrainState.create(model, name="sgd", schedule=p["lr"], momentum=0.0)
+        step = (steps_lib.make_colorizer_train_step(losses.AnchorColorProbLoss(enhanced=True), class_lambda=0.5)
+                if stage == "stage2" else steps_lib.make_spixel_train_step(16))
+        b = {k: v.to(device) for k, v in p["batch"].items()}
+        if nudge:
+            b["gray"] = torch.nextafter(b["gray"], torch.full_like(b["gray"], 2.0))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            metrics = {k: float(v) for k, v in step(st, b, 130).items()}
+        return metrics, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def rel_errs(states, ref):
+        return {k: max(float((s[k].float() - v.float()).abs().max()) for s in states) / max(float(v.float().abs().max()), 1e-30)
+                for k, v in ref.items() if v.is_floating_point()}
+
+    for stage, per in (("stage2", TRAIN_PER_STEP), ("stage1", SPIXEL_PER_STEP)):
+        one, ref = reference(stage, payload[stage])
+        floor = max(rel_errs([reference(stage, payload[stage], nudge=True)[1]], ref).values())
+        tol = max(DDP_TOL, DDP_FLOOR_FACTOR * floor)
+        loss_err = max(abs(rk[stage]["metrics"][k] - v) / max(abs(v), 1e-12) for rk in ranks for k, v in one.items())
+        errs = rel_errs([rk[stage]["state"] for rk in ranks], ref)
+        state_err = max(errs.values())
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        ranks_equal = all(torch.equal(ranks[0][stage]["state"][k], ranks[1][stage]["state"][k]) for k in ref)
+        bad = {k: c for k, c in per.items() for rk in ranks if rk[stage]["counts"][k] != c}
+        for rk in ranks:
+            for k, c in rk[stage]["counts"].items():
+                total[k] = total.get(k, 0) + c
+        res[stage] = {"losses_rel": loss_err, "state_max_rel": state_err, "worst": worst, "ranks_equal": ranks_equal,
+                      "one_ulp_floor": floor, "tolerance": tol, "step_s": [rk[stage]["step_s"] for rk in ranks],
+                      "grad_all_reduce_ms": [rk[stage]["reduce_ms"] for rk in ranks],
+                      "launches_per_rank": [{k: v for k, v in rk[stage]["counts"].items() if v} for rk in ranks]}
+        if stage == "stage2":
+            # each planted fault's reading against the tolerance and the one-ulp floor
+            res["planted_faults"] = {f: max(rel_errs([rk["faults"][f] for rk in ranks], ref).values())
+                                     for f in DDP_FAULTS}
+            log(f"phase 14a planted faults in the two-rank stage-2 step, max|d|/max against one process: "
+                + ", ".join(f"{f} {e:.3e} ({e / floor:.1f}x the one-ulp floor, {e / tol:.1f}x the tolerance)"
+                            for f, e in res["planted_faults"].items()))
+            blind = [f for f in DDP_MUST_SEE if not res["planted_faults"][f] > tol]
+            if blind:
+                raise AssertionError(f"phase 14a: the tolerance {tol:.3e} cannot see the planted faults {blind}")
+        log(f"phase 14a {stage} on {smi}, two processes sharing one card over gloo (not a scaling number): losses rel "
+            f"{loss_err:.3e}, parameters and buffers max|d|/max {state_err:.3e} (worst {json.dumps(worst)}; one "
+            f"process against itself with the input one ulp up {floor:.3e}; tolerance {tol:.3e}), ranks equal "
+            f"{ranks_equal}; step s per rank {json.dumps(res[stage]['step_s'])} (first includes cuDNN warm-up); "
+            f"gradient all-reduce ms per rank {json.dumps(res[stage]['grad_all_reduce_ms'])}; launches per rank "
+            f"{json.dumps(res[stage]['launches_per_rank'])}")
+        if bad or not ranks_equal or not loss_err <= DDP_TOL or not state_err <= tol:
+            raise AssertionError(f"phase 14a {stage}: two ranks disagree with one process (launches off {bad})")
+    return total, res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def drive_nccl_world_one(device, smi: str, batch: int = 8, size: int = 256, n_images: int = 24) -> tuple[dict, dict]:
+    """Phase 14b: each command line (``cli.*.train``) for a few steps with
+    ``--coordinator 127.0.0.1:<port> --num_processes 1 --process_id 0`` (NCCL,
+    world size 1: the gradients go through one all-reduce a step) and without
+    (no group), ``--deterministic``: the two runs' states equal bit for bit
+    (``states_equal``); the NCCL all-reduce's device time and the step times."""
+    import tempfile
+    import warnings
+
+    from disentangledcolorization_tpu_torch.cli import train_colorizer, train_spixel
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.parallel import mesh
+    from disentangledcolorization_tpu_torch.train import data
+    from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser, spixel_argparser
+
+    res, total = {"card": smi}, {}
+    syn = data.synthetic_dataset(n_images + batch, size, device, seed=16)
+    col_sets = [data.ArrayDataset({k: v[:n_images] for k, v in syn.items()}),
+                data.ArrayDataset({k: v[n_images:] for k, v in syn.items()})]
+    sp = data.synthetic_spixel_dataset(n_images + batch, size, device, seed=17)
+    sp_sets = [data.ArrayDataset.from_lab(sp["gray"][:n_images], sp["feat"][:n_images]),
+               data.ArrayDataset.from_lab(sp["gray"][n_images:], sp["feat"][n_images:])]
+    nccl_ms, plain_sum = [], mesh.all_reduce_sum
+
+    def timed_sum(t):
+        if t.numel() < 1_000_000:
+            return plain_sum(t)
+        if not t.is_cuda:  # a rehearsal on the CPU: host ms
+            t0 = time.perf_counter()
+            out = plain_sum(t)
+            nccl_ms.append(((time.perf_counter() - t0) * 1e3, t.numel() * t.element_size()))
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_sum(t)
+        end.record()
+        end.synchronize()
+        nccl_ms.append((start.elapsed_time(end), t.numel() * t.element_size()))
+        return out
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)  # --deterministic sets them
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, trainer, parser, sets, flags in (
+                ("stage2", train_colorizer, pcolor_argparser, col_sets,
+                 ["--enhanced", "--n_enc", "6", "--n_clusters", "8", "--device_data"]),
+                ("stage1", train_spixel, spixel_argparser, sp_sets, ["--feat", "ab"])):
+            runs = {}
+            for group in (False, True):
+                argv = ["--save_dir", tmp, "--name", f"{name}-{group}", "--batch_size", str(batch), "--input_size",
+                        str(size), "--epochs", "1", "--seed", "130", "--num_workers", "2", "--deterministic",
+                        "--device", str(device), *flags]
+                if group:
+                    argv += ["--coordinator", f"127.0.0.1:{_free_port()}", "--num_processes", "1", "--process_id", "0"]
+                nccl_ms.clear()
+                mesh.all_reduce_sum = timed_sum
+                kernels.reset_launch_counts()
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")  # the documented L1 fallback for the VGG term
+                        runs[group] = trainer.train(parser().parse_args(argv), *sets)
+                finally:
+                    mesh.all_reduce_sum = plain_sum
+                torch.cuda.synchronize()
+                if torch.distributed.is_initialized():
+                    raise AssertionError(f"phase 14b {name}: the trainer left its process group behind")
+                for k, v in kernels.LAUNCHES.items():
+                    total[k] = total.get(k, 0) + v
+                runs[group]["nccl"] = list(nccl_ms)
+            a, b = runs[False], runs[True]
+            steps = len(b["step_losses"])
+            if len(b["nccl"]) != steps:
+                raise AssertionError(f"phase 14b {name}: {len(b['nccl'])} NCCL gradient all-reduces in {steps} steps")
+            same = states_equal(a["state"], b["state"])
+            res[name] = {"bit_identical": same, "steps": steps,
+                         "nccl_all_reduce_ms": [ms for ms, _ in b["nccl"]], "buffer_mb": b["nccl"][0][1] / 1e6,
+                         "step_s_without_group": a["step_seconds"], "step_s_with_group": b["step_seconds"]}
+            log(f"phase 14b {name} on {smi}: the command line with --coordinator/--num_processes 1 (NCCL, world 1) "
+                f"and without: states equal bit for bit {same}; {steps} steps; NCCL all-reduce of the "
+                f"{res[name]['buffer_mb']:.1f} MB gradient buffer, device ms {json.dumps(res[name]['nccl_all_reduce_ms'])}; "
+                f"step s without the group {json.dumps(a['step_seconds'])}, with {json.dumps(b['step_seconds'])}")
+            if not same:
+                raise AssertionError(f"phase 14b {name}: the world-size-1 NCCL run differs from the run without a group")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    return total, res
+
+
+class OneModelSplit:
+    """``parallel/replicas.py::Replicas`` with one model for every device: one
+    replica answering each device's rows in turn, at the per-card batch size
+    and with the same draws. Two replicas must equal it bit for bit."""
+
+    def __init__(self, model, devices, to_serving):
+        from disentangledcolorization_tpu_torch.parallel.replicas import Replicas
+
+        one = to_serving(model, devices[0])
+        self.split = Replicas.__new__(Replicas)
+        self.split.devices, self.split.models = list(devices), [one] * len(devices)
+
+    def __len__(self):
+        return len(self.split)
+
+    def __call__(self, *args, **kwargs):
+        return self.split(*args, **kwargs)
+
+
+# phase 14c: the data-parallel Colorizer's runs (compute dtype, wire), the
+# ab tolerance against one replica on the whole batch once the anchors are
+# pinned, and how many images may miss it: no f32 image (measured on
+# an H100: at most 1.07e-6 of 13), all but two bf16 ones (measured: 12 and 13
+# of 13, the command line 16 of 16, most at 3.7e-3; in bf16 one image still
+# crossed a discrete step of the forward, 4.3e-2). A wrong row offset or
+# gather order moves every image.
+REPLICA_RUNS = (("bfloat16", "float32"), ("bfloat16", "uint8"), ("float32", "float32"))
+REPLICA_TOL = {"bfloat16": BF16_CARD_CPU_TOL["pred_colors"], "float32": 1e-5}
+REPLICA_MISSES = {"bfloat16": 2, "float32": 0}
+
+
+@contextlib.contextmanager
+def recorded_anchors(pins=None, replicas: int = 1):
+    """While open, each k-means hint mask the model computes is recorded as
+    (its generator's row offset, the mask), and each number that
+    ``utils/seeding.py::RowDraws`` keeps as (offset, rows). With ``pins`` (one
+    whole-batch hint mask per forward of the batch, ``replicas`` calls a
+    forward), each call still draws and computes its own, then returns its rows
+    of the forward's pinned mask."""
+    from disentangledcolorization_tpu_torch.models import anchor
+    from disentangledcolorization_tpu_torch.utils.seeding import RowDraws
+
+    rec = {"masks": [], "draws": []}
+    plain_anchors, plain_rows = anchor.clustering_hint_mask, RowDraws._rows
+
+    def rows(self, full, n):
+        out = plain_rows(self, full, n)
+        rec["draws"].append((self.offset, out.cpu()))
+        return out
+
+    def anchors(feats, n_anchors, spixel_sizes, generator=None):
+        hint, cluster = plain_anchors(feats, n_anchors, spixel_sizes, generator)
+        rec["masks"].append((generator.offset, hint.cpu()))
+        if pins is None:
+            return hint, cluster
+        pinned = pins[(len(rec["masks"]) - 1) // replicas]
+        return pinned[generator.offset:generator.offset + hint.shape[0]].to(hint.device), cluster
+
+    anchor.clustering_hint_mask, RowDraws._rows = anchors, rows
+    try:
+        yield rec
+    finally:
+        anchor.clustering_hint_mask, RowDraws._rows = plain_anchors, plain_rows
+
+
+def rows_of_draws(one: list, split: list, replicas: int) -> bool:
+    """Whether each replica's RowDraws numbers (``split``, (offset, rows) in
+    call order) are its rows of the one-replica run's (``one``, offset 0),
+    call for call."""
+    by = {}
+    for off, x in split:
+        by.setdefault(off, []).append(x)
+    return len(by) == replicas and all(
+        len(xs) == len(one) and all(torch.equal(x, full[off:off + x.shape[0]]) for x, (_, full) in zip(xs, one))
+        for off, xs in by.items())
+
+
+def drive_two_replicas(device, smi: str, size: int = 256, batch: int = 8) -> tuple[dict, dict]:
+    """Phase 14c: ``Colorizer(data_parallel=True)`` and ``cli.infer.infer``
+    with ``parallel/mesh.py::local_devices`` patched to [cuda:0, cuda:0] (two
+    replicas on one card), bf16 on both wires and f32 (``REPLICA_RUNS``; the
+    command line bf16), batches of 8 and 5 (padded to 8), against one replica
+    on the whole batch. Each replica's k-means numbers must be its rows of the
+    one replica's draws (``RowDraws``). The split runs' anchors are then
+    pinned to the one replica's (:func:`recorded_anchors`; each run still
+    draws and computes its own, and the images whose own anchors differ are
+    counted: the replicas round as cuDNN and cuBLAS round at the per-card
+    batch size, which in bf16 moves a k-means assignment here and there), and
+    each image's ab is held within ``REPLICA_TOL`` of the one replica's, with
+    at most ``REPLICA_MISSES`` images past it. Against one model answering
+    each replica's rows in turn (:class:`OneModelSplit`: the per-card batch,
+    the same anchors) the answers must be equal bit for bit: the ab, the RGB,
+    the command line's Lab and PNGs."""
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.cli import infer
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(18)
+    requests = [[rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(n)] for n in (batch, 5)]
+    first = torch.device("cuda", 0) if device.type == "cuda" else device
+    two = [first] * 2
+    plain_devices = mesh.local_devices
+    res, total = {"card": smi}, {}
+
+    def answers(devices, dtype, wire, pins=None, split=False):
+        """Per request: uint8 RGB, ab, the anchors' record; and the launches."""
+        mesh.local_devices = lambda dev: devices
+        try:
+            col = Colorizer(device=device, seed=130, data_parallel=True, compute_dtype=dtype, wire_dtype=wire)
+        finally:
+            mesh.local_devices = plain_devices
+        if split:
+            col.replicas.models = [col.replicas.models[0]] * len(devices)
+        seen, to_rgb = [], col._to_rgb
+        col._to_rgb = lambda gray, ab, sizes: seen.append(ab.float().cpu()) or to_rgb(gray, ab, sizes)
+        kernels.reset_launch_counts()
+        outs = []
+        for i, imgs in enumerate(requests):
+            # cuDNN's default f32 algorithms are not deterministic (PERF.md §7)
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=dtype == "float32",
+                                            allow_tf32=False), \
+                    recorded_anchors(None if pins is None else [pins[i]], len(devices)) as rec:
+                rgb = col.colorize_batch(imgs)
+            outs.append({"rgb": rgb, "ab": seen[-1], "rec": rec, "hint": torch.cat([m for _, m in rec["masks"]])})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return outs, dict(kernels.LAUNCHES), col
+
+    def levels(a, b):
+        return max(int(np.abs(x.astype(int) - y.astype(int)).max()) for x, y in zip(a, b))
+
+    n = [len(r) for r in requests]
+    for dtype, wire in REPLICA_RUNS:
+        label = f"{dtype}_{wire}_wire"
+        one, _, _ = answers([device], dtype, wire)
+        pins = [o["hint"] for o in one]
+        split, _, _ = answers(two, dtype, wire, pins, split=True)
+        dp, counts, col = answers(two, dtype, wire, pins)
+        if len(col.replicas) != 2 or col.replicas.models[0] is col.replicas.models[1]:
+            raise AssertionError("phase 14c: the Colorizer did not make two replicas")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        forward = BF16_PER_FORWARD if dtype == "bfloat16" else F32_PER_FORWARD
+        per = {k: 2 * v * len(requests) for k, v in forward.items()}  # two replica forwards a request
+        draws_rows = all(rows_of_draws(o["rec"]["draws"], d["rec"]["draws"], 2) for o, d in zip(one, dp))
+        exact = max(max_err(d["ab"], s_["ab"]) for d, s_ in zip(dp, split))
+        exact_levels = max(levels(d["rgb"], s_["rgb"]) for d, s_ in zip(dp, split))
+        own = sum(int((d["hint"][:k] == o["hint"][:k]).flatten(1).all(1).sum()) for d, o, k in zip(dp, one, n))
+        per_image = [max_err(d["ab"][i], o["ab"][i]) for d, o, k in zip(dp, one, n) for i in range(k)]
+        held = REPLICA_TOL[dtype]
+        within = sum(e <= held for e in per_image)
+        res[label] = {"draws_are_rows": draws_rows, "vs_split_ab_max_abs": exact, "vs_split_levels": exact_levels,
+                      "own_anchors_as_one": own, "images": sum(n), "tolerance": held,
+                      "vs_one_pinned_ab_max_abs_per_image": per_image, "vs_one_pinned_within": within,
+                      "vs_one_pinned_levels": max(levels(d["rgb"], o["rgb"]) for d, o in zip(dp, one)),
+                      "launches": {k: v for k, v in counts.items() if v}}
+        log(f"phase 14c Colorizer on {smi}, two replicas on one card, {dtype}, {wire} wire, batches of {batch} "
+            f"and 5: each replica's k-means numbers its rows of one replica's {draws_rows}; {own} of {sum(n)} "
+            f"images computed one replica's anchors; anchors pinned to one replica's: {within} of {sum(n)} images "
+            f"within {held} (at most {REPLICA_MISSES[dtype]} may miss), ab max|d| per image "
+            f"{json.dumps([float(f'{e:.3e}') for e in per_image])}, RGB levels {res[label]['vs_one_pinned_levels']}; "
+            f"against one model on each replica's rows ab max|d| {exact:.3e}, RGB levels {exact_levels} (bit for "
+            f"bit expected); launches {json.dumps(res[label]['launches'])}")
+        bad = {k: counts[k] for k, v in per.items() if counts[k] != v}
+        if bad or not draws_rows or exact != 0.0 or exact_levels != 0 or within < sum(n) - REPLICA_MISSES[dtype]:
+            raise AssertionError(f"phase 14c ({dtype}, {wire} wire): two replicas disagree (launches off {bad})")
+        del col
+
+    grays, colors = lab_batch(rng.integers(0, 256, (2 * batch, size, size, 3), dtype=np.uint8))
+    names = [f"img{i:02d}.png" for i in range(2 * batch)]
+    pngs, labs, recs, pins, tol = {}, {}, {}, None, REPLICA_TOL["bfloat16"]
+    plain_replicas, plain_save = infer.Replicas, infer.io_lib.save_normLabs_from_batch
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, devices in (("one", [first]), ("split", two), ("two", two)):
+            args = infer.inference_argparser().parse_args(
+                ["--batch_size", str(batch), "--n_clusters", "8", "--device", str(device), "--save_dir", tmp,
+                 "--name", label, "--compute_dtype", "bfloat16", "--seed", "130"])
+            mesh.local_devices = lambda dev, devices=devices: devices
+            infer.Replicas = OneModelSplit if label == "split" else plain_replicas
+            labs[label] = {}
+            infer.io_lib.save_normLabs_from_batch = lambda lab, d, nm, b=-1, suffix=None, out=labs[label]: (
+                out.__setitem__(nm[0], np.array(lab[..., 1:])) or plain_save(lab, d, nm, b, suffix=suffix))
+            kernels.reset_launch_counts()
+            try:
+                with recorded_anchors(pins, len(devices)) as recs[label]:
+                    run = infer.infer(args, ((grays[s:s + batch], colors[s:s + batch], names[s:s + batch],
+                                              [(size, size)] * batch) for s in range(0, 2 * batch, batch)))
+            finally:
+                mesh.local_devices, infer.Replicas = plain_devices, plain_replicas
+                infer.io_lib.save_normLabs_from_batch = plain_save
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            if label == "one":
+                pins = [m for _, m in recs["one"]["masks"]]
+            if label == "two":
+                for k, v in kernels.LAUNCHES.items():
+                    total[k] = total.get(k, 0) + v
+            pngs[label] = read_pngs(run["save_dir"])
+    keys = sorted(pngs["one"])
+    res["infer_cli_draws_are_rows"] = rows_of_draws(recs["one"]["draws"], recs["two"]["draws"], 2)
+    res["infer_cli_vs_split_levels"] = levels([pngs["two"][k] for k in keys], [pngs["split"][k] for k in keys])
+    res["infer_cli_vs_split_lab_equal"] = all(np.array_equal(labs["two"][k], labs["split"][k]) for k in labs["one"])
+    per_image = [float(np.abs(labs["two"][k] - labs["one"][k]).max()) for k in sorted(labs["one"])]
+    res["infer_cli_vs_one_pinned_ab_max_abs_per_image"] = per_image
+    res["infer_cli_vs_one_pinned_within"] = within = sum(e <= tol for e in per_image)
+    res["infer_cli_vs_one_pinned_levels"] = levels([pngs["two"][k] for k in keys], [pngs["one"][k] for k in keys])
+    log(f"phase 14c cli.infer over two replicas on one card: {len(pngs['two'])} PNGs; each replica's k-means "
+        f"numbers its rows of one replica's {res['infer_cli_draws_are_rows']}; anchors pinned to one replica's: "
+        f"{within} of {len(per_image)} images within {tol} (at most {REPLICA_MISSES['bfloat16']} may miss), ab max|d| "
+        f"per image {json.dumps([float(f'{e:.3e}') for e in per_image])}, "
+        f"{res['infer_cli_vs_one_pinned_levels']} levels; against one model on each replica's rows: Lab equal "
+        f"{res['infer_cli_vs_split_lab_equal']}, {res['infer_cli_vs_split_levels']} levels (bit for bit expected)")
+    if (not (sorted(pngs["two"]) == sorted(pngs["split"]) == keys) or sorted(labs["two"]) != sorted(labs["one"])
+            or not res["infer_cli_draws_are_rows"] or res["infer_cli_vs_split_levels"] != 0
+            or not res["infer_cli_vs_split_lab_equal"] or within < len(per_image) - REPLICA_MISSES["bfloat16"]):
+        raise AssertionError("phase 14c: the command line over two replicas disagrees with one replica")
+    return total, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3353,6 +4008,12 @@ def main() -> int:
     # 13. the quality pipeline: cli.infer colorizes a folder, cli.evaluate scores it; card against CPU
     paths["quality_pipeline"], extras["quality"] = drive_quality_pipeline(device, smi)
     mark(13)
+
+    # 14. data parallelism: two gloo ranks on the card, NCCL at world size 1, two serving replicas
+    paths["ddp_two_ranks"], extras["ddp_two_ranks"] = drive_two_ranks_one_card(device, smi)
+    paths["ddp_nccl_world_one"], extras["ddp_nccl_world_one"] = drive_nccl_world_one(device, smi)
+    paths["two_replicas"], extras["two_replicas"] = drive_two_replicas(device, smi)
+    mark(14)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}

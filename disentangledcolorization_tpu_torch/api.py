@@ -12,6 +12,13 @@ Counterpart of ``disentangledcolorization_tpu/api.py``:
     rgbs = c.colorize_batch([img0, img1, img2])      # one forward
     c.warmup()                                       # first builds and blocks before a request
 
+``Colorizer(data_parallel=True)`` keeps one replica of the model on each
+device of ``parallel/mesh.py::local_devices`` (every visible card) and splits
+each ``colorize_batch`` bucket by rows over them (``parallel/replicas.py``); the
+bucket is rounded up to a multiple of the card count, as JAX's is. The anchors
+are drawn for the whole bucket, so an image's draws do not depend on the count;
+its answer rounds as cuDNN rounds at the per-card batch size.
+
 The model runs with spectral norm folded into the weights, in bf16 by default
 (``compute_dtype``, the JAX ``Colorizer``'s default; ``models/disco.py`` says
 where it rounds) or in f32. The Lab conversions run on the device
@@ -35,6 +42,8 @@ import torch
 
 from . import resolve_device
 from .models import AnchorColorProb
+from .parallel import mesh
+from .parallel.replicas import Replicas
 from .utils.color import lab2rgb, rgb2lab
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -75,10 +84,11 @@ class Colorizer:
         parameters stay f32, and bf16 serving holds one bf16 copy of the
         layers' weights, made here. ``random_hint``: random anchors instead of
         k-means; ``hint2regress``: the model that takes the anchors' ab (both
-        as in the JAX package). ``data_parallel=True`` is accepted on one
-        card, where the JAX ``Colorizer`` ignores it too, and raises with more
-        than one visible card (ROADMAP.md, queue 1, item 4). ``quantize``
-        other than "none" raises (item 5)."""
+        as in the JAX package). ``data_parallel=True``: one replica on each
+        device of ``parallel/mesh.py::local_devices(device)``, and
+        ``colorize_batch`` splits a bucket over them (one device: one model,
+        as the JAX ``Colorizer`` has). ``quantize`` other than "none" raises
+        (ROADMAP.md, queue 1, item 5)."""
         from .cli.infer import load_variables, to_serving
 
         if compute_dtype not in _DTYPES:
@@ -89,9 +99,7 @@ class Colorizer:
             raise NotImplementedError(f"quantize={quantize!r} is not ported yet: ROADMAP.md, queue 1, item 5 (int8)")
         self.wire_uint8 = wire_dtype == "uint8"
         self.device = resolve_device(device)
-        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(f"data_parallel=True over {torch.cuda.device_count()} cards is not ported yet: "
-                                      "ROADMAP.md, queue 1, item 4 (DDP)")
+        devices = mesh.local_devices(self.device) if data_parallel else [self.device]
         self.sp_size = sp_size
         self.bucket = max(bucket, sp_size)
 
@@ -104,7 +112,8 @@ class Colorizer:
         if state_dict is not None:
             model.load_state_dict(state_dict)
             self.loaded = True
-        self.model = to_serving(model, self.device)
+        self.replicas = Replicas(model, devices, to_serving)
+        self.model = self.replicas.models[0]
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _host_image(self, image: np.ndarray):
@@ -186,7 +195,9 @@ class Colorizer:
         return self._to_rgb(gray, pred, [(h, w)])[0]
 
     def _batch_bucket(self, n: int) -> int:
-        return next((b for b in self.BATCH_BUCKETS if n <= b), n)
+        b = next((b for b in self.BATCH_BUCKETS if n <= b), n)
+        r = len(self.replicas)
+        return -(-b // r) * r  # splits over the replicas
 
     @torch.no_grad()
     def colorize_batch(self, images: list, generator=None) -> list:
@@ -202,7 +213,7 @@ class Colorizer:
         nb = self._batch_bucket(len(preps))
         if nb > len(preps):
             grays = torch.cat([grays, grays[-1:].expand(nb - len(preps), -1, -1, -1)], dim=0)
-        pred = self.model(self._wire_in(grays), generator=generator or self.generator)["pred_colors"]
+        pred = self.replicas(self._wire_in(grays), generator=generator or self.generator)["pred_colors"]
         return self._to_rgb(grays[: len(preps)], pred[: len(preps)], [hw for _, hw in preps])
 
     @torch.no_grad()

@@ -1,22 +1,64 @@
-"""What both trainers share: refusing flags whose feature is not ported yet,
-moving batches to the device, and logging the TF32 settings."""
+"""What both trainers share: the process group, rank 0's writers, refusing
+flags that would be silently ignored, moving batches to the device, and
+logging the TF32 settings."""
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
-_ROADMAP = "is not ported yet: ROADMAP.md, queue 1, item"
+from .. import resolve_device
+from ..parallel import mesh
+from ..utils.logging import MetricsWriter, build_logger
 
 
 def refuse_unported(args) -> None:
-    """Raise for a flag that would change the run but is not ported yet, so
-    that no flag is silently ignored."""
-    if args.coordinator is not None or args.num_processes not in (None, 1) or args.process_id not in (None, 0):
-        raise NotImplementedError(f"multi-process training (--coordinator/--num_processes/--process_id) {_ROADMAP} 4 (DDP)")
+    """Raise for a flag that would change the run but is not read, so that no
+    flag is silently ignored."""
     if args.checkpt:
         raise ValueError("--checkpt is not read by the trainers: they resume from <save_dir>/<name>/checkpts "
                          "with --resume, as the JAX package's trainers do")
+
+
+def start_processes(args) -> tuple[torch.device, bool]:
+    """``--coordinator``/``--num_processes``/``--process_id`` -> the process
+    group (NCCL on the card, gloo with ``--device cpu``; none for one
+    process), then this rank's device (``parallel/mesh.py::rank_device``).
+    Returns (device, whether this call made the group)."""
+    device = resolve_device(args.device)
+    made = mesh.initialize_distributed(args.coordinator, args.num_processes, args.process_id, device=device)
+    return mesh.rank_device(device), made
+
+
+class _NoWriter:
+    """A ``MetricsWriter`` that writes nothing (ranks other than 0)."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+
+def rank_writers(run_dir: str):
+    """(logger, train writer, val writer): rank 0's write the run directory
+    (JAX ``is_main``); the other ranks' write nothing."""
+    if mesh.is_main():
+        return build_logger(run_dir), MetricsWriter(run_dir, "train"), MetricsWriter(run_dir, "val")
+    logger = logging.getLogger(f"disco_torch.rank{mesh.process_index()}")
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger, _NoWriter(), _NoWriter()
+
+
+def save_checkpoint(mgr, tag: str, state, epoch: int, best_loss: float, plateau) -> None:
+    """Rank 0 writes ``tag``; every rank waits until it is written."""
+    if mesh.is_main():
+        mgr.save(tag, state, epoch, best_loss, plateau)
+    mesh.barrier()
 
 
 def configure_backends(args, logger) -> None:

@@ -23,8 +23,16 @@ batches; :func:`main` feeds it from the folder through ``fetch_image_lab``
 library. Lab -> RGB runs through the port's ``utils/color.py`` where the JAX
 package uses OpenCV.
 
+Data parallel, as JAX's (``cli/infer.py:119-139``): with more than one card
+in ``parallel/mesh.py::local_devices``, no ``--no_resize`` and a
+``--batch_size`` that splits over them, each batch is split by rows over one
+replica a card (``parallel/replicas.py``), with the draws of one card;
+otherwise one card runs. ``--shard_spatial`` is read only where JAX reads it,
+with more than one card and ``--no_resize``.
+
 Not ported yet, and refused: ``--quantize int8|int8_safe`` (ROADMAP.md, queue
-1, item 5), ``--shard_spatial`` and more than one visible card (item 4).
+1, item 5) and ``--shard_spatial`` over more than one card with
+``--no_resize`` (item 9: the H axis sharded, with halo exchanges).
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from ..models.layers import hold_compute_copies
 from ..ops import colorlabel as cl
 from ..ops import hints as hints_ops
 from ..ops import superpixel as sp
+from ..parallel import mesh
+from ..parallel.replicas import Replicas
 from ..tools.convert import fold_spectral_norm, from_jax_variables, load_numpy_pickle
 from ..train.checkpoint import load_train_variables
 from ..utils import io as io_lib
@@ -136,15 +146,21 @@ def build_model(args) -> AnchorColorProb:
     )
 
 
-def refuse_unported(args, device) -> None:
-    """Raise for a flag whose feature is not ported yet; set no environment."""
+def refuse_unported(args, devices) -> None:
+    """Raise for a flag whose feature is not ported yet; set no environment.
+    ``--shard_spatial`` changes a run only where JAX reads it: more than one
+    of ``devices`` and ``--no_resize``."""
     if args.quantize != "none":
         raise NotImplementedError(f"--quantize {args.quantize} {_ROADMAP} 5 (int8)")
-    if args.shard_spatial:
-        raise NotImplementedError(f"--shard_spatial {_ROADMAP} 4 (multi-device)")
-    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
-        raise NotImplementedError(f"data-parallel inference over {torch.cuda.device_count()} cards {_ROADMAP} 4; "
+    if args.shard_spatial and args.no_resize and len(devices) > 1:
+        raise NotImplementedError(f"--shard_spatial over {len(devices)} cards {_ROADMAP} 9 (the H axis sharded); "
                                   "pick one card with --device cuda:<k> or CUDA_VISIBLE_DEVICES")
+
+
+def data_parallel(args, devices) -> bool:
+    """JAX's rule: split batches over the cards when there is more than one,
+    images are resized, and ``--batch_size`` splits over them."""
+    return len(devices) > 1 and not args.no_resize and args.batch_size % len(devices) == 0
 
 
 def infer(args, batches) -> dict:
@@ -154,7 +170,8 @@ def infer(args, batches) -> dict:
     ``<save_dir>/<name>-anchor<n_clusters>``. Returns the count of images
     written and the seconds the loop took."""
     device = resolve_device(args.device)
-    refuse_unported(args, device)
+    devices = mesh.local_devices(device)
+    refuse_unported(args, devices)
     print(f"@Inference: [AnchorColorProb] (spixel-size={args.psize})")
     sampled_T = 2 if args.diverse else 0
     save_dir = os.path.join(args.save_dir, f"{args.name}-anchor{args.n_clusters}")
@@ -163,7 +180,12 @@ def infer(args, batches) -> dict:
     model, loaded = load_variables(args.checkpt, lambda: build_model(args), args.seed)
     if args.checkpt:
         print("-weight loaded successfully." if loaded else "-weight load FAILED.")
-    model = to_serving(model, device)
+    device = devices[0]
+    if data_parallel(args, devices):
+        print(f"-data-parallel inference over {len(devices)} devices")
+    else:
+        devices = [device]
+    model = Replicas(model, devices, to_serving)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     # PNG writes go through a background thread unless --prefetch 0 (the
     # reference's serial behaviour); flush() at the end re-raises a write error

@@ -16,6 +16,15 @@ Runs on the card unless ``--device cpu``:
     python -m disentangledcolorization_tpu_torch.cli.train_colorizer --data <root with train/ val/> \\
         --enhanced --vgg_npz vgg19.npz --spixel_ckpt runs/spixel --batch_size 24 --name disco
 
+Data parallel: one process per card, each started with ``--coordinator
+host:port --num_processes P --process_id r`` (or under torchrun with
+``--coordinator env://``, whose environment gives the rest). ``--batch_size`` is per card, so the global
+batch is ``batch_size x P``; rank r reads indices r::P of each epoch's
+shuffle (``parallel/mesh.py``). Only rank 0 logs and writes the run
+directory; the validation loss that picks "best" and feeds the plateau
+schedule is the global mean; a SIGTERM to any rank stops every rank at the
+same step. ``--device cpu`` runs the same over gloo.
+
 ``--spixel_ckpt`` takes stage 1's run (a run dir, its ``checkpts`` dir or a
 file), a reference torch ``.pth.tar``, or a ``.pkl`` of numpy arrays in the
 JAX layout. :func:`main` parses the flags and decodes the image folders
@@ -30,12 +39,12 @@ import os
 
 import torch
 
-from .. import resolve_device
 from ..models import AnchorColorProb, xavier_reinit_params
 from ..models.vgg import load_vgg19
 from ..ops import colorlabel as cl
 from ..ops import hints as hints_ops
 from ..ops import superpixel as sp
+from ..parallel import mesh
 from ..tools.convert import load_numpy_pickle, spixel_from_jax_variables
 from ..train import data as data_lib
 from ..train import optim, steps
@@ -44,16 +53,17 @@ from ..train.losses import AnchorColorProbLoss
 from ..train.state import TrainState
 from ..utils import io as io_lib
 from ..utils.config import pcolor_argparser
-from ..utils.logging import MetricsWriter, StepTimer, build_logger, profiler_trace, steptime_stats
+from ..utils.logging import StepTimer, profiler_trace, steptime_stats
 from ..utils.seeding import generator_for, param_count
 from ..utils.signals import GracefulShutdown, register_stack_dump
-from ._common import configure_backends, host_metrics, refuse_unported, to_device
+from ._common import (configure_backends, host_metrics, rank_writers, refuse_unported, save_checkpoint,
+                      start_processes, to_device)
 
 
 def main(argv=None) -> dict:
     args = pcolor_argparser().parse_args(argv)
     refuse_unported(args)
-    resolve_device(args.device)  # before decoding a dataset: no card, no run
+    start_processes(args)  # before decoding a dataset: no card or no rendezvous, no run
     train_ds = data_lib.build_dataset(args.dataset, args.data, "train", args.input_size, cache=args.cache_data)
     val_ds = data_lib.build_dataset(args.dataset, args.data, "val", args.input_size, cache=args.cache_data)
     return train(args, train_ds, val_ds)
@@ -70,16 +80,31 @@ def load_spixel_state_dict(path: str) -> dict:
 def train(args, train_ds, val_ds) -> dict:
     """Train AnchorColorProb on ``train_ds`` with validation on ``val_ds``.
     Returns the state, the loss bundle and the run's record: 'history' (per
-    epoch), 'step_losses', 'step_seconds', 'start_epoch', 'best_loss', 'run_dir'."""
+    epoch), 'step_losses', 'step_seconds', 'start_epoch', 'best_loss', 'run_dir'.
+    A process group that this call makes (the distributed flags) is left at
+    its end."""
     refuse_unported(args)
-    device = resolve_device(args.device)
+    device, made_group = start_processes(args)
+    try:
+        return _train(args, train_ds, val_ds, device)
+    finally:
+        if made_group:
+            mesh.shutdown_distributed()
+
+
+def _train(args, train_ds, val_ds, device) -> dict:
     register_stack_dump()  # kill -USR1 <pid> = thread dump, not termination
     run_dir = os.path.join(args.save_dir, args.name)
-    logger = build_logger(run_dir)
-    writer_t, writer_v = MetricsWriter(run_dir, "train"), MetricsWriter(run_dir, "val")
+    rank, world = mesh.process_index(), mesh.world_size()
+    logger, writer_t, writer_v = rank_writers(run_dir)
     configure_backends(args, logger)
+    if world > 1:
+        logger.info(f"data parallel over {world} processes: batch {args.batch_size} a process, "
+                    f"global batch {args.batch_size * world}")
 
     dd_train = dd_val = None
+    if args.device_data and world > 1:
+        raise SystemExit("--device_data is single-process; multi-host uses the sharded DataLoader")
     if args.device_data:
         # the dataset lives on the card; a step moves only an index batch
         dd_train = data_lib.stack_dataset(train_ds, device=device)
@@ -89,7 +114,8 @@ def train(args, train_ds, val_ds) -> dict:
         nbytes = sum(t.numel() * t.element_size() for d in (dd_train, dd_val) for t in d.values())
         logger.info(f"device-resident dataset: {nbytes / 1e9:.2f} GB moved once")
     else:
-        loader_kwargs = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed)
+        loader_kwargs = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed,
+                             process_id=rank, num_processes=world)
         train_loader = data_lib.DataLoader(train_ds, shuffle=True, **loader_kwargs)
         val_loader = data_lib.DataLoader(val_ds, shuffle=False, **loader_kwargs)
 
@@ -120,6 +146,7 @@ def train(args, train_ds, val_ds) -> dict:
     else:
         logger.warning("no --spixel_ckpt: segnet is random AND frozen (smoke-test only)")
     model.to(device)
+    mesh.replicate(model)
     logger.info(f"AnchorColorProb params: {param_count(model) / 1e6:.2f}M, device: {device}, "
                 f"compute dtype {args.compute_dtype} (f32 parameters)")
 
@@ -150,7 +177,7 @@ def train(args, train_ds, val_ds) -> dict:
             timer = StepTimer()
             sums, n_steps = {}, 0
             for it, batch in enumerate(batches(train_loader, dd_train)):
-                if shutdown.requested:
+                if mesh.any_rank(shutdown.requested, device):
                     break
                 timer.mark_data()
                 metrics = host_metrics(train_step(state, batch, args.seed))  # waits for the step
@@ -167,6 +194,7 @@ def train(args, train_ds, val_ds) -> dict:
                                 f"(io/proc {s['io_proc_ratio']:.2f}, {s['images_per_sec']:.1f} img/s)")
             record["step_seconds"] += timer.durations
             ep_total = sums.get("totalLoss", 0.0) / max(n_steps, 1)
+            stopping = mesh.any_rank(shutdown.requested, device)
             if not math.isfinite(ep_total):
                 # keep 'last' finite: resume from it, ideally with --grad_clip
                 logger.error(f"non-finite train loss at epoch {epoch} ({ep_total}); aborting WITHOUT checkpointing. "
@@ -177,10 +205,10 @@ def train(args, train_ds, val_ds) -> dict:
             entry = {"epoch": epoch, "train_loss": ep_total, "val_loss": None}
             record["history"].append(entry)
 
-            if shutdown.requested:
+            if stopping:
                 # the epoch is not advanced, so --resume redoes it
                 logger.info(f"shutdown signal received at epoch {epoch} iter {n_steps}: checkpointing and exiting")
-                mgr.save("last", state, epoch, best_loss, plateau)
+                save_checkpoint(mgr, "last", state, epoch, best_loss, plateau)
                 break
 
             if (epoch + 1) % args.eval_freq != 0 and epoch + 1 != args.epochs:
@@ -189,12 +217,12 @@ def train(args, train_ds, val_ds) -> dict:
             for it, b in enumerate(batches(val_loader, dd_val)):
                 val_loss += host_metrics(eval_step(state, b, args.seed + 10_000 + it))["totalLoss"]
                 vn += 1
-                if it == 0:
+                if it == 0 and mesh.is_main():
                     _dump_val_images(model, b, run_dir, epoch, args)
             if vn == 0:
                 # a val set smaller than one batch (drop_last): 0.0 would pass for a best
                 logger.warning("validation produced no batches (val set < batch); saving 'last' only")
-                mgr.save("last", state, epoch + 1, best_loss, plateau)
+                save_checkpoint(mgr, "last", state, epoch + 1, best_loss, plateau)
                 continue
             val_loss /= vn
             entry["val_loss"] = val_loss
@@ -202,10 +230,10 @@ def train(args, train_ds, val_ds) -> dict:
                 plateau.update(val_loss)
             writer_v.scalar("val/totalLoss", val_loss, epoch)
             logger.info(f"epoch {epoch}: val {val_loss:.4f}")
-            mgr.save("last", state, epoch + 1, min(best_loss, val_loss), plateau)
+            save_checkpoint(mgr, "last", state, epoch + 1, min(best_loss, val_loss), plateau)
             if val_loss < best_loss:
                 best_loss = val_loss
-                mgr.save("best", state, epoch + 1, best_loss, plateau)
+                save_checkpoint(mgr, "best", state, epoch + 1, best_loss, plateau)
     # step-time stability; a cold start's first step includes cuDNN's warm-up
     stats = steptime_stats(record["step_seconds"][1:] if start_epoch == 0 else record["step_seconds"])
     if stats:

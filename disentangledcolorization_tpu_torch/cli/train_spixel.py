@@ -9,6 +9,11 @@ on SIGTERM/SIGINT. Runs on the card unless ``--device cpu``:
     python -m disentangledcolorization_tpu_torch.cli.train_spixel --data <root with train/ val/> \\
         --batch_size 128 --epochs 20 --name spixel
 
+Data parallel as ``cli/train_colorizer.py`` says: one process per card with
+``--coordinator``/``--num_processes``/``--process_id`` (or torchrun's
+environment with ``--coordinator env://``), ``--batch_size`` per card, BatchNorm over the global batch,
+gradients averaged, only rank 0 writing, the global validation loss.
+
 :func:`main` parses the flags and decodes the image folders (OpenCV);
 :func:`train` takes any two sequences of item dicts {'gray', 'color', 'BGR'},
 such as ``train.data.ArrayDataset``, for hosts without an image decoder.
@@ -21,9 +26,9 @@ import os
 
 import torch
 
-from .. import resolve_device
 from ..models import SpixelSeg
 from ..ops import superpixel as sp
+from ..parallel import mesh
 from ..train import data as data_lib
 from ..train import optim, steps
 from ..train.checkpoint import CheckpointManager
@@ -31,16 +36,17 @@ from ..train.losses import spixel_loss
 from ..train.state import TrainState
 from ..utils import io as io_lib
 from ..utils.config import spixel_argparser
-from ..utils.logging import MetricsWriter, StepTimer, build_logger, profiler_trace
+from ..utils.logging import StepTimer, profiler_trace
 from ..utils.seeding import param_count
 from ..utils.signals import GracefulShutdown, register_stack_dump
-from ._common import configure_backends, host_metrics, refuse_unported, to_device
+from ._common import (configure_backends, host_metrics, rank_writers, refuse_unported, save_checkpoint,
+                      start_processes, to_device)
 
 
 def main(argv=None) -> dict:
     args = spixel_argparser().parse_args(argv)
     refuse_unported(args)
-    resolve_device(args.device)  # before decoding a dataset: no card, no run
+    start_processes(args)  # before decoding a dataset: no card or no rendezvous, no run
     train_ds = data_lib.build_dataset(args.dataset, args.data, "train", args.input_size, cache=args.cache_data)
     val_ds = data_lib.build_dataset(args.dataset, args.data, "val", args.input_size, cache=args.cache_data)
     return train(args, train_ds, val_ds)
@@ -49,19 +55,32 @@ def main(argv=None) -> dict:
 def train(args, train_ds, val_ds) -> dict:
     """Train SpixelSeg on ``train_ds`` with validation on ``val_ds``. Returns
     the state and the run's record: 'history' (per epoch), 'step_losses',
-    'step_seconds', 'start_epoch', 'best_loss', 'run_dir'."""
+    'step_seconds', 'start_epoch', 'best_loss', 'run_dir'. A process group
+    that this call makes (the distributed flags) is left at its end."""
     refuse_unported(args)
-    device = resolve_device(args.device)
+    device, made_group = start_processes(args)
+    try:
+        return _train(args, train_ds, val_ds, device)
+    finally:
+        if made_group:
+            mesh.shutdown_distributed()
+
+
+def _train(args, train_ds, val_ds, device) -> dict:
     register_stack_dump()  # kill -USR1 <pid> = thread dump, not termination
     run_dir = os.path.join(args.save_dir, args.name)
-    logger = build_logger(run_dir)
-    writer_t, writer_v = MetricsWriter(run_dir, "train"), MetricsWriter(run_dir, "val")
+    rank, world = mesh.process_index(), mesh.world_size()
+    logger, writer_t, writer_v = rank_writers(run_dir)
     configure_backends(args, logger)
+    if world > 1:
+        logger.info(f"data parallel over {world} processes: batch {args.batch_size} a process, "
+                    f"global batch {args.batch_size * world}")
     if args.compute_dtype != "float32":
         logger.info(f"--compute_dtype {args.compute_dtype} is ignored: stage 1 trains in float32, "
                     "as the JAX stage-1 trainer (which never reads the flag) does")
 
-    loader_kwargs = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed)
+    loader_kwargs = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed,
+                         process_id=rank, num_processes=world)
     train_loader = data_lib.DataLoader(train_ds, shuffle=True, **loader_kwargs)
     val_loader = data_lib.DataLoader(val_ds, shuffle=False, **loader_kwargs)
 
@@ -69,6 +88,7 @@ def train(args, train_ds, val_ds) -> dict:
         torch.manual_seed(args.seed)
         model = SpixelSeg()
     model.to(device)
+    mesh.replicate(model)
     logger.info(f"SpixelSeg params: {param_count(model) / 1e6:.2f}M, device: {device}")
 
     steps_per_epoch = max(len(train_loader), 1)
@@ -96,7 +116,7 @@ def train(args, train_ds, val_ds) -> dict:
     def eval_step(batch):
         prob = model(batch["gray"], train=False)
         labxy = torch.cat([batch["feat"], batch["coord"]], dim=-1)
-        return spixel_loss(prob, labxy, args.psize), prob
+        return mesh.mean_reduce_metrics(spixel_loss(prob, labxy, args.psize)), prob
 
     record = {"history": [], "step_losses": [], "step_seconds": [], "start_epoch": start_epoch, "run_dir": run_dir}
     with profiler_trace(args.trace_dir or None), GracefulShutdown() as shutdown:
@@ -105,7 +125,7 @@ def train(args, train_ds, val_ds) -> dict:
             timer = StepTimer()
             ep_loss, n_steps = 0.0, 0
             for it, batch in enumerate(train_loader):
-                if shutdown.requested:
+                if mesh.any_rank(shutdown.requested, device):
                     break
                 batch = prepare(batch)
                 timer.mark_data()
@@ -121,6 +141,7 @@ def train(args, train_ds, val_ds) -> dict:
                                 f"(io/proc {s['io_proc_ratio']:.2f}, {s['images_per_sec']:.1f} img/s)")
             record["step_seconds"] += timer.durations
             ep_loss /= max(n_steps, 1)
+            stopping = mesh.any_rank(shutdown.requested, device)
             if not math.isfinite(ep_loss):
                 # keep 'last' finite: resume from it, ideally with --grad_clip
                 logger.error(f"non-finite train loss at epoch {epoch} ({ep_loss}); aborting WITHOUT checkpointing. "
@@ -130,10 +151,10 @@ def train(args, train_ds, val_ds) -> dict:
             entry = {"epoch": epoch, "train_loss": ep_loss, "val_loss": None}
             record["history"].append(entry)
 
-            if shutdown.requested:
+            if stopping:
                 # the epoch is not advanced, so --resume redoes it
                 logger.info(f"shutdown signal received at epoch {epoch} iter {n_steps}: checkpointing and exiting")
-                mgr.save("last", state, epoch, best_loss, plateau)
+                save_checkpoint(mgr, "last", state, epoch, best_loss, plateau)
                 break
 
             # validation and boundary dumps
@@ -143,14 +164,14 @@ def train(args, train_ds, val_ds) -> dict:
                 metrics, prob = eval_step(batch)
                 val_loss += host_metrics(metrics)["totalLoss"]
                 vn += 1
-                if it == 0:
+                if it == 0 and mesh.is_main():
                     spix_map = sp.split_spixels(prob[:4], ids)
                     io_lib.save_markedSP_from_batch(batch["BGR"][:4].flip(-1).cpu().numpy(), spix_map.cpu().numpy(),
                                                     os.path.join(run_dir, "val_imgs"), [], epoch)
             if vn == 0:
                 # a val set smaller than one batch (drop_last): 0.0 would pass for a best
                 logger.warning("validation produced no batches (val set < batch); saving 'last' only")
-                mgr.save("last", state, epoch + 1, best_loss, plateau)
+                save_checkpoint(mgr, "last", state, epoch + 1, best_loss, plateau)
                 continue
             val_loss /= vn
             entry["val_loss"] = val_loss
@@ -158,10 +179,10 @@ def train(args, train_ds, val_ds) -> dict:
                 plateau.update(val_loss)
             writer_v.scalar("val/totalLoss", val_loss, epoch)
             logger.info(f"epoch {epoch}: train {ep_loss:.4f} val {val_loss:.4f}")
-            mgr.save("last", state, epoch + 1, min(best_loss, val_loss), plateau)
+            save_checkpoint(mgr, "last", state, epoch + 1, min(best_loss, val_loss), plateau)
             if val_loss < best_loss:
                 best_loss = val_loss
-                mgr.save("best", state, epoch + 1, best_loss, plateau)
+                save_checkpoint(mgr, "best", state, epoch + 1, best_loss, plateau)
     writer_t.flush()
     writer_v.flush()
     logger.info("done.")

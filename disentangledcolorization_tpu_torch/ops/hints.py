@@ -10,16 +10,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.seeding import as_draws
+
 
 def get_random_mask(n: int, h: int, w: int, min_num: int, max_num: int, generator=None, device=None) -> torch.Tensor:
     """(N, H, W, 1) binary f32 masks, each with a count of ones drawn
     uniformly from [min_num, max_num], at distinct locations: the ``count``
     lowest-ranked of uniform scores (JAX ``ops/hints.py:16-31``). torch's
     generator gives other numbers than ``jax.random``; the same generator
-    state gives the same mask."""
-    device = generator.device if generator is not None else device
-    counts = torch.randint(min_num, max_num + 1, (n,), generator=generator, device=device)
-    scores = torch.rand((n, h * w), generator=generator, device=device)
+    state gives the same mask. ``generator`` may be a ``RowDraws``: the counts
+    and scores are then drawn for its global batch and this rank keeps its
+    images' rows."""
+    draws = as_draws(generator, device)
+    counts = draws.randint(min_num, max_num + 1, n)
+    scores = draws.rand(n, h * w)
     ranks = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
     return (ranks < counts[:, None]).float().reshape(n, h, w, 1)
 

@@ -271,8 +271,8 @@ def serve_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", default="1,8,56,128",
                     help="comma-separated 256x256 batch buckets to run once before serving ('' to skip)")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard request batches over all local cards: accepted on one card; more raise "
-                    "(ROADMAP.md, queue 1, item 4)")
+                    help="split request batches over all local cards, one model replica a card "
+                    "(parallel/replicas.py)")
     ap.add_argument("--wire", default="uint8", choices=["uint8", "float32"],
                     help="the uint8 codec of the JAX server for L in and ab out (<= 0.43 ab units)")
     ap.add_argument("--quantize", default="none", choices=["none", "int8", "int8_safe"],

@@ -10,6 +10,21 @@ device, one for the k-means anchors and one for dropout, seeded from
 counterpart of the JAX step's ``fold_in(base_key, step)`` and
 ``fold_in(key, microbatch)``. The numbers differ from ``jax.random``'s.
 
+Data parallelism (``parallel/mesh.py``): each rank runs the step on its rows
+of the global batch. Microbatch ``i`` of the global batch is every rank's
+microbatch ``i`` in rank order, so that no row moves between ranks. This
+departs from JAX, whose step reshapes the global array to ``(A, n / A)``:
+its microbatch ``i`` is a contiguous block of global rows, process 0's first,
+so on one global batch a microbatch's BatchNorm statistics and anchors cover
+other images than JAX's (a single process is unchanged). The anchors are drawn for the global
+(micro)batch and each rank keeps its rows (``utils/seeding.py::RowDraws``), so
+they do not depend on the world size; with more than one rank, the dropout
+generator also folds in the rank, so that no two ranks share masks (world
+size 1 draws what a single process draws). BatchNorm takes global statistics
+(``models/layers.py``). After the last microbatch's backward the gradients
+are averaged over the ranks, so clipping, the non-finite skip and the update
+see the same global gradient on every rank; the metrics are global means.
+
 ``grad_accum=A`` runs A equal microbatches in sequence, each with its own
 generators, BatchNorm running statistics and spectral-norm vectors threaded
 from one to the next (as the JAX ``scan`` does), sums gradients of loss / A,
@@ -34,6 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.layers import BatchNorm, SNConv
 from ..ops import colorlabel as cl
+from ..parallel import mesh
+from ..utils.seeding import RowDraws
 from .losses import spixel_loss
 from .state import TrainState
 
@@ -51,16 +68,27 @@ def make_spixel_train_step(kernel_size: int = 16):
         labxy = torch.cat([batch["feat"], batch["coord"]], dim=-1)
         metrics = spixel_loss(prob, labxy, kernel_size)
         metrics["totalLoss"].backward()
+        mesh.all_reduce_gradients(state.optimizer.params)
         state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.mean_reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     return step
 
 
-def step_generators(device, *entropy: int) -> tuple[torch.Generator, torch.Generator]:
-    """(anchor, dropout) generators on ``device`` seeded from ``entropy``."""
-    seeds = np.random.SeedSequence([int(e) for e in entropy]).generate_state(2, dtype=np.uint64)
+def step_generators(device, *entropy: int, rank: int = 0, world: int = 1) -> tuple[torch.Generator, torch.Generator]:
+    """(anchor, dropout) generators on ``device`` seeded from ``entropy``;
+    with ``world`` > 1 the dropout one also from (``world``, ``rank``)."""
+    entropy = [int(e) for e in entropy]
+    seeds = np.random.SeedSequence(entropy).generate_state(2, dtype=np.uint64)
+    if world > 1:
+        seeds[1] = np.random.SeedSequence(entropy + [world, rank]).generate_state(2, dtype=np.uint64)[1]
     return tuple(torch.Generator(device=device).manual_seed(int(s) & (2**63 - 1)) for s in seeds)
+
+
+def rank_draws(generator: torch.Generator, n: int) -> RowDraws:
+    """This rank's rows of a global batch of ``n`` rows a rank."""
+    rank, world = mesh.process_index(), mesh.world_size()
+    return RowDraws(generator, rank * n, world * n)
 
 
 class RecomputeContext:
@@ -74,7 +102,7 @@ class RecomputeContext:
     only, and the forward's in-place buffer updates would otherwise run twice."""
 
     def __init__(self, model: torch.nn.Module, generators):
-        self.generators = [g for g in generators if g is not None]
+        self.generators = [getattr(g, "generator", g) for g in generators if g is not None]
         self.buffers = [b for m in model.modules() if isinstance(m, (BatchNorm, SNConv)) for b in m.buffers()]
 
     @contextlib.contextmanager
@@ -146,15 +174,17 @@ def make_colorizer_train_step(loss_bundle, remat: bool = False, class_lambda: fl
         state.optimizer.zero_grad()
         sums = {}
         for idx in range(grad_accum):
-            gen, drop_gen = step_generators(gray.device, seed, state.step, idx)
+            gen, drop_gen = step_generators(gray.device, seed, state.step, idx, rank=mesh.process_index(),
+                                            world=mesh.world_size())
             sl = slice(idx * m, (idx + 1) * m)
-            metrics = colorizer_losses(state.model, loss_bundle, gray[sl], color[sl], class_lambda, True, gen, drop_gen,
-                                       remat)
+            metrics = colorizer_losses(state.model, loss_bundle, gray[sl], color[sl], class_lambda, True,
+                                       rank_draws(gen, m), drop_gen, remat)
             (metrics["totalLoss"] / grad_accum).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        mesh.all_reduce_gradients(state.optimizer.params)
         state.apply_gradients()
-        return {k: v / grad_accum for k, v in sums.items()}
+        return mesh.mean_reduce_metrics({k: v / grad_accum for k, v in sums.items()})
 
     return step
 
@@ -167,7 +197,8 @@ def make_colorizer_eval_step(loss_bundle, class_lambda: float = 0.5):
     @torch.no_grad()
     def step(state: TrainState, batch: dict, seed: int = 0) -> dict:
         gen, _ = step_generators(batch["gray"].device, seed)
-        metrics = colorizer_losses(state.model, loss_bundle, batch["gray"], batch["color"], class_lambda, False, gen)
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = colorizer_losses(state.model, loss_bundle, batch["gray"], batch["color"], class_lambda, False,
+                                   rank_draws(gen, batch["gray"].shape[0]))
+        return mesh.mean_reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     return step

@@ -50,7 +50,7 @@ def _add_common(parser: argparse.ArgumentParser):
                              "host->device input traffic; single-process, "
                              "datasets that fit — train/data.py::DeviceIndexLoader)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
-    # distributed (multi-process training is not ported yet: the trainers refuse these)
+    # distributed: one process per card (parallel/mesh.py::initialize_distributed)
     parser.add_argument("--coordinator", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -139,8 +139,8 @@ def inference_argparser() -> argparse.ArgumentParser:
                    "thread while the device computes, and PNGs are written by an async "
                    "writer; set 0 for the fully serial reference behavior")
     p.add_argument("--shard_spatial", action="store_true", default=False,
-                   help="no_resize: shard the image H axis over all devices: not ported yet "
-                   "(ROADMAP.md, queue 1, item 4); raises")
+                   help="no_resize: shard the image H axis over all devices; read only with more "
+                   "than one card, where it is not ported yet (ROADMAP.md, queue 1, item 9) and raises")
     p.add_argument("--bucket", default=16, type=int,
                    help="no_resize: pad H,W up to multiples of this (16 = exact reference "
                    "semantics; larger values trade extra edge padding for fewer distinct shapes)")

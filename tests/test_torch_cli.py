@@ -10,9 +10,10 @@ tiny image folder: 32x32 images, batch 2, a 2+2-layer colorizer, 2 clusters.
   ``--remat`` and ``--grad_clip`` switched on;
 * ``train`` runs on in-memory datasets (``train.data.ArrayDataset``), with
   ``--device_data``;
-* flags whose feature is not ported (multi-process training) raise
-  ``NotImplementedError``, and without a card the entry points raise instead
-  of running on the CPU.
+* multi-process flags without a rank (``--num_processes 2`` outside torchrun)
+  raise ``ValueError`` before any data is read (the two-process runs are in
+  ``test_torch_ddp_cli.py``), and without a card the entry points raise
+  instead of running on the CPU.
 
 ``--compute_dtype bfloat16`` no longer raises: ``test_torch_bf16_train_cli.py``
 runs both trainers with it. Nor do the model options (``--random_hint``,
@@ -122,13 +123,15 @@ def test_train_on_in_memory_datasets_with_device_data(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--num_processes", "2"]])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unported_flags_raise(tmp_path, flags, monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="--process_id"):
         train_colorizer.main(["--data", str(tmp_path), *SMALL, *COLOR, *flags])
 
 
-def test_unported_and_unread_flags_raise_for_both(tmp_path):
-    with pytest.raises(NotImplementedError, match="DDP"):
+def test_unported_and_unread_flags_raise_for_both(tmp_path, monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="--process_id"):
         train_spixel.main(["--data", str(tmp_path), *SMALL, "--num_processes", "2"])
     with pytest.raises(ValueError, match="--resume"):
         train_spixel.main(["--data", str(tmp_path), *SMALL, "--checkpt", "x.pth"])

@@ -132,12 +132,16 @@ def test_colorizer_same_seed_same_output():
 
 @pytest.mark.parametrize("kwargs", [{"quantize": "int8"}, {"data_parallel": True}])
 def test_later_slices_raise(kwargs, monkeypatch):
-    """int8 (queue 1, item 5) raises; ``data_parallel=True`` raises only where
-    more than one card is visible (item 4): on one device it is accepted, as
-    the JAX ``Colorizer`` ignores it there."""
+    """int8 (queue 1, item 5) raises. ``data_parallel=True`` no longer raises
+    (item 4, ported): on one device it keeps one model, as the JAX
+    ``Colorizer`` does; over two devices one replica each
+    (``test_torch_data_parallel_api.py`` holds their answers)."""
     if kwargs.get("data_parallel"):
-        Colorizer(n_clusters=2, device="cpu", **kwargs)  # one device: accepted
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert len(Colorizer(n_clusters=2, device="cpu", **kwargs).replicas) == 1  # one device
+        from disentangledcolorization_tpu_torch.parallel import mesh
+
+        monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
+        assert len(Colorizer(n_clusters=2, device="cpu", **kwargs).replicas) == 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item"):
         Colorizer(device="cuda", **kwargs)

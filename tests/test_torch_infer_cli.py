@@ -19,8 +19,8 @@
   reference ``.pth.tar`` and a run directory of the port's trainers give the
   weights JAX's loader gives (1e-6), and a ``.pkl`` Colorizer answers within
   2 levels of JAX's; a missing path and a JAX trainer's Orbax directory raise.
-* The refusals: ``--quantize`` (no environment variable set),
-  ``--shard_spatial`` and more than one visible card.
+* The refusals: ``--quantize`` (no environment variable set), and
+  ``--shard_spatial --no_resize`` over more than one device.
 * Attention's plain version at head width 4 (``--d_model 32``) against the
   JAX core, 1e-5 as ``test_torch_attention.py``.
 """
@@ -269,20 +269,30 @@ def test_loader_refuses_a_missing_path_and_an_orbax_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags, match", [(["--quantize", "int8"], "item 5"), (["--quantize", "int8_safe"], "item 5"),
-                                          (["--no_resize", "--shard_spatial"], "item 4")])
+                                          (["--no_resize", "--shard_spatial"], "item 9")])
 def test_unported_flags_raise(flags, match, tmp_path, monkeypatch):
+    """``--shard_spatial`` raises only where JAX would shard: with
+    ``--no_resize`` over more than one device (two here, by
+    ``parallel/mesh.py::local_devices``); on one it is accepted
+    (``test_torch_data_parallel_api.py``)."""
     for var in ("DISCO_INT8", "DISCO_INT8_EXCLUDE"):
         monkeypatch.delenv(var, raising=False)
+    from disentangledcolorization_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
     with pytest.raises(NotImplementedError, match=match):
         infer.main(["--data", str(tmp_path), "--device", "cpu", "--save_dir", str(tmp_path), *flags])
     assert "DISCO_INT8" not in os.environ and "DISCO_INT8_EXCLUDE" not in os.environ
 
 
 def test_more_than_one_card_raises(tmp_path, monkeypatch):
+    """Two visible cards: data parallel, except ``--no_resize --shard_spatial``
+    (the H axis sharded over the cards), which still raises before any card
+    is touched (ROADMAP.md, queue 1, item 9)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        infer.main(["--data", str(tmp_path), "--save_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        infer.main(["--data", str(tmp_path), "--save_dir", str(tmp_path), "--no_resize", "--shard_spatial"])
 
 
 def test_argparser_has_every_jax_flag():

@@ -801,3 +801,57 @@ def test_metrics_card_vs_cpu(cuda, tmp_path):
         assert float(((card[i] - cpu[i]).abs() / cpu[i].abs()).max()) < tol, i
     for i in (4, 5):
         assert float((card[i] - cpu[i]).abs().max() / cpu[i].abs().max()) < 1e-4, i
+
+
+def test_batchnorm_two_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on the one card over gloo (``tests/torch_ddp_workers.py``):
+    BatchNorm's global statistics and their gradient sums against one process
+    on the global batch on the card, within 1e-6 of each tensor's largest entry
+    (the weight and bias gradients averaged over the ranks, x2)."""
+    import numpy as np
+
+    from disentangledcolorization_tpu_torch.models.layers import BatchNorm
+    from torch_ddp_workers import run_ranks
+
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(8, 16, 12, 10)) * 2.0 + 0.7).astype(np.float32)
+    state = {"weight": rng.uniform(0.8, 1.2, 16).astype(np.float32), "bias": rng.normal(size=16).astype(np.float32),
+             "running_mean": np.zeros(16, np.float32), "running_var": np.ones(16, np.float32),
+             "num_batches_tracked": np.array(0)}
+    p = {"x": x, "cot": rng.normal(size=x.shape).astype(np.float32), "state": state, "dtype": torch.float32}
+    ranks = run_ranks(tmp_path, [("batchnorm", p)], device="cuda")
+    bn = BatchNorm(16)
+    bn.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    bn.to(cuda)
+    xt = torch.from_numpy(x).to(cuda).requires_grad_()
+    y = bn(xt, train=True)
+    (y * torch.from_numpy(p["cot"]).to(cuda)).sum().backward()
+    one = {"y": y, "dx": xt.grad, "dw": bn.weight.grad / 2, "db": bn.bias.grad / 2, "mean": bn.running_mean,
+           "var": bn.running_var}
+    for r, (out,) in enumerate(ranks):
+        for k, ref in one.items():
+            ref = ref.detach().cpu()
+            ref = ref[4 * r:4 * r + 4] if k in ("y", "dx") else ref
+            assert (out[k] - ref).abs().max() <= 1e-6 * ref.abs().max(), (r, k)
+
+
+def test_spixel_step_two_ranks_on_one_card(cuda, tmp_path):
+    """A stage-1 SGD step (4 conditioned images at 64x64, as
+    ``tests/test_torch_ddp_step.py``) on two ranks sharing the card over gloo
+    against the one-process step on the global batch on the card, cuDNN's
+    deterministic algorithms on both sides (its defaults are not): losses at
+    rtol 1e-5, every parameter after the update and every buffer within 1e-5
+    of the tensor's largest entry. The stage-2 step is held at full size by
+    ``chip_smoke.py`` phase 14a: a 2+2-layer colorizer at 32x32 is chaotic on
+    the card (one ulp of input moves its weights 2.1e-3 of their largest entry,
+    measured on an H100), too close to its rounding to tell a fault apart."""
+    from torch_ddp_workers import assert_states_close, run_ranks, spixel_payload, spixel_step
+
+    p = {**spixel_payload(), "sgd_lr": 0.1}
+    ranks = run_ranks(tmp_path, [("spixel_step", p)], device="cuda")
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        one = spixel_step(0, 1, None, {**p, "device": "cuda"})
+    for (r,) in ranks:
+        for k, v in one["metrics"].items():
+            assert abs(r["metrics"][k] - v) <= 1e-5 * abs(v), k
+        assert_states_close(r["state"], one["state"], 1e-5)

@@ -22,6 +22,10 @@ Held against JAX:
     the update's max (see ``ACCUM_TOL``);
   * the eval step's losses.
 And, port against port: ``remat=True`` equals ``remat=False`` bit for bit.
+The same step over two ranks (gloo, spawned CPU processes, one image a rank,
+each keeping its rows of the pinned hint mask) is held against JAX's
+global-batch step as the one-process step is: losses, parameters after the
+SGD update within LR x 1e-4 of the gradient's largest entry, buffers.
 SGD, because Adam's first update is about lr * sign(g), and a gradient that is
 zero up to round-off would flip it.
 """
@@ -245,6 +249,31 @@ def test_train_step_matches_jax(ref, monkeypatch):
     _check_buffers(model, ref["after1"])
     assert all(torch.equal(seg0[k], v) for k, v in model.segnet.state_dict().items())
     assert st.step == 1 and st.optimizer.count == 1
+
+
+def test_two_rank_train_step_matches_jax(ref, tmp_path):
+    from torch_ddp_workers import run_ranks
+
+    variables = from_jax_variables(ref["variables"], sn_folded=False)
+    payload = {"state": {k: v.numpy() for k, v in variables.items()}, "batch": ref["batch"], "lr": LR,
+               "hint": ref["hint1"][0]}
+    ranks = [out[0] for out in run_ranks(tmp_path, [("colorizer_step", payload)])]
+    for out in ranks:
+        _check_losses(out["metrics"], ref["metrics"])
+        for k, g in ref["grads"].items():
+            if k.startswith("segnet."):
+                continue
+            g = g.numpy()
+            update = variables[k].numpy() - LR * g  # JAX's SGD update on its global-batch gradient
+            np.testing.assert_allclose(out["state"][k].numpy(), update, atol=LR * 1e-4 * np.abs(g).max() + 1e-6,
+                                       rtol=0, err_msg=k)
+        keys = [k for k in ref["after1"] if k.endswith(("running_mean", "running_var", "weight_u"))]
+        assert len(keys) > 40
+        for k in keys:
+            np.testing.assert_allclose(out["state"][k].numpy(), ref["after1"][k].numpy(), atol=1e-5, rtol=0,
+                                       err_msg=k)
+        assert all(torch.equal(out["state"][k], v) for k, v in variables.items() if k.startswith("segnet."))
+    assert all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ranks[0]["state"])
 
 
 def test_grad_accum_step_matches_jax(ref, monkeypatch):

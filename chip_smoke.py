@@ -167,6 +167,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      uint8 wires: equal bit for bit to one model answering each replica's
      rows in turn; against one replica on the whole batch, the images whose
      k-means anchors agree within phase 9's bf16 tolerance, the rest counted.
+ 15. int8 serving (``ops/quant.py``): kernels I (``csrc/quantize.cu``) and H
+     (``csrc/int8_conv.cu``) in both instances at batch 8: 65->64 and 64->64
+     at 256x256, 64->128 at stride 2, 256->256 at 64x64, 512->512 at 32x32
+     and 64->2 at 256x256, each twice and bit for bit against its plain
+     version, timed by events and by device time beside its bound (bytes at
+     3.35 TB/s or int8 operations at 1,979 TOP/s), the plain version,
+     ``torch._int_mm`` over an im2col (its sums, through H's epilogue, equal
+     H's output bit for bit) and cuDNN's bf16 convolution; a seeded
+     ``Colorizer(quantize="int8")`` in bf16 and in f32 (the first batch of 8
+     calibrates, then 3 requests, in turns with the float ``Colorizer``):
+     launches per forward (H and I 51 each, plus phase 9's or 4's), host
+     synchronisations a request (as many as the float Colorizer's), images/s, the
+     device ms of H and I in a forward, the card's int8 forward against the
+     CPU's plain int8 path at 128x128 with the card's ranges (stated
+     tolerances); ``int8_safe`` (24 a forward, no repnet convolution gated),
+     ``cli.infer.infer --quantize int8`` on 16 in-memory images at batch 8,
+     one request to ``serve.start --quantize int8_safe``; and
+     ``AnchorColorProb(fast_seg=True)`` equal to ``fast_seg=False`` bit for bit.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -1694,7 +1712,8 @@ BF16_ULPS = 1.0
 # one bf16 forward launches what an f32 forward does, through the bf16
 # instances of kernels A, B and C (kernel F and kernel D stay f32)
 BF16_PER_FORWARD = {"affinity_head[bf16]": 1, "pool_stats[bf16]": 1, "shift_add": 1, "upfeat[bf16]": 1,
-                    "attention": 12, "affinity_head": 0, "pool_stats": 0, "upfeat": 0, "prob_grad": 0}
+                    "attention": 12, "affinity_head": 0, "pool_stats": 0, "upfeat": 0, "prob_grad": 0,
+                    "int8_conv[bf16]": 0, "quantize[bf16]": 0}
 # the card's bf16 forward against the same model's bf16 plain path on the CPU:
 # the same rounding points, sums in other orders (cuDNN against oneDNN), whose
 # one-ulp flips grow through ~60 bf16 layers (tests/test_torch_bf16.py: two
@@ -2277,7 +2296,7 @@ def bf16_train_card_vs_cpu(device, size: int = 32, batch: int = 2) -> dict:
 # unpooling of the hintpath's tokens, so neither its kernel C nor its token
 # gradient (A without counts, then F)
 F32_PER_FORWARD = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 12,
-                   "prob_grad": 0, "attention_bwd": 0}
+                   "prob_grad": 0, "attention_bwd": 0, "int8_conv": 0, "quantize": 0}
 NOT_ENHANCED_PER_STEP = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "shift_add": 1, "attention": 12,
                          "attention_bwd": 12, "prob_grad": 0}
 # the options step on the card against the CPU, as phase 5's
@@ -3899,6 +3918,353 @@ def drive_two_replicas(device, smi: str, size: int = 256, batch: int = 8) -> tup
     return total, res
 
 
+# phase 15: int8 serving. Kernels H (csrc/int8_conv.cu) and I
+# (csrc/quantize.cu) are exact: int32 sums in any order, IEEE divisions and
+# one fused multiply-add, so each must equal its plain version bit for bit (a
+# difference is a bug, not a tolerance). An int8 forward launches what the
+# float forward of its dtype does (phase 9's bf16 or phase 4's f32 counts)
+# plus H and I once for each gated convolution: 51 (27 in the repnet, 24 in
+# HourGlass2), 24 under int8_safe; the calibration forward launches neither.
+INT8_OPS_PER_S = 1979e12
+# (C, O, stride, H=W) at batch 8: the enhancer's first convolution (C = 65),
+# the full-resolution 64->64 (7 of the 51), a stride-2 step down, the
+# residual blocks' 256->256, the repnet's 512->512 and the output's 64->2
+INT8_CONV_SHAPES = ((65, 64, 1, 256), (64, 64, 1, 256), (64, 128, 2, 256), (256, 256, 1, 64), (512, 512, 1, 32),
+                    (64, 2, 1, 256))
+INT8_ROW_SHAPE = (64, 64, 1, 256)  # the shape whose times stand in the kernels line
+INT8_GATED = {"int8": 51, "int8_safe": 24}
+# The card's static int8 forward against the same weights' plain int8 path on
+# the CPU, with the card's calibrated ranges copied over and the anchors
+# pinned, 128x128: the float convolutions of cuDNN and of the CPU differ in
+# the last bits, which moves an activation across a half-step of the int8
+# grid now and then; one int8 step moves a layer's output by about 2e-3, and
+# the next layers' grids carry it on (tests/test_torch_quant_serving.py: two
+# int8 forwards whose float nets differ by 1e-7 end 9.8e-3 / 1.24e-2 apart in
+# pred_colors, f32 / bf16, as far as int8 is from float). Absolute on
+# pred_colors and the affinity map, relative to the largest entry on the logits;
+# about 3-4x the first run on an H100 (f32 1.83e-2, 1.32e-3, 6.5e-4; bf16
+# 1.60e-2, 2.2e-4, 1.0e-4 for pred_colors, pal_logit, ref_logit).
+INT8_CARD_CPU_TOL = {"float32": {"affinity_map": 1e-5, "pred_colors": 5e-2, "pal_logit": 5e-3, "ref_logit": 2e-2},
+                     "bfloat16": {"affinity_map": 6e-3, "pred_colors": 6e-2, "pal_logit": 2e-2, "ref_logit": 3e-2}}
+
+
+def int8_conv_case(device, g, c: int, o: int, stride: int, hw: int, dtype, n: int = 8, timed: bool = False) -> dict:
+    """Kernels I then H at one shape against their plain versions, twice for
+    bitwise equality; with ``timed``, I and H by CUDA events and device time,
+    the plain versions, ``torch._int_mm`` over an im2col (its sums, through
+    the same epilogue, must give H's output bit for bit) and cuDNN's bf16
+    convolution, beside their bounds."""
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    x = torch.randn(n, hw, hw, c, generator=g).to(device, dtype).permute(0, 3, 1, 2)  # channels_last
+    weight = (torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5).to(device)
+    bias = (torch.randn(o, generator=g) * 0.1).to(device)
+    wq, mw = quant.quantize_weight(weight)
+    amax = x.abs().amax().float() * quant.CALIB_MARGIN
+    q = quant.quantize_activation(x, amax)
+    q_ref = quant.quantize_activation_plain(x, amax)
+    out = quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype)
+    ref = quant.int8_conv_plain(q_ref, amax, wq, mw, bias, stride, dtype)
+    equal = {"quantize": torch.equal(q, q_ref) and torch.equal(q, quant.quantize_activation(x, amax)),
+             "int8_conv": torch.equal(out, ref) and torch.equal(out, quant._int8_conv_cuda(q, amax, wq, mw, bias,
+                                                                                         stride, dtype))}
+    case = {"shape": f"{n}x{hw}x{hw}, {c}->{o}, stride {stride}", "dtype": str(dtype)[6:], "bitwise_equal": equal,
+            "max_abs_err": float((out.float() - ref.float()).abs().max())}
+    if not all(equal.values()):
+        raise AssertionError(f"int8 kernels off their plain versions at {case}")
+    if not timed:
+        return case
+    m_rows, k = out.shape[0] * out.shape[2] * out.shape[3], 9 * c
+    case["h"] = dict(ms=time_ms(lambda: quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype), device),
+                     device_ms=device_ms(lambda: quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype))[0],
+                     plain_ms=time_ms(lambda: quant.int8_conv_plain(q_ref, amax, wq, mw, bias, stride, dtype), device,
+                                      warmup=1, iters=3))
+    case["h"]["bound_ms"], case["h"]["bound_by"] = bound_int8(nbytes(q, wq, mw, bias, out), 2.0 * m_rows * o * k)
+    case["i"] = dict(ms=time_ms(lambda: quant.quantize_activation(x, amax), device),
+                     device_ms=device_ms(lambda: quant.quantize_activation(x, amax))[0],
+                     plain_ms=time_ms(lambda: quant.quantize_activation_plain(x, amax), device, warmup=1, iters=3))
+    case["i"]["bound_ms"], case["i"]["bound_by"] = bound_int8(nbytes(x, q), float(x.numel()))
+    try:  # the library yardstick of I: one quantizing call (host scale: it waits for the card)
+        scale = float(quant.act_scale(amax))
+        case["i"]["library_ms"] = time_ms(lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8), device)
+    except (RuntimeError, TypeError) as e:
+        case["i"]["library_ms"], case["i"]["library_error"] = None, str(e)[:120]
+    # the library yardstick of H: torch._int_mm over an im2col of the same int8 tensor (never on the port's path)
+    cols = F.unfold(q.permute(0, 3, 1, 2).to(torch.float16), 3, padding=1, stride=stride)  # (n, cp*9, L)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8).contiguous()
+    npad = -(-o // 8) * 8
+    wmat = torch.zeros(npad, cols.shape[1], dtype=torch.int8, device=device)
+    wmat[:o] = wq.permute(0, 3, 1, 2).reshape(o, -1)
+    b = wmat.t()  # (K, N), column-major
+    try:
+        acc = torch._int_mm(a, b)
+    except RuntimeError:
+        b = b.contiguous()
+        acc = torch._int_mm(a, b)
+    sums = acc[:, :o].reshape(out.shape[0], out.shape[2], out.shape[3], o).permute(0, 3, 1, 2)
+    via = quant.fma_f32(sums.float(), quant.dequant_scale(amax, mw)[None, :, None, None],
+                        bias[None, :, None, None]).to(dtype)
+    case["int_mm_equal"] = bool(torch.equal(via, out))
+    x_bf = x.to(torch.bfloat16)
+    w_bf = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b_bf = bias.to(torch.bfloat16)
+    case["h"]["library_ms"] = time_ms(lambda: torch._int_mm(a, b), device)
+    case["h"]["library_device_ms"] = device_ms(lambda: torch._int_mm(a, b))[0]
+    case["h"]["cudnn_bf16_ms"] = time_ms(lambda: F.conv2d(x_bf, w_bf, b_bf, stride, 1), device)
+    case["h"]["cudnn_bf16_device_ms"] = device_ms(lambda: F.conv2d(x_bf, w_bf, b_bf, stride, 1))[0]
+    if not case["int_mm_equal"]:
+        raise AssertionError(f"torch._int_mm over the im2col does not give kernel H's sums at {case['shape']}")
+    return case
+
+
+def bound_int8(bytes_moved: int, ops: float) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and int8 operations over the
+    int8 tensor-core peak (H100 SXM, 700 W)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_int8_kernels(device) -> tuple[list, dict]:
+    """Phase 15a: kernels I and H at every shape of INT8_CONV_SHAPES in both
+    dtypes, bit for bit against their plain versions; the INT8_ROW_SHAPE
+    case timed for the kernels line, every case timed for the record."""
+    g = torch.Generator().manual_seed(15)
+    rows, cases = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in INT8_CONV_SHAPES:
+            cases.append(int8_conv_case(device, g, *shape, dtype, timed=True))
+            if shape == INT8_ROW_SHAPE:
+                row_case = cases[-1]
+        tag = "[bf16]" if dtype == torch.bfloat16 else ""
+        for name, part, src, replaces in (
+                ("int8_conv", "h", "int8_conv.cu", "disentangledcolorization_tpu/ops/quant.py:121 (int8_conv, XLA conv; no Pallas kernel)"),
+                ("quantize", "i", "quantize.cu", "disentangledcolorization_tpu/ops/quant.py:105 (quantize_activation, XLA ops; no Pallas kernel)")):
+            r = row_case[part]
+            rows.append(dict(name=name + tag, route="cuda", source=f"disentangledcolorization_tpu_torch/csrc/{src}",
+                             replaces=replaces, max_abs_err=row_case["max_abs_err"] if part == "h" else 0.0,
+                             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+                             library_device_ms=r.get("library_device_ms"), cudnn_bf16_ms=r.get("cudnn_bf16_ms"),
+                             shape=row_case["shape"]))
+    for c in cases:
+        h, i = c["h"], c["i"]
+        log(f"int8 {c['dtype']} {c['shape']}: bit for bit; H {h['ms']:.4f} ms (device {h['device_ms']}), bound "
+            f"{h['bound_ms']:.4f} ({h['bound_by']}), plain {h['plain_ms']:.3f}, _int_mm {h['library_ms']:.4f} "
+            f"(device {h['library_device_ms']}), cuDNN bf16 {h['cudnn_bf16_ms']:.4f} (device "
+            f"{h['cudnn_bf16_device_ms']}); I {i['ms']:.4f} ms (device {i['device_ms']}), bound {i['bound_ms']:.4f}, "
+            f"quantize_per_tensor {i['library_ms']}")
+    return rows, {"int8_cases": cases}
+
+
+def int8_card_vs_cpu(col, size: int = 128) -> dict:
+    """The card's static int8 forward against the same weights' plain int8
+    path on the CPU (the card's calibrated ranges copied over), hint mask
+    and anchor colors pinned."""
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    dtype = "bfloat16" if col.model.compute_dtype == torch.bfloat16 else "float32"
+    cpu = AnchorColorProb(n_enc_layers=len(col.model.wildpath.layers), sn_folded=True,
+                          compute_dtype=col.model.compute_dtype)
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in col.model.state_dict().items()})
+    cpu.eval()
+    cpu.set_quantization(col.quantize, "calib")
+    quant.load_amax(cpu, {k: v.cpu() for k, v in quant.gated_amax(col.model).items()})
+    cpu.set_quantization(col.quantize, "static")
+    rng = np.random.default_rng(1)
+    gray = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 1)).astype(np.float32))
+    hc = size // col.sp_size
+    mask = torch.zeros(1, hc, hc, 1)
+    mask[0, rng.integers(0, hc, 8), rng.integers(0, hc, 8)] = 1.0
+    colors = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, hc, hc, 2)).astype(np.float32))
+    dev = next(col.model.parameters()).device
+    with torch.no_grad():
+        out_dev = col.model(gray.to(dev), hint_mask_override=mask.to(dev), anchor_colors_override=colors.to(dev))
+        out_cpu = cpu(gray, hint_mask_override=mask, anchor_colors_override=colors)
+    tol, errs = INT8_CARD_CPU_TOL[dtype], {}
+    for k in tol:
+        scale = float(out_cpu[k].abs().max()) if k.endswith("logit") else 1.0
+        errs[k] = max_err(out_dev[k].cpu(), out_cpu[k]) / scale
+    log(f"int8 {dtype} card vs CPU plain int8 path at {size}x{size} (max|d|, the logits relative): {json.dumps(errs)} "
+        f"(tolerances {json.dumps(tol)})")
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"int8 {dtype}: card and CPU plain path disagree: {bad}")
+    return errs
+
+
+def int8_per_forward(dtype: str, gated: int) -> dict:
+    """Launches of one int8 forward: the float forward's plus H and I per gated convolution."""
+    base = BF16_PER_FORWARD if dtype == "bfloat16" else F32_PER_FORWARD
+    tag = "[bf16]" if dtype == "bfloat16" else ""
+    other = "" if tag else "[bf16]"
+    return {**base, f"int8_conv{tag}": gated, f"quantize{tag}": gated, f"int8_conv{other}": 0, f"quantize{other}": 0}
+
+
+def check_launches(label: str, counts: dict, per: dict, forwards: int, extra: dict | None = None) -> None:
+    extra = extra or {}
+    bad = {k: counts[k] for k, v in per.items() if counts[k] != v * forwards + extra.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{label}: launches {bad} over {forwards} forwards (+ {extra}), expected {per} each")
+
+
+def drive_int8_serving(device, smi: str, n_requests: int = 3, batch: int = 8, size: int = 256) -> tuple[dict, dict]:
+    """Phase 15b and 15c: seeded random-weight ``Colorizer(quantize="int8")``
+    in bf16 and f32 (its first ``colorize_batch`` of 8 calibrates, then 3
+    requests), each beside the float ``Colorizer`` of its dtype in turns;
+    launches per forward, host synchronisations per request, images/s,
+    device ms of H and I in a forward, card vs CPU; then int8_safe (24 a
+    forward), ``cli.infer.infer --quantize int8`` on 16 in-memory images at
+    batch 8, one request to ``serve.start --quantize int8_safe``, and
+    ``fast_seg=True`` against ``fast_seg=False`` bit for bit."""
+    import tempfile
+    import threading
+
+    from disentangledcolorization_tpu_torch import serve
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.cli import infer
+    from disentangledcolorization_tpu_torch.ops import kernels, quant
+    from disentangledcolorization_tpu_torch.utils.config import inference_argparser
+    from disentangledcolorization_tpu_torch.utils.io import encode_png, read_png
+
+    rng = np.random.default_rng(15)
+    requests = [[rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(batch)]
+                for _ in range(n_requests + 1)]
+    paths, res = {}, {"card": smi, "batch": batch, "size": size, "tf32": False}
+
+    def request(c, imgs):
+        t0 = time.perf_counter()
+        outs = c.colorize_batch(imgs)
+        torch.cuda.synchronize()
+        if len(outs) != len(imgs) or any(o.shape != (size, size, 3) or o.dtype != np.uint8 for o in outs):
+            raise AssertionError("colorize_batch: expected uint8 (H, W, 3) outputs")
+        return time.perf_counter() - t0
+
+    for dtype in ("bfloat16", "float32"):
+        flt = Colorizer(device=device, seed=130, compute_dtype=dtype)
+        col = Colorizer(device=device, seed=130, compute_dtype=dtype, quantize="int8")
+        per = int8_per_forward(dtype, INT8_GATED["int8"])
+        kernels.reset_launch_counts()
+        calib_s = request(col, requests[0])  # the calibration forward, then the first int8 forward
+        if not col.calibrated or len(quant.gated_amax(col.model)) != INT8_GATED["int8"]:
+            raise AssertionError(f"int8 {dtype}: the first batch did not calibrate 51 convolutions")
+        float_part = {k: v for k, v in per.items() if not k.startswith(("int8_conv", "quantize"))}
+        check_launches(f"int8 {dtype} first batch", dict(kernels.LAUNCHES), per, 1, extra=float_part)
+        kernels.reset_launch_counts()
+        lat = [request(col, imgs) for imgs in requests[1:]]
+        counts = dict(kernels.LAUNCHES)
+        check_launches(f"int8 {dtype}", counts, per, n_requests)
+        paths[f"int8_serving_{dtype}"] = counts
+        request(flt, requests[1])  # warm
+        turns = {"float": [], "int8": []}
+        for who in ("float", "int8", "int8", "float"):
+            turns[who] += [request(flt if who == "float" else col, imgs) for imgs in requests[1:]]
+        grays = torch.cat([col._prep(img)[0] for img in requests[1]])
+        with torch.no_grad():
+            fwd_ms, by_kernel = device_ms(lambda: col.model(grays), iters=5)
+            flt_ms, _ = device_ms(lambda: flt.model(grays), iters=5)
+        h_ms = sum(v for k, v in by_kernel.items() if "int8_conv_kernel" in k)
+        i_ms = sum(v for k, v in by_kernel.items() if "quantize_kernel" in k)
+        syncs = {"int8": count_syncs(lambda: col.colorize_batch(requests[1])),
+                 "float": count_syncs(lambda: flt.colorize_batch(requests[1]))}
+        if syncs["int8"] != syncs["float"]:
+            raise AssertionError(f"int8 {dtype}: host synchronisations a request {syncs}: int8 must add none")
+        r = {"calibration_request_s": calib_s, "request_latency_s": lat,
+             "images_per_s": {k: batch * len(v) / sum(v) for k, v in turns.items()},
+             "forward_device_ms": {"int8": fwd_ms, "float": flt_ms},
+             "h_device_ms_per_forward": h_ms, "i_device_ms_per_forward": i_ms,
+             "syncs_per_request": syncs, "launches_per_forward": {k: counts[k] // n_requests for k in counts if counts[k]}}
+        r["card_vs_cpu"] = int8_card_vs_cpu(col)
+        res[dtype] = r
+        log(f"int8 serving {dtype} on {smi}: {json.dumps(r)}")
+        del flt, col
+
+    # int8_safe: the repnet stays in bf16
+    safe = Colorizer(device=device, seed=130, quantize="int8_safe")
+    request(safe, requests[0])
+    kernels.reset_launch_counts()
+    request(safe, requests[1])
+    counts = dict(kernels.LAUNCHES)
+    check_launches("int8_safe", counts, int8_per_forward("bfloat16", INT8_GATED["int8_safe"]), 1)
+    if sum(k.startswith("repnet.") for k in quant.gated_amax(safe.model)):
+        raise AssertionError("int8_safe: a repnet convolution is gated")
+    paths["int8_safe_serving"] = counts
+    del safe
+
+    with tempfile.TemporaryDirectory() as tmp:
+        grays, colors = lab_batch(np.stack(requests[0] + requests[1]))
+        names = [f"img{i:02d}.png" for i in range(2 * batch)]
+        args = inference_argparser().parse_args(["--batch_size", str(batch), "--n_clusters", "8", "--device",
+                                                 str(device), "--save_dir", tmp, "--name", "int8", "--compute_dtype",
+                                                 "bfloat16", "--quantize", "int8"])
+        kernels.reset_launch_counts()
+        run = infer.infer(args, ((grays[s:s + batch], colors[s:s + batch], names[s:s + batch], [(size, size)] * batch)
+                                 for s in range(0, 2 * batch, batch)))
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        per = int8_per_forward("bfloat16", INT8_GATED["int8"])
+        check_launches("infer --quantize int8", counts, per, 2,
+                       extra={k: v for k, v in per.items() if not k.startswith(("int8_conv", "quantize"))})
+        pngs = read_pngs(run["save_dir"])
+        if sorted(pngs) != names or any(p.shape != (size, size, 3) for p in pngs.values()):
+            raise AssertionError(f"infer --quantize int8: wrote {sorted(pngs)[:4]}...")
+        res["infer_cli"] = {"images": run["images"], "seconds": run["seconds"],
+                            "images_per_s": run["images"] / run["seconds"]}
+        paths["int8_infer_cli"] = counts
+
+    sargs = serve.serve_argparser().parse_args(["--device", str(device), "--port", "0", "--warmup", "",
+                                                "--quantize", "int8_safe"])
+    col, batcher, srv = serve.start(sargs)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        kernels.reset_launch_counts()
+        code, body = post(srv.server_address[1], encode_png(requests[0][0]))
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+    if code != 200 or read_png(body).shape != (size, size, 3) or not col.calibrated:
+        raise AssertionError(f"serve --quantize int8_safe: status {code}, calibrated {col.calibrated}")
+    per = int8_per_forward("bfloat16", INT8_GATED["int8_safe"])
+    check_launches("serve --quantize int8_safe", counts, per, 1,
+                   extra={k: v for k, v in per.items() if not k.startswith(("int8_conv", "quantize"))})
+    paths["int8_server"] = counts
+    del col
+
+    res["fast_seg_bitwise_equal"] = fast_seg_equal(device, batch, size)
+    log(f"int8 serving on {smi}: int8_safe 24 a forward, infer {json.dumps(res['infer_cli'])}, server answered; "
+        f"fast_seg=True equals fast_seg=False bit for bit")
+    return paths, res
+
+
+def fast_seg_equal(device, batch: int, size: int) -> bool:
+    """``AnchorColorProb(fast_seg=True)`` against ``fast_seg=False`` on the
+    same weights and inputs (bf16 serving, anchors pinned, cuDNN's
+    deterministic algorithms): every output equal bit for bit."""
+    from disentangledcolorization_tpu_torch.cli.infer import to_serving
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb
+
+    torch.manual_seed(130)
+    models = [AnchorColorProb(sn_folded=True, compute_dtype=torch.bfloat16, fast_seg=f) for f in (False, True)]
+    models[1].load_state_dict(models[0].state_dict())
+    models = [to_serving(m, device) for m in models]
+    rng = np.random.default_rng(16)
+    gray = torch.from_numpy(rng.uniform(-1, 1, (batch, size, size, 1)).astype(np.float32)).to(device)
+    hc = size // 16
+    mask = torch.zeros(batch, hc, hc, 1, device=device)
+    mask[:, 0, hc - 1] = mask[:, hc // 2, 0] = 1.0
+    colors = torch.from_numpy(rng.uniform(-0.5, 0.5, (batch, hc, hc, 2)).astype(np.float32)).to(device)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        outs = [m(gray, hint_mask_override=mask, anchor_colors_override=colors) for m in models]
+    if not all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0] if outs[0][k] is not None):
+        raise AssertionError("fast_seg=True differs from fast_seg=False on the card")
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4015,8 +4381,16 @@ def main() -> int:
     paths["two_replicas"], extras["two_replicas"] = drive_two_replicas(device, smi)
     mark(14)
 
+    # 15. int8 serving: kernels H and I bit for bit, the int8 Colorizer in both dtypes, int8_safe, the command
+    # line, the server, fast_seg
+    int8_rows, extras["int8_kernels"] = compare_int8_kernels(device)
+    rows += int8_rows
+    int8_paths, extras["int8_serving"] = drive_int8_serving(device, smi)
+    paths.update(int8_paths)
+    mark(15)
+
     for r in rows:
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items() if c[r["name"]]}
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in paths.items() if c.get(r["name"], 0)}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']}: no path launched it")
@@ -4024,7 +4398,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "max_rel_err",
             "max_ulps", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "library_dropout_ms",
-            "library_dropout_device_ms")
+            "library_dropout_device_ms", "cudnn_bf16_ms", "shape")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows], "also_measured": extras}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

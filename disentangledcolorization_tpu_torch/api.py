@@ -31,6 +31,20 @@ image crosses to the card as uint8 (a quarter of the f32 bytes). The port
 converts Lab to RGB on the device and brings back 8-bit RGB, so the
 dequantization runs there, just before that conversion; its numbers are the
 codec's.
+
+``quantize="int8"`` (or ``"int8_safe"``, the repnet kept in the compute
+dtype) is JAX's post-training quantization of the wide convolutions
+(``ops/quant.py``; kernels I and H on the card): off until the first batch
+that ``colorize`` or ``colorize_batch`` processes, which first runs one
+calibration forward in the compute dtype (``sampled_T=0``, no hints, the
+same anchor draws as the forward that follows), then static int8 for every
+later forward. ``warmup`` therefore calibrates on its all-zero images, as the
+JAX ``Colorizer`` and ``serve.py --warmup`` do, and ``anchor_mask`` never
+calibrates (it runs unquantized before calibration, int8 after). The mode is
+each model's own, not a process-global setting as in the JAX package, so an
+int8 and a float ``Colorizer`` share a process without affecting each other.
+With ``data_parallel`` each replica calibrates on its rows and every replica
+then holds the max over the replicas of each convolution's range.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import torch
 
 from . import resolve_device
 from .models import AnchorColorProb
+from .ops import quant
 from .parallel import mesh
 from .parallel.replicas import Replicas
 from .utils.color import lab2rgb, rgb2lab
@@ -87,16 +102,16 @@ class Colorizer:
         as in the JAX package). ``data_parallel=True``: one replica on each
         device of ``parallel/mesh.py::local_devices(device)``, and
         ``colorize_batch`` splits a bucket over them (one device: one model,
-        as the JAX ``Colorizer`` has). ``quantize`` other than "none" raises
-        (ROADMAP.md, queue 1, item 5)."""
+        as the JAX ``Colorizer`` has). ``quantize``: "none", "int8" or
+        "int8_safe", calibrated on the first batch (module docstring)."""
         from .cli.infer import load_variables, to_serving
 
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}")
         if wire_dtype not in ("float32", "uint8"):
             raise ValueError(f"wire_dtype={wire_dtype!r}")
-        if quantize != "none":
-            raise NotImplementedError(f"quantize={quantize!r} is not ported yet: ROADMAP.md, queue 1, item 5 (int8)")
+        if quantize not in ("none", *quant.EXCLUDE):
+            raise ValueError(f"quantize={quantize!r}")
         self.wire_uint8 = wire_dtype == "uint8"
         self.device = resolve_device(device)
         devices = mesh.local_devices(self.device) if data_parallel else [self.device]
@@ -115,6 +130,19 @@ class Colorizer:
         self.replicas = Replicas(model, devices, to_serving)
         self.model = self.replicas.models[0]
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.quantize = quantize
+        self.calibrated = quantize == "none"
+
+    def _maybe_calibrate(self, run, generator) -> None:
+        """JAX's first-batch calibration (int8): ``run()`` is the forward of
+        the batch at hand, run once in calib mode with the generator state
+        it will start from again, then every replica static."""
+        if self.calibrated:
+            return
+        state = generator.get_state()
+        quant.calibrate(self.replicas.models, run, quant.EXCLUDE[self.quantize])
+        generator.set_state(state)
+        self.calibrated = True
 
     def _host_image(self, image: np.ndarray):
         """uint8/float RGB or grayscale -> (H', W', 3) padded to the bucket
@@ -183,11 +211,13 @@ class Colorizer:
             m, ab = hints
             hint_mask = self._to_device(np.asarray(m, np.float32))[None, ..., None]
             hint_colors = self._to_device(np.asarray(ab, np.float32))[None]
+        gen, wired = generator or self.generator, self._wire_in(gray)
+        self._maybe_calibrate(lambda: self.model(wired, generator=gen), gen)
         pred = self.model(
-            self._wire_in(gray),
+            wired,
             hint_mask_override=hint_mask,
             anchor_colors_override=hint_colors,
-            generator=generator or self.generator,
+            generator=gen,
             sampled_T=2 if diverse else 0,
         )["pred_colors"]
         if diverse:
@@ -213,7 +243,9 @@ class Colorizer:
         nb = self._batch_bucket(len(preps))
         if nb > len(preps):
             grays = torch.cat([grays, grays[-1:].expand(nb - len(preps), -1, -1, -1)], dim=0)
-        pred = self.replicas(self._wire_in(grays), generator=generator or self.generator)["pred_colors"]
+        gen, wired = generator or self.generator, self._wire_in(grays)
+        self._maybe_calibrate(lambda: self.replicas(wired, generator=gen), gen)
+        pred = self.replicas(wired, generator=gen)["pred_colors"]
         return self._to_rgb(grays[: len(preps)], pred[: len(preps)], [hw for _, hw in preps])
 
     @torch.no_grad()
@@ -231,7 +263,8 @@ class Colorizer:
         ``size`` x ``size`` image, so that the kernels' first builds, cuDNN's
         algorithm choice and the allocator's first blocks fall before the
         first request (JAX ``api.py:292-297`` compiles its graphs here). Its
-        own generator, so the serving draws stay as they were."""
+        own generator, so the serving draws stay as they were. An int8
+        ``Colorizer`` calibrates here, on the black images, as JAX's does."""
         dummy = np.zeros((size, size), np.uint8)
         gen = torch.Generator(device=self.device).manual_seed(0)
         for b in buckets:

@@ -30,9 +30,16 @@ replica a card (``parallel/replicas.py``), with the draws of one card;
 otherwise one card runs. ``--shard_spatial`` is read only where JAX reads it,
 with more than one card and ``--no_resize``.
 
-Not ported yet, and refused: ``--quantize int8|int8_safe`` (ROADMAP.md, queue
-1, item 5) and ``--shard_spatial`` over more than one card with
-``--no_resize`` (item 9: the H axis sharded, with halo exchanges).
+``--quantize int8|int8_safe``, as JAX's (``cli/infer.py:77-81``,
+``:170-180``): the first batch runs one calibration forward (its
+``sampled_T``, its colors and the same anchor draws as its forward), then
+every forward is static int8 (``ops/quant.py``; kernels I and H on the card).
+``int8_safe`` keeps the repnet in the compute dtype. The setting is the
+model's own; no environment variable is read or set.
+
+Not ported yet, and refused: ``--shard_spatial`` over more than one card with
+``--no_resize`` (ROADMAP.md, queue 1, item 9: the H axis sharded, with halo
+exchanges).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ..models import AnchorColorProb
 from ..models.layers import hold_compute_copies
 from ..ops import colorlabel as cl
 from ..ops import hints as hints_ops
+from ..ops import quant
 from ..ops import superpixel as sp
 from ..parallel import mesh
 from ..parallel.replicas import Replicas
@@ -150,8 +158,6 @@ def refuse_unported(args, devices) -> None:
     """Raise for a flag whose feature is not ported yet; set no environment.
     ``--shard_spatial`` changes a run only where JAX reads it: more than one
     of ``devices`` and ``--no_resize``."""
-    if args.quantize != "none":
-        raise NotImplementedError(f"--quantize {args.quantize} {_ROADMAP} 5 (int8)")
     if args.shard_spatial and args.no_resize and len(devices) > 1:
         raise NotImplementedError(f"--shard_spatial over {len(devices)} cards {_ROADMAP} 9 (the H axis sharded); "
                                   "pick one card with --device cuda:<k> or CUDA_VISIBLE_DEVICES")
@@ -192,15 +198,22 @@ def infer(args, batches) -> dict:
     writer = io_lib.AsyncWriter() if args.prefetch > 0 else None
     save = writer.submit if writer is not None else (lambda fn, *a, **k: fn(*a, **k))
     n_done = 0
+    calibrated = args.quantize == "none"
 
     def crop(lab, h, w):
         return lab[:, :h, :w] if args.no_resize else lab
 
     @torch.no_grad()
     def process_batch(grays_np, colors_np, names, orig_sizes):
-        nonlocal n_done
+        nonlocal n_done, calibrated
         grays = torch.from_numpy(np.ascontiguousarray(grays_np, np.float32)).to(device)
         colors = torch.from_numpy(np.ascontiguousarray(colors_np, np.float32)).to(device)
+        if not calibrated:  # int8: one calibration forward on the first batch, with its draws
+            state = generator.get_state()
+            quant.calibrate(model.models, lambda: model(grays, colors, generator=generator, sampled_T=sampled_T),
+                            quant.EXCLUDE[args.quantize])
+            generator.set_state(state)
+            calibrated = True
         out = model(grays, colors, generator=generator, sampled_T=sampled_T)
         pred = out["pred_colors"].float()
         guided = None

@@ -37,6 +37,22 @@ pixels in both encoders (kernel D and its backward take the mask).
 Parameter names follow the reference torch ``state_dict`` (``segnet.net.*``,
 ``repnet.*``, ``wildpath.layers.*``, ``enhanceNet.*``, ``pos_enc.*``, ...).
 
+``fast_seg`` (JAX ``disco.py:63``, ``:108-114``) selects, in the JAX package,
+a space-to-depth form of the segnet (``models/spixelnet_s2d.py``): the same
+parameters and function, laid out for the TPU's 128-lane vectors (its
+16-channel full-resolution convolutions packed 2x2 into 64 channels, the
+9-way softmax over 36 lanes). On the card that layout buys nothing: the
+full-resolution convolutions are cuDNN's on channels_last tensors, and the
+9-way head with its softmax is kernel B, which reads the 16 channels of a
+pixel as one vector already. So ``fast_seg=True`` runs the standard segnet;
+its forward equals ``fast_seg=False``'s bit for bit, and JAX's
+``fast_seg=True`` within f32 rounding.
+
+int8 serving (:meth:`AnchorColorProb.set_quantization`, ``ops/quant.py``):
+"int8" quantizes the repnet's and HourGlass2's gated convolutions (27 + 24 in
+the recipe), "int8_safe" only HourGlass2's, with the modes off, calib, static
+and dynamic held by this model alone.
+
 ``compute_dtype=torch.bfloat16`` (the serving default of the JAX
 ``Colorizer``, and the JAX trainer's ``--compute_dtype bfloat16``) rounds
 where the JAX model does (``disco.py:101-282``): the gray input to bf16 for
@@ -62,6 +78,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import colorlabel as cl
+from ..ops import quant
 from ..ops import superpixel as sp
 from . import anchor
 from .colorprobnet import ColorProbNet
@@ -94,11 +111,14 @@ class AnchorColorProb(nn.Module):
         enhanced: bool = True,
         use_mask: bool = False,
         token_grid: tuple = (16, 16),
+        fast_seg: bool = False,
     ):
         """``token_grid`` (rows, columns): the size of the learned position
         tables (``learning_pos``), the input size over ``sp_size`` (JAX sizes
-        them from the grid of its init example)."""
+        them from the grid of its init example). ``fast_seg``: accepted, the
+        standard segnet (module docstring)."""
         super().__init__()
+        self.fast_seg = fast_seg
         self.sp_size, self.n_clusters, self.compute_dtype = sp_size, n_clusters, compute_dtype
         self.d_model, self.spix_pos, self.random_hint = d_model, spix_pos, random_hint
         self.learning_pos = learning_pos and not spix_pos  # spix_pos pools its positions
@@ -115,6 +135,18 @@ class AnchorColorProb(nn.Module):
         self.trg_word_prj = _linear(d_model, hint_width, bias=False)
         if enhanced:
             self.enhanceNet = HourGlass2(sn_folded=sn_folded, in_channels=d_model + 1)
+
+    def set_quantization(self, quantize: str = "int8", mode: str = "static") -> int:
+        """int8 serving of this model: ``quantize`` "none", "int8" or
+        "int8_safe" (the repnet excluded), in ``mode`` off, calib, static or
+        dynamic (``ops/quant.py::set_mode``; static needs calibrated ranges,
+        from a calib forward or ``quant.load_amax``). Returns the count of
+        quantized convolutions."""
+        if quantize not in ("none", *quant.EXCLUDE):
+            raise ValueError(f"quantize={quantize!r}: expected none, int8 or int8_safe")
+        if quantize == "none":
+            return quant.set_mode(self, "off")
+        return quant.set_mode(self, mode, quant.EXCLUDE[quantize])
 
     def forward(
         self,

@@ -68,6 +68,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
 from ..parallel import mesh
 
 
@@ -78,9 +79,12 @@ def _lecun_(w: torch.Tensor, fan_in: int, gain: float = 1.0) -> None:
 
 def _sources(m: nn.Module) -> tuple:
     """What a layer's compute copies stand for: the storage and the in-place
-    version of each of its own parameters and buffers. ``load_state_dict``,
-    an optimizer step or a move to another device changes one of them."""
-    return tuple((t.data_ptr(), t._version) for d in (m._parameters, m._buffers) for t in d.values() if t is not None)
+    version of each of its own parameters and persistent buffers (not int8's
+    calibrated ``act_amax``). ``load_state_dict``, an optimizer step or a move
+    to another device changes one of them."""
+    skip = m._non_persistent_buffers_set
+    return tuple((t.data_ptr(), t._version) for d in (m._parameters, m._buffers) for k, t in d.items()
+                 if t is not None and k not in skip)
 
 
 def _cast(m: nn.Module, dtype: torch.dtype, train: bool = False):
@@ -131,15 +135,62 @@ def hold_compute_copies(model: nn.Module, dtype: torch.dtype) -> None:
             _hold(m, dtype)
 
 
+@torch.no_grad()
+def int8_params(m: nn.Module) -> tuple:
+    """A gated convolution's int8 weights (O, 3, 3, padded I), per-channel
+    maxima ``mw`` and f32 bias, from its f32 weights (``ops/quant.py::quantize_weight``),
+    made once and made again after its parameters change, as the compute
+    copies are."""
+    held = m.__dict__.get("_int8_params")
+    if held is not None and held[1] == _sources(m):
+        return held[0]
+    wq, mw = quant.quantize_weight(m.int8_weight())
+    params = (wq, mw, m.bias.detach().float())
+    m.__dict__["_int8_params"] = (params, _sources(m))
+    return params
+
+
+def _int8_forward(m: nn.Module, x: torch.Tensor, stride: int):
+    """The int8 path of a gated convolution (``ops/quant.py::set_mode``), as
+    JAX's ``Conv``/``SNConv`` gates run it: in "calib" it records
+    ``act_amax = max(act_amax, max|x|)`` and returns None (the caller runs the
+    convolution in its compute dtype); in "static" and "dynamic" it returns
+    the int8 convolution in x's dtype."""
+    if m.int8_mode == "calib":
+        m.act_amax.copy_(torch.maximum(m.act_amax, x.detach().abs().amax().float()))
+        return None
+    amax = m.act_amax * quant.CALIB_MARGIN if m.int8_mode == "static" else None
+    if x.device.type == "cuda":
+        x = x.contiguous(memory_format=torch.channels_last)
+    wq, mw, b = int8_params(m)
+    return quant.int8_conv_q(x, wq, mw, b, stride, amax, x.dtype)
+
+
 def _add_bias(y: torch.Tensor, b) -> torch.Tensor:
     """The low-precision convolutions' bias: a second rounding, as in JAX."""
     return y if b is None else y + b[:, None, None]
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in its input's dtype (the JAX ``Conv(dtype=x.dtype)``)."""
+    """``nn.Conv2d`` in its input's dtype (the JAX ``Conv(dtype=x.dtype)``).
+    Those that :func:`conv` makes are the JAX ``Conv``'s and may run in int8
+    (``int8_capable``, ``ops/quant.py::set_mode``); the segnet's stay float."""
+
+    int8_capable = False
+    int8_mode = None
+
+    @property
+    def int8_in_channels(self) -> int:
+        return self.in_channels
+
+    def int8_weight(self) -> torch.Tensor:
+        return self.weight
 
     def forward(self, x):
+        if self.int8_mode is not None:
+            y = _int8_forward(self, x, self.stride[0])
+            if y is not None:
+                return y
         w, b = compute_params(self, x.dtype)
         if x.dtype == torch.float32:
             return self._conv_forward(x, w, b)
@@ -181,6 +232,7 @@ def conv(in_ch: int, out_ch: int, stride: int = 1) -> Conv2d:
     m = Conv2d(in_ch, out_ch, 3, stride, 1)
     _lecun_(m.weight, in_ch * 9)
     nn.init.zeros_(m.bias)
+    m.int8_capable = True
     return m
 
 
@@ -236,7 +288,25 @@ class SNConv(nn.Module):
                 self.weight_v.copy_(v)
         return self.weight_orig / sigma
 
+    int8_mode = None
+
+    @property
+    def int8_capable(self) -> bool:
+        """Folded weights only: the training form keeps its spectral-norm step."""
+        return self.folded
+
+    @property
+    def int8_in_channels(self) -> int:
+        return self.weight_orig.shape[1]
+
+    def int8_weight(self) -> torch.Tensor:
+        return self.weight_orig
+
     def forward(self, x, train: bool = False):
+        if self.int8_mode is not None:
+            y = _int8_forward(self, x, self.stride)
+            if y is not None:
+                return y
         w, b = compute_params(self, x.dtype, train)
         if x.dtype == torch.float32:
             return F.conv2d(x, w, b, self.stride, 1)

@@ -147,3 +147,11 @@ def rebalance_gradient(logits: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     """Identity forward; the backward multiplies the incoming gradient by
     ``weights`` (broadcast against ``logits``), which get no gradient."""
     return _Rebalance.apply(logits, weights)
+
+
+def visualize_label(step: int = 3, device=None) -> torch.Tensor:
+    """A (200, 313 * step, 3) normalized-Lab strip of every bin's color at
+    L' = 0, each bin ``step`` columns wide (the reference's ``basic.py:159-166``)."""
+    ab = (q_to_ab(device) / _cielab.AB_NORM).repeat_interleave(step, dim=0)
+    ab = ab[None].expand(200, -1, -1)
+    return torch.cat([torch.zeros_like(ab[..., :1]), ab], dim=-1)

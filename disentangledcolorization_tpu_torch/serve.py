@@ -276,7 +276,9 @@ def serve_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--wire", default="uint8", choices=["uint8", "float32"],
                     help="the uint8 codec of the JAX server for L in and ab out (<= 0.43 ab units)")
     ap.add_argument("--quantize", default="none", choices=["none", "int8", "int8_safe"],
-                    help="int8 post-training quantization: not ported yet (ROADMAP.md, queue 1, item 5); raises")
+                    help="int8 post-training quantization of the wide convs, calibrated on the first batch "
+                    "(the warmup's, when --warmup is set); int8_safe keeps the repnet (the anchor "
+                    "features) in the compute dtype")
     ap.add_argument("--device", type=str, default="cuda",
                     help="'cuda' (default, the card; raises without one) or 'cpu' (the plain versions)")
     return ap

@@ -25,6 +25,11 @@ for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys).
 :func:`inception_from_jax_variables` and :func:`inception_to_jax_variables`
 bridge ``InceptionV3Features`` (torchvision's ``inception_v3`` keys) both ways,
 the second as ``convert_inception_torchvision`` lays the tree out.
+:func:`quant_from_jax_variables` and :func:`quant_to_jax_variables` bridge
+int8's calibrated ranges: JAX's ``quant`` collection (``repnet/conv2_3/conv0/
+act_amax``, one leaf under each quantized ``Conv``/``SNConv``) and the port's
+``act_amax`` buffers by module name (``repnet.conv2_3.2.act_amax``,
+``ops/quant.py::gated_amax``).
 """
 
 from __future__ import annotations
@@ -441,3 +446,58 @@ def inception_to_jax_variables(state_dict: dict, include_fc: bool = False) -> di
         elif k.endswith(".bn.running_var"):
             put(stats, k[: -len(".running_var")] + ".var", v)
     return {"params": params, "batch_stats": stats}
+
+
+class _ConvPaths:
+    """Records (torch module name, flax module path) of every ``Conv``
+    wrapper and ``SNConv`` the walkers visit, the modules that own a
+    ``quant/.../act_amax`` leaf in JAX; every other walker call is a no-op."""
+
+    def __init__(self):
+        self.pairs: list[tuple[str, tuple]] = []
+
+    def n_layers(self, tprefix: str, path: tuple) -> int:
+        return 0
+
+    def has(self, tprefix: str, path: tuple) -> bool:
+        return True
+
+    def conv(self, tkey: str, path: tuple):
+        self.pairs.append((tkey, path))
+
+    snconv = conv
+
+    def __getattr__(self, name):
+        return lambda *args: None
+
+
+def _quant_pairs() -> list[tuple[str, tuple]]:
+    b = _ConvPaths()
+    _anchor_color_prob(b)
+    return b.pairs
+
+
+def quant_from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX's calibrated ranges (the ``quant`` collection, or variables holding
+    it) -> ``{"<port module name>.act_amax": 0-d f32 tensor}`` for every
+    convolution that has one, as ``ops/quant.py::load_amax`` takes them."""
+    tree = variables.get("quant", variables)
+    out = {}
+    for tkey, path in _quant_pairs():
+        if _StateDictBuilder._has(tree, path + ("act_amax",)):
+            out[f"{tkey}.act_amax"] = torch.tensor(_StateDictBuilder._get(tree, path + ("act_amax",)))
+    return out
+
+
+def quant_to_jax_variables(amax: dict) -> dict:
+    """``{"<port module name>.act_amax": value}`` (``ops/quant.py::gated_amax``)
+    -> JAX's ``quant`` collection as nested dicts of f32 numpy scalars."""
+    tree: dict = {}
+    for tkey, path in _quant_pairs():
+        if f"{tkey}.act_amax" in amax:
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            v = amax[f"{tkey}.act_amax"]
+            node["act_amax"] = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, np.float32)
+    return tree

@@ -85,3 +85,9 @@ def lab2rgb(lab_rs: torch.Tensor) -> torch.Tensor:
     """Normalized Lab (..., 3) -> sRGB (..., 3), not clipped."""
     lab = torch.cat([lab_rs[..., :1] * L_NORM + L_MEAN, lab_rs[..., 1:] * AB_NORM], dim=-1)
     return xyz2rgb(lab2xyz(lab))
+
+
+def rgb2gray(rgb: torch.Tensor) -> torch.Tensor:
+    """Luma (..., 3) -> (..., 1): 0.299 R + 0.587 G + 0.114 B."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
+    return (rgb @ w)[..., None]

@@ -131,8 +131,8 @@ def inference_argparser() -> argparse.ArgumentParser:
                    help="output root (default: cwd, matching reference inference.py:62)")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--quantize", default="none", choices=["none", "int8", "int8_safe"],
-                   help="int8 post-training quantization: not ported yet (ROADMAP.md, queue 1, item 5); "
-                   "anything but 'none' raises")
+                   help="int8 post-training quantization of the wide convs, calibrated on the first "
+                   "batch; int8_safe keeps the repnet (the anchor features) in the compute dtype")
     p.add_argument("--trace_dir", type=str, default="", help="torch.profiler trace output dir")
     p.add_argument("--prefetch", default=2, type=int,
                    help="decode-ahead depth: image batches are decoded on a background "

@@ -307,6 +307,13 @@ def exists_or_mkdir(path: str, need_remove: bool = False):
     return None
 
 
+def get_gauss_kernel(size: int, sigma: float) -> np.ndarray:
+    """MATLAB fspecial-style normalized Gaussian kernel (reference util.py:11-15)."""
+    x, y = np.mgrid[-size // 2 + 1: size // 2 + 1, -size // 2 + 1: size // 2 + 1]
+    g = np.exp(-((x ** 2 + y ** 2) / (2.0 * sigma ** 2)))
+    return g / g.sum()
+
+
 def save_list(save_path, data_list, append_mode=False):
     n = len(data_list)
     if append_mode:

@@ -23,7 +23,7 @@ import torch
 from disentangledcolorization_tpu.tools import convert_torch as cvt
 from disentangledcolorization_tpu_torch import resolve_device
 from disentangledcolorization_tpu_torch.models import AnchorColorProb
-from disentangledcolorization_tpu_torch.ops import affinity, attention, colorlabel, kernels, superpixel
+from disentangledcolorization_tpu_torch.ops import affinity, attention, colorlabel, kernels, quant, superpixel
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,6 +177,13 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
         (colorlabel.encode_ab2ind(ab), colorlabel.encode_ab2ind_plain(ab)),
         (superpixel.prob_grad(feat, tok, tok[..., 0], 16, 16), superpixel.prob_grad_plain(feat, tok, tok[..., 0], 16, 16)),
     ]
+    xq = torch.randn(1, 32, 6, 6, generator=g)
+    wq, mw = quant.quantize_weight(torch.randn(8, 32, 3, 3, generator=g))
+    amax = torch.tensor(2.0)
+    for dt in (torch.float32, torch.bfloat16):
+        pairs += [(quant.quantize_activation(xq.to(dt), amax), quant.quantize_activation_plain(xq.to(dt), amax)),
+                  (quant.int8_conv_q(xq.to(dt), wq, mw, bias[:8], 1, amax),
+                   quant.int8_conv_plain(quant.quantize_activation_plain(xq.to(dt), amax), amax, wq, mw, bias[:8], 1, dt))]
     for a, b in pairs:
         for x_, y_ in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x_, y_)
@@ -184,6 +191,7 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert set(kernels.LAUNCHES) == {
         "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind", "prob_grad",
         "pool_stats[bf16]", "affinity_head[bf16]", "upfeat[bf16]", "shift_add[bf16]",
+        "quantize", "quantize[bf16]", "int8_conv", "int8_conv[bf16]",
     }
 
 

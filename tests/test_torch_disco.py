@@ -132,10 +132,13 @@ def test_colorizer_same_seed_same_output():
 
 @pytest.mark.parametrize("kwargs", [{"quantize": "int8"}, {"data_parallel": True}])
 def test_later_slices_raise(kwargs, monkeypatch):
-    """int8 (queue 1, item 5) raises. ``data_parallel=True`` no longer raises
-    (item 4, ported): on one device it keeps one model, as the JAX
-    ``Colorizer`` does; over two devices one replica each
-    (``test_torch_data_parallel_api.py`` holds their answers)."""
+    """Neither raises any more. ``quantize="int8"`` (queue 1, item 5, ported):
+    off until the first batch, which calibrates, then 51 convolutions in
+    static int8 (``test_torch_quant_api.py`` holds the answers against JAX's);
+    another setting is a ``ValueError``. ``data_parallel=True`` (item 4,
+    ported): on one device it keeps one model, as the JAX ``Colorizer`` does;
+    over two devices one replica each (``test_torch_data_parallel_api.py``
+    holds their answers)."""
     if kwargs.get("data_parallel"):
         assert len(Colorizer(n_clusters=2, device="cpu", **kwargs).replicas) == 1  # one device
         from disentangledcolorization_tpu_torch.parallel import mesh
@@ -143,5 +146,10 @@ def test_later_slices_raise(kwargs, monkeypatch):
         monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
         assert len(Colorizer(n_clusters=2, device="cpu", **kwargs).replicas) == 2
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item"):
-        Colorizer(device="cuda", **kwargs)
+    col = Colorizer(n_clusters=2, device="cpu", compute_dtype="float32", **kwargs)
+    assert not col.calibrated
+    out = col.colorize_batch([np.random.default_rng(5).integers(0, 256, (32, 32), dtype=np.uint8)])
+    modes = [m.int8_mode for m in col.model.modules() if getattr(m, "int8_mode", None)]
+    assert col.calibrated and modes == ["static"] * 51 and out[0].shape == (32, 32, 3)
+    with pytest.raises(ValueError, match="quantize"):
+        Colorizer(n_clusters=2, device="cpu", quantize="int4")

@@ -19,7 +19,8 @@
   reference ``.pth.tar`` and a run directory of the port's trainers give the
   weights JAX's loader gives (1e-6), and a ``.pkl`` Colorizer answers within
   2 levels of JAX's; a missing path and a JAX trainer's Orbax directory raise.
-* The refusals: ``--quantize`` (no environment variable set), and
+* ``--quantize int8|int8_safe`` computes (no environment variable set; the
+  answers are held in ``test_torch_quant_api.py``), and the refusal of
   ``--shard_spatial --no_resize`` over more than one device.
 * Attention's plain version at head width 4 (``--d_model 32``) against the
   JAX core, 1e-5 as ``test_torch_attention.py``.
@@ -268,20 +269,31 @@ def test_loader_refuses_a_missing_path_and_an_orbax_run(tmp_path):
     assert not loaded and all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), again.state_dict().values()))
 
 
-@pytest.mark.parametrize("flags, match", [(["--quantize", "int8"], "item 5"), (["--quantize", "int8_safe"], "item 5"),
-                                          (["--no_resize", "--shard_spatial"], "item 9")])
-def test_unported_flags_raise(flags, match, tmp_path, monkeypatch):
-    """``--shard_spatial`` raises only where JAX would shard: with
-    ``--no_resize`` over more than one device (two here, by
+@pytest.mark.parametrize("flags, item", [(["--quantize", "int8"], "item 5"), (["--quantize", "int8_safe"], "item 5"),
+                                         (["--no_resize", "--shard_spatial"], "item 9")])
+def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
+    """Of the flags that raised until their ROADMAP.md item was ported, only
+    ``--shard_spatial`` (item 9) still does, and only where JAX would shard:
+    with ``--no_resize`` over more than one device (two here, by
     ``parallel/mesh.py::local_devices``); on one it is accepted
-    (``test_torch_data_parallel_api.py``)."""
+    (``test_torch_data_parallel_api.py``). ``--quantize`` (item 5, ported)
+    colorizes over the same two devices, calibrated on the first batch, and
+    sets no environment variable."""
     for var in ("DISCO_INT8", "DISCO_INT8_EXCLUDE"):
         monkeypatch.delenv(var, raising=False)
     from disentangledcolorization_tpu_torch.parallel import mesh
 
     monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match=match):
-        infer.main(["--data", str(tmp_path), "--device", "cpu", "--save_dir", str(tmp_path), *flags])
+    argv = ["--data", str(tmp_path), "--device", "cpu", "--save_dir", str(tmp_path), *flags]
+    if item == "item 9":
+        with pytest.raises(NotImplementedError, match=item):
+            infer.main(argv)
+    else:
+        batch = (np.zeros((2, 32, 32, 1), np.float32), np.zeros((2, 32, 32, 2), np.float32), ["a.png", "b.png"],
+                 [None, None])
+        args = infer.inference_argparser().parse_args(argv + ["--n_clusters", "2", "--batch_size", "2"])
+        assert infer.infer(args, [batch])["images"] == 2
+        assert sorted(os.listdir(tmp_path / "test-anchor2")) == ["a.png", "b.png"]
     assert "DISCO_INT8" not in os.environ and "DISCO_INT8_EXCLUDE" not in os.environ
 
 

@@ -16,6 +16,10 @@ largest entry). The bf16 instances of kernels A, B and C (bf16 features,
 input or tokens, f32 sums) are held to 1e-5 of the plain version's largest
 entry (A, B) and to one bf16 ulp of each entry (C, whose f32 sums round to
 bf16), on the same cases and at views that break the vector alignment.
+Kernels I (the int8 quantizer) and H (the int8 convolution) are exact and
+equal their plain versions bit for bit: C = 65 and C < 32 (channel padding),
+O = 2 and 70, stride 2 on odd sizes, ragged pixel counts, half-steps and
+clipped entries, both dtypes, static and dynamic amax.
 """
 
 import pytest
@@ -855,3 +859,87 @@ def test_spixel_step_two_ranks_on_one_card(cuda, tmp_path):
         for k, v in one["metrics"].items():
             assert abs(r["metrics"][k] - v) <= 1e-5 * abs(v), k
         assert_states_close(r["state"], one["state"], 1e-5)
+
+
+# kernel I: (n, h, w, c) with c = cp (vector loads), c = 65 (the enhancer's
+# first convolution, cp 96), c < 32 and a ragged pixel count
+QUANT_CASES = [(2, 16, 16, 64), (1, 9, 11, 65), (3, 5, 7, 3), (1, 4, 4, 512), (2, 7, 9, 32)]
+# kernel H: (n, h, w, c, o, stride): ragged M, c = 65, O = 2, O not a
+# multiple of 64, stride 2 on odd sizes, the widest input
+INT8_CONV_CASES = [(2, 17, 33, 65, 2, 1), (2, 16, 16, 64, 64, 2), (1, 9, 11, 32, 70, 1), (3, 9, 7, 96, 128, 2),
+                   (1, 5, 7, 512, 16, 1), (1, 8, 8, 256, 256, 1)]
+
+
+def _channels_last(x):
+    return x.permute(0, 3, 1, 2)  # NHWC memory seen as NCHW: channels_last
+
+
+def _planted(dev, n, h, w, c, dtype, seed=0):
+    """Activations with entries exactly on half-steps of the int8 grid and
+    beyond +-127 steps, for amax = 2.0."""
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    x = _rand(dev, n, h, w, c, seed=seed)
+    step = quant.act_scale(torch.tensor(2.0)).item()
+    flat = x.view(-1)
+    flat[::7] = (torch.arange(flat[::7].numel(), device=dev) % 255 - 127 + 0.5).float() * step
+    flat[::11] *= 3.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QUANT_CASES)
+def test_quantize_matches_plain(cuda, shape, dtype):
+    """Kernel I bit for bit against its plain version: a calibrated amax with
+    half-steps and clipped entries, and the live max|x|; twice for bitwise
+    equality; a layout other than channels_last raises."""
+    from disentangledcolorization_tpu_torch.ops import kernels, quant
+
+    x = _channels_last(_planted(cuda, *shape, dtype))
+    amax = torch.tensor(2.0, device=cuda)
+    before = kernels.LAUNCHES["quantize[bf16]" if dtype == torch.bfloat16 else "quantize"]
+    for a in (amax, None):
+        q = quant.quantize_activation(x, a)
+        ref = quant.quantize_activation_plain(x, x.abs().amax().float() if a is None else a)
+        assert q.shape == (shape[0], shape[1], shape[2], quant.padded_channels(shape[3])) and q.dtype == torch.int8
+        assert torch.equal(q, ref) and torch.equal(q, quant.quantize_activation(x, a))
+    assert kernels.LAUNCHES["quantize[bf16]" if dtype == torch.bfloat16 else "quantize"] == before + 4
+    with pytest.raises(ValueError, match="channels_last"):
+        quant.quantize_activation(x.contiguous(), amax)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", INT8_CONV_CASES)
+def test_int8_conv_matches_plain(cuda, case, dtype):
+    """Kernel H (after kernel I) bit for bit against its plain version, float64
+    sums and the emulated fused multiply-add, static and dynamic amax; twice
+    for bitwise equality; the output channels_last in the input's dtype."""
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    n, h, w, c, o, stride = case
+    x = _channels_last(_planted(cuda, n, h, w, c, dtype, seed=1))
+    weight = _rand(cuda, o, c, 3, 3, seed=2) * 0.1
+    bias = _rand(cuda, o, seed=3) * 0.1
+    wq, mw = quant.quantize_weight(weight)
+    for amax in (torch.tensor(2.0, device=cuda) * quant.CALIB_MARGIN, None):
+        out = quant.int8_conv_q(x, wq, mw, bias, stride, amax)
+        a = x.abs().amax().float() if amax is None else amax
+        ref = quant.int8_conv_plain(quant.quantize_activation_plain(x, a), a, wq, mw, bias, stride, dtype)
+        assert out.dtype == dtype and out.shape == ref.shape == (n, o, (h - 1) // stride + 1, (w - 1) // stride + 1)
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+        assert torch.equal(out, quant.int8_conv_q(x, wq, mw, bias, stride, amax))
+
+
+def test_int8_conv_refuses_what_it_does_not_take(cuda):
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    x = _channels_last(_rand(cuda, 1, 8, 8, 64))
+    wq, mw = quant.quantize_weight(_rand(cuda, 16, 64, 3, 3))
+    bias = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="stride"):
+        quant.int8_conv_q(x, wq, mw, bias, stride=3)
+    with pytest.raises(TypeError, match="output dtype"):
+        quant.int8_conv_q(x, wq, mw, bias, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="expected"):
+        quant.int8_conv_q(x, wq[:, :, :, :32].contiguous(), mw, bias)

@@ -17,7 +17,9 @@ against port, ``remat=True`` with ``grad_accum=2`` equals the plain step bit
 for bit for each option.
 """
 
+import ctypes
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +46,19 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_memory():
+    """At the module's end, drop its cached JAX references and compiled
+    executables and hand the freed heap back to the system: a worker of the
+    parallel suite otherwise holds them for the rest of its life (about 5 GB
+    after this module), and the suite's peak comes near the machine's memory."""
+    yield
+    reference.cache_clear()
+    jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 # Every gradient within GRAD_TOL of its largest entry. The recipe's step

@@ -11,8 +11,9 @@
   ``test_torch_disco.py`` holds the forward.
 * ``start`` passes ``--max_queue``, ``--max_body_bytes``, ``--max_pixels`` and
   ``--request_timeout`` on (the JAX ``main`` drops them); ``--quantize``
-  raises; ``--data_parallel`` is accepted on one device; ``warmup`` leaves the
-  serving draws as they were.
+  reaches the ``Colorizer``, which calibrates on its first batch (int8 serving
+  is held in ``test_torch_quant_api.py``); ``--data_parallel`` is accepted on
+  one device; ``warmup`` leaves the serving draws as they were.
 * ``utils/io.py::read_png`` against ``cv2.imdecode`` on gray, RGB and RGBA
   PNGs written with each filter type 0-4 (checked in the stream), exactly;
   ``encode_png`` round trips; without OpenCV a JPEG body gets 400.
@@ -267,8 +268,12 @@ def test_start_passes_the_limits_on():
         assert code == 413
         code, body, _ = _post(s.port, encode_png(make_img(20, 20, 3)))
         assert code == 413 and b"cap 256 px" in body
-    with pytest.raises(NotImplementedError, match="item 5"):
-        start(serve_argparser().parse_args(["--device", "cpu", "--warmup", "", "--quantize", "int8"]))
+    col, batcher, srv = start(serve_argparser().parse_args(["--device", "cpu", "--warmup", "", "--n_clusters", "2",
+                                                            "--port", "0", "--quantize", "int8"]))
+    with _Serving(batcher, srv) as s:
+        assert col.quantize == "int8" and not col.calibrated
+        code, png, _ = _post(s.port, encode_png(make_img(32, 32, 3)))
+    assert code == 200 and read_png(png).shape == (32, 32, 3) and col.calibrated
 
 
 def test_warmup_runs_each_bucket_and_keeps_the_serving_draws(monkeypatch):

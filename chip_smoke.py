@@ -169,17 +169,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      k-means anchors agree within phase 9's bf16 tolerance, the rest counted.
  15. int8 serving (``ops/quant.py``): kernels I (``csrc/quantize.cu``) and H
      (``csrc/int8_conv.cu``) in both instances at batch 8: 65->64 and 64->64
-     at 256x256, 64->128 at stride 2, 256->256 at 64x64, 512->512 at 32x32
-     and 64->2 at 256x256, each twice and bit for bit against its plain
-     version, timed by events and by device time beside its bound (bytes at
-     3.35 TB/s or int8 operations at 1,979 TOP/s), the plain version,
-     ``torch._int_mm`` over an im2col (its sums, through H's epilogue, equal
-     H's output bit for bit) and cuDNN's bf16 convolution; a seeded
+     at 256x256, 64->128 at stride 2, 256->256 at 64x64, 512->512 at 32x32,
+     64->2 at 256x256 and 128->128 at 128x128, each twice and bit for bit
+     against its plain version, timed by events and by device time beside its
+     bound (bytes at 3.35 TB/s or int8 operations at 1,979 TOP/s), the plain
+     version, ``torch._int_mm`` over an im2col (its sums, through H's
+     epilogue, equal H's output bit for bit), cuDNN's bf16 convolution and,
+     for I, ``torch.quantize_per_tensor`` (f32 only: it has no bf16 form); a seeded
      ``Colorizer(quantize="int8")`` in bf16 and in f32 (the first batch of 8
      calibrates, then 3 requests, in turns with the float ``Colorizer``):
      launches per forward (H and I 51 each, plus phase 9's or 4's), host
      synchronisations a request (as many as the float Colorizer's), images/s, the
-     device ms of H and I in a forward, the card's int8 forward against the
+     device ms of H, of I and of the rest in a forward, the card's int8 forward against the
      CPU's plain int8 path at 128x128 with the card's ranges (stated
      tolerances); ``int8_safe`` (24 a forward, no repnet convolution gated),
      ``cli.infer.infer --quantize int8`` on 16 in-memory images at batch 8,
@@ -3927,10 +3928,11 @@ def drive_two_replicas(device, smi: str, size: int = 256, batch: int = 8) -> tup
 # HourGlass2), 24 under int8_safe; the calibration forward launches neither.
 INT8_OPS_PER_S = 1979e12
 # (C, O, stride, H=W) at batch 8: the enhancer's first convolution (C = 65),
-# the full-resolution 64->64 (7 of the 51), a stride-2 step down, the
-# residual blocks' 256->256, the repnet's 512->512 and the output's 64->2
+# the full-resolution 64->64 (5 of the 51), a stride-2 step down, the
+# residual blocks' 256->256 (15), the repnet's 512->512 (11), the output's
+# 64->2 and the 128->128 at 128x128 (6, third by operations)
 INT8_CONV_SHAPES = ((65, 64, 1, 256), (64, 64, 1, 256), (64, 128, 2, 256), (256, 256, 1, 64), (512, 512, 1, 32),
-                    (64, 2, 1, 256))
+                    (64, 2, 1, 256), (128, 128, 1, 128))
 INT8_ROW_SHAPE = (64, 64, 1, 256)  # the shape whose times stand in the kernels line
 INT8_GATED = {"int8": 51, "int8_safe": 24}
 # The card's static int8 forward against the same weights' plain int8 path on
@@ -3984,9 +3986,10 @@ def int8_conv_case(device, g, c: int, o: int, stride: int, hw: int, dtype, n: in
                      device_ms=device_ms(lambda: quant.quantize_activation(x, amax))[0],
                      plain_ms=time_ms(lambda: quant.quantize_activation_plain(x, amax), device, warmup=1, iters=3))
     case["i"]["bound_ms"], case["i"]["bound_by"] = bound_int8(nbytes(x, q), float(x.numel()))
-    try:  # the library yardstick of I: one quantizing call (host scale: it waits for the card)
+    try:  # the library yardstick of I: one quantizing call (host scale: it waits for the card; no bf16 form)
         scale = float(quant.act_scale(amax))
         case["i"]["library_ms"] = time_ms(lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8), device)
+        case["i"]["library_device_ms"] = device_ms(lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8))[0]
     except (RuntimeError, TypeError) as e:
         case["i"]["library_ms"], case["i"]["library_error"] = None, str(e)[:120]
     # the library yardstick of H: torch._int_mm over an im2col of the same int8 tensor (never on the port's path)
@@ -4052,7 +4055,7 @@ def compare_int8_kernels(device) -> tuple[list, dict]:
             f"{h['bound_ms']:.4f} ({h['bound_by']}), plain {h['plain_ms']:.3f}, _int_mm {h['library_ms']:.4f} "
             f"(device {h['library_device_ms']}), cuDNN bf16 {h['cudnn_bf16_ms']:.4f} (device "
             f"{h['cudnn_bf16_device_ms']}); I {i['ms']:.4f} ms (device {i['device_ms']}), bound {i['bound_ms']:.4f}, "
-            f"quantize_per_tensor {i['library_ms']}")
+            f"quantize_per_tensor {i['library_ms']} (device {i.get('library_device_ms')})")
     return rows, {"int8_cases": cases}
 
 
@@ -4173,6 +4176,7 @@ def drive_int8_serving(device, smi: str, n_requests: int = 3, batch: int = 8, si
              "images_per_s": {k: batch * len(v) / sum(v) for k, v in turns.items()},
              "forward_device_ms": {"int8": fwd_ms, "float": flt_ms},
              "h_device_ms_per_forward": h_ms, "i_device_ms_per_forward": i_ms,
+             "rest_device_ms_per_forward": None if fwd_ms is None else fwd_ms - h_ms - i_ms,
              "syncs_per_request": syncs, "launches_per_forward": {k: counts[k] // n_requests for k in counts if counts[k]}}
         r["card_vs_cpu"] = int8_card_vs_cpu(col)
         res[dtype] = r

@@ -14,9 +14,9 @@
 // (ops/quant.py::quantize_activation_plain) and JAX's bit for bit.
 //
 // The output has cp channels, c rounded up to a multiple of 32 and the rest
-// zero, so that kernel H (int8_conv.cu) reads each 32-channel slice of a tap
-// with two aligned 16-byte copies; the enhancer's first convolution has
-// c = 65 (1 + d_model), cp = 96.
+// zero, so that kernel H's TMA boxes (int8_conv.cu) see byte strides that are
+// multiples of 16 and K slices of 32, 64 or 128 bytes; the enhancer's first
+// convolution has c = 65 (1 + d_model), cp = 96.
 //
 // Bound: bytes. x is read once (4 or 2 bytes a value) and q written once
 // (1 byte); at the serving shape (8, 256, 256, 64) f32 that is 168 MB, 0.050

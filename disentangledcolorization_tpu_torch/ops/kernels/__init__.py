@@ -63,8 +63,8 @@ KERNELS = {
     "prob_grad": ("prob_grad.cu", "disco_prob_grad", [*[_P] * 4, *[_I] * 6, _P]),
     "quantize": ("quantize.cu", "disco_quantize", [_P, _P, _P, _L, _I, _I, _P]),
     "quantize[bf16]": ("quantize.cu", "disco_quantize_bf16", [_P, _P, _P, _L, _I, _I, _P]),
-    "int8_conv": ("int8_conv.cu", "disco_int8_conv", [*[_P] * 6, *[_I] * 6, _P]),
-    "int8_conv[bf16]": ("int8_conv.cu", "disco_int8_conv_bf16", [*[_P] * 6, *[_I] * 6, _P]),
+    "int8_conv": ("int8_conv.cu", "disco_int8_conv", [*[_P] * 6, *[_I] * 11, _P]),
+    "int8_conv[bf16]": ("int8_conv.cu", "disco_int8_conv_bf16", [*[_P] * 6, *[_I] * 11, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -23,7 +23,8 @@ multiply-add is contracted into one fused multiply-add.
 
 For CUDA tensors :func:`quantize_activation` launches kernel I
 (``csrc/quantize.cu``) and :func:`int8_conv_q` launches I then kernel H
-(``csrc/int8_conv.cu``, int8 tensor cores); for CPU tensors they run the plain
+(``csrc/int8_conv.cu``: TMA loads, wgmma on the int8 tensor cores, with the
+tile plan of :func:`int8_conv_plan`); for CPU tensors they run the plain
 versions, whose int32 sums are ``F.conv2d`` over float64 copies of the int8
 tensors (exact: |sum| <= 127^2 * 9 * 512 < 2^53) and whose epilogue emulates
 the fused multiply-add in float64 (:func:`fma_f32`). Kernel and plain version
@@ -42,12 +43,16 @@ bridge stay as they are; its int8 weights are held once
 (``models/layers.py::int8_params``).
 
 Activation channels are padded to a multiple of 32 (:func:`padded_channels`)
-in the int8 tensors, with zeros, so that kernel H reads each 32-wide slice of
-a tap with aligned 16-byte copies.
+in the int8 tensors, with zeros, so that kernel H's TMA boxes see byte strides
+that are multiples of 16 and K slices of 32, 64 or 128 bytes.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -175,7 +180,85 @@ def int8_conv_plain(xq: torch.Tensor, amax: torch.Tensor, wq: torch.Tensor, mw: 
     return fma_f32(int8_sums_plain(xq, wq, stride).float(), s, bias.float()[None, :, None, None]).to(out_dtype)
 
 
-def _int8_conv_cuda(xq, amax, wq, mw, bias, stride, out_dtype):
+#: kernel H's tiles: 128 output pixels (a box of th x tw) by ``bn`` output
+#: channels, ``bn`` one of the wgmma widths that H is built for
+H_PIXELS = 128
+H_WIDTHS = (8, 16, 32, 64, 128, 256)
+H_SMEM = 232448  # dynamic shared memory a block may have on an H100
+H_MAX_STAGES = 8
+
+
+class Int8ConvPlan(NamedTuple):
+    """Kernel H's launch at one shape. ``bk`` bytes of K a stage (a slice of
+    one tap's padded channels, also the TMA swizzle's width), ``bn`` output
+    channels a tile, pixel boxes of ``th`` rows by ``tw`` columns, ``stages``
+    in the ring. The TMA boxes, element strides and byte strides (innermost
+    first) are what the C entry point encodes from them: x as (cp, w, h, n),
+    w as (cp, 9, O); a slice that runs past cp loads zeros in both."""
+
+    bk: int
+    bn: int
+    tw: int
+    th: int
+    stages: int
+    ho: int
+    wo: int
+    boxes_w: int
+    boxes_h: int
+    tiles_n: int
+    smem_bytes: int
+    x_box: tuple
+    x_elem_strides: tuple
+    x_strides: tuple
+    w_box: tuple
+    w_strides: tuple
+
+    def box_origins(self, n: int) -> np.ndarray:
+        """(img, oy0, ox0) of every pixel box, in the order the kernel walks
+        them (``decode`` in ``csrc/int8_conv.cu``: images outer, then box rows,
+        then box columns; each box once for each of the ``tiles_n`` channel tiles)."""
+        img, by, bx = np.meshgrid(np.arange(n), np.arange(self.boxes_h), np.arange(self.boxes_w), indexing="ij")
+        return np.stack([img.ravel(), by.ravel() * self.th, bx.ravel() * self.tw], axis=1)
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_conv_plan(n: int, h: int, w: int, cp: int, o: int, stride: int, out_dtype=torch.float32,
+                   bk: int | None = None, bn: int | None = None) -> Int8ConvPlan:
+    """Kernel H's tile plan for x (n, h, w, cp) int8 and O = ``o`` outputs,
+    cached (the wrapper asks for it at every launch). ``bk``, unless given
+    (32, 64 or 128): the narrowest slice that takes no more slices a tap than
+    128-byte ones (cp 64: 64; cp 96: 128, a quarter zeros, which on an H100
+    beat three 32-byte slices: ``tools/bench_int8_conv.py``). ``bn``, unless
+    given: the narrowest width of ``H_WIDTHS`` that holds O, 256 above (a
+    ragged last channel tile). Boxes 128 pixels wide where wo >= 128, else the
+    power of two >= wo wide and 128 / tw rows tall. Stages: as many as shared
+    memory holds beside the epilogue's staging buffer (128 bytes of each of
+    128 rows, plus padding), at most 8."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if bk is None:
+        bk = next(b for b in (32, 64, 128) if -(-cp // b) == -(-cp // 128))
+    if bk not in (32, 64, 128):
+        raise ValueError(f"int8_conv: bk {bk} is not one of 32, 64, 128")
+    if bn is None:
+        bn = next((b for b in H_WIDTHS if b >= o), H_WIDTHS[-1])
+    if bn not in H_WIDTHS:
+        raise ValueError(f"int8_conv: bn {bn} is not one of {H_WIDTHS}")
+    tw = min(H_PIXELS, 1 << max(wo - 1, 0).bit_length())
+    th = H_PIXELS // tw
+    out_bytes = out_dtype.itemsize
+    stage = -(-(H_PIXELS + bn) * bk // 1024) * 1024
+    staging = H_PIXELS * (min(bn, 128 // out_bytes) + 8) * out_bytes
+    fixed = 1024 + staging + 2 * H_MAX_STAGES * 8
+    stages = min(H_MAX_STAGES, (H_SMEM - fixed) // stage)
+    return Int8ConvPlan(bk=bk, bn=bn, tw=tw, th=th, stages=stages, ho=ho, wo=wo, boxes_w=-(-wo // tw),
+                        boxes_h=-(-ho // th), tiles_n=-(-o // bn), smem_bytes=fixed + stages * stage,
+                        x_box=(bk, tw * stride, th * stride, 1), x_elem_strides=(1, stride, stride, 1),
+                        x_strides=(cp, w * cp, h * w * cp), w_box=(bk, 1, bn), w_strides=(cp, 9 * cp))
+
+
+def _int8_conv_cuda(xq, amax, wq, mw, bias, stride, out_dtype, plan: Int8ConvPlan | None = None):
+    """Kernel H on int8 NHWC ``xq``; ``plan`` replaces :func:`int8_conv_plan`'s
+    (``tools/bench_int8_conv.py`` times other plans, the card tests hold them)."""
     bf16 = out_dtype == torch.bfloat16
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int8_conv: output dtype {out_dtype} (f32 or bf16)")
@@ -190,7 +273,9 @@ def _int8_conv_cuda(xq, amax, wq, mw, bias, stride, out_dtype):
         raise ValueError(f"int8_conv: stride {stride} (1 or 2), xq and wq 16-byte aligned")
     out = torch.empty((n, o, (h - 1) // stride + 1, (w - 1) // stride + 1), device=xq.device, dtype=out_dtype,
                       memory_format=torch.channels_last)
-    launch("int8_conv[bf16]" if bf16 else "int8_conv", xq, wq, amax, mw, bias, out, n, h, w, cp, o, stride)
+    p = plan or int8_conv_plan(n, h, w, cp, o, stride, out_dtype)
+    launch("int8_conv[bf16]" if bf16 else "int8_conv", xq, wq, amax, mw, bias, out, n, h, w, cp, o, stride,
+           p.bk, p.bn, p.tw, p.th, p.stages)
     return out
 
 

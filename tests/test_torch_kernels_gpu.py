@@ -19,7 +19,9 @@ bf16), on the same cases and at views that break the vector alignment.
 Kernels I (the int8 quantizer) and H (the int8 convolution) are exact and
 equal their plain versions bit for bit: C = 65 and C < 32 (channel padding),
 O = 2 and 70, stride 2 on odd sizes, ragged pixel counts, half-steps and
-clipped entries, both dtypes, static and dynamic amax.
+clipped entries, both dtypes, static and dynamic amax, every tile path of
+H (box widths, boxes cut at both edges, ragged channel tiles, K slices of
+32, 64 and 128 bytes) and other tile plans than the default.
 """
 
 import pytest
@@ -865,9 +867,24 @@ def test_spixel_step_two_ranks_on_one_card(cuda, tmp_path):
 # first convolution, cp 96), c < 32 and a ragged pixel count
 QUANT_CASES = [(2, 16, 16, 64), (1, 9, 11, 65), (3, 5, 7, 3), (1, 4, 4, 512), (2, 7, 9, 32)]
 # kernel H: (n, h, w, c, o, stride): ragged M, c = 65, O = 2, O not a
-# multiple of 64, stride 2 on odd sizes, the widest input
+# multiple of 64, stride 2 on odd sizes, the widest input; then each tile path
+# of the TMA/wgmma design: output rows 256, 128, 64 and 32 wide (boxes 128x1,
+# 128x1, 64x2, 32x4; O = 512 in two channel tiles), boxes cut at the right and
+# bottom edges, O = 130 (a ragged 256-wide channel tile), cp = 96 (one
+# 128-byte slice a tap, a quarter of it TMA's zeros), stride 2 on a 17x33
+# input, batch 1
 INT8_CONV_CASES = [(2, 17, 33, 65, 2, 1), (2, 16, 16, 64, 64, 2), (1, 9, 11, 32, 70, 1), (3, 9, 7, 96, 128, 2),
-                   (1, 5, 7, 512, 16, 1), (1, 8, 8, 256, 256, 1)]
+                   (1, 5, 7, 512, 16, 1), (1, 8, 8, 256, 256, 1),
+                   (2, 3, 256, 64, 64, 1), (1, 4, 128, 128, 128, 1), (2, 5, 64, 256, 256, 1), (1, 9, 32, 512, 512, 1),
+                   (2, 11, 45, 64, 64, 1), (1, 3, 200, 64, 16, 1), (1, 10, 20, 128, 130, 1), (1, 6, 40, 65, 64, 1),
+                   (2, 17, 33, 64, 128, 2)]
+# kernel H under other tile plans than int8_conv_plan picks: (case, plan
+# overrides): K slices narrower than cp (cp 96 in three 32-byte slices, PR
+# 14's tiling), slices that run past cp into TMA's zero fill (cp 96 in 64-byte
+# ones, cp 64 in 128-byte ones), and other channel-tile widths
+INT8_PLAN_CASES = [((1, 6, 20, 128, 32, 1), {"bk": 32}), ((1, 6, 20, 65, 64, 1), {"bk": 64}),
+                   ((1, 6, 20, 65, 64, 2), {"bk": 32}), ((2, 5, 64, 256, 256, 1), {"bn": 128}),
+                   ((1, 9, 11, 32, 70, 1), {"bn": 16}), ((1, 7, 9, 64, 2, 1), {"bn": 64, "bk": 128})]
 
 
 def _channels_last(x):
@@ -929,6 +946,25 @@ def test_int8_conv_matches_plain(cuda, case, dtype):
         assert out.is_contiguous(memory_format=torch.channels_last)
         assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
         assert torch.equal(out, quant.int8_conv_q(x, wq, mw, bias, stride, amax))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,plan", INT8_PLAN_CASES)
+def test_int8_conv_plan_matches_plain(cuda, case, plan, dtype):
+    """Kernel H bit for bit against its plain version under a tile plan with
+    ``bk`` or ``bn`` overridden (as ``tools/bench_int8_conv.py`` runs them)."""
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    n, h, w, c, o, stride = case
+    x = _channels_last(_planted(cuda, n, h, w, c, dtype, seed=4))
+    wq, mw = quant.quantize_weight(_rand(cuda, o, c, 3, 3, seed=5) * 0.1)
+    bias = _rand(cuda, o, seed=6) * 0.1
+    amax = torch.tensor(2.0, device=cuda)
+    q = quant.quantize_activation(x, amax)
+    p = quant.int8_conv_plan(n, h, w, q.shape[-1], o, stride, dtype, **plan)
+    out = quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype, plan=p)
+    ref = quant.int8_conv_plain(q, amax, wq, mw, bias, stride, dtype)
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
 
 
 def test_int8_conv_refuses_what_it_does_not_take(cuda):

@@ -197,6 +197,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -301,7 +302,59 @@ def device_ms(fn, iters: int = 20, tries: int = 3):
                 whole &= evt.count % iters == 0
         if whole:
             break
+    if not by_kernel:  # what the lost trace held, for the record
+        evts = prof.events()
+        log(f"device_ms: no device time in the trace ({len(evts)} events, "
+            f"{sum(e.device_type == torch.autograd.DeviceType.CUDA for e in evts)} of them on the device)")
     return (sum(by_kernel.values()), by_kernel) if by_kernel else (None, {})
+
+
+def graph_ms(fn, iters: int = 20, round_ms: float = 25.0, rounds: int = 4):
+    """Device milliseconds per call by CUDA events around replays of one CUDA
+    graph of ``iters`` calls of ``fn`` (captured after a warm-up on a side
+    stream; the launches follow each other on the card with no host enqueue
+    between them): the least of ``rounds`` timed rounds of about ``round_ms``
+    each, after one untimed round. Right after heavy phases the first graph
+    of a process can replay 15-20% slower for some tens of milliseconds
+    (chip_smoke.py phase 7 after phases 3-6; not after profiler sessions or a
+    full allocator cache alone), so one round is not enough; every round's
+    time and the first replay's go to stderr. The profiler's device time
+    (:func:`device_ms`) can lose its events in a long process; this time
+    cannot. None where ``fn`` cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        log(f"graph_ms: not captured ({str(e)[:80]})")
+        torch.cuda.synchronize()
+        return None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def replays(k: int) -> float:
+        start.record()
+        for _ in range(k):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (k * iters)
+
+    first = replays(1)
+    reps = max(3, math.ceil(round_ms / max(first * iters, 1e-3)))
+    replays(reps)
+    times = [replays(reps) for _ in range(rounds)]
+    print(f"graph_ms: rounds of {reps} replays of {iters}: {' '.join(f'{t:.4f}' for t in times)} ms a call; "
+          f"the first replay {first:.4f}", file=sys.stderr, flush=True)
+    del graph
+    return min(times)
 
 
 def time_in_turns(label: str, library, kernel, device) -> dict:
@@ -1206,11 +1259,13 @@ def compare_stage_one(device, n: int = 128, size: int = 256, sp_size: int = 16, 
     for label, bb in (("with beta (pooling)", beta), ("without beta (unpooling)", None)):
         fn = lambda bb=bb: superpixel.prob_grad(x, tok, bb, sp_size, sp_size)  # noqa: E731
         b_ms, b_by = bound(nbytes(x, tok, bb) + n * size * size * 9 * 4, n * size * size * 9 * (2.0 * c + 1))
-        timed[label] = dict(ms=time_ms(fn, device), device_ms=device_ms(fn)[0], bound_ms=b_ms, bound_by=b_by,
+        timed[label] = dict(ms=time_ms(fn, device), device_ms=device_ms(fn)[0], graph_ms=graph_ms(fn, iters=10),
+                            bound_ms=b_ms, bound_by=b_by,
                             plain_ms=time_ms(lambda bb=bb: superpixel.prob_grad_plain(x, tok, bb, sp_size, sp_size),
                                              device, warmup=1, iters=5))
-        log(f"prob_grad {label}, batch {n}, C={c}: ms={timed[label]['ms']:.4f} device {timed[label]['device_ms']:.4f} "
-            f"plain_ms={timed[label]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
+        log(f"prob_grad {label}, batch {n}, C={c}: ms={timed[label]['ms']:.4f} device {timed[label]['device_ms']} "
+            f"graph {timed[label]['graph_ms']} plain_ms={timed[label]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"library_ms=None")
     row = dict(
         name="prob_grad", route="cuda", source="disentangledcolorization_tpu_torch/csrc/prob_grad.cu",
         replaces="disentangledcolorization_tpu/ops/superpixel.py:40 (no Pallas kernel: XLA autodiff of poolfeat "
@@ -3977,13 +4032,13 @@ def int8_conv_case(device, g, c: int, o: int, stride: int, hw: int, dtype, n: in
     if not timed:
         return case
     m_rows, k = out.shape[0] * out.shape[2] * out.shape[3], 9 * c
-    case["h"] = dict(ms=time_ms(lambda: quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype), device),
-                     device_ms=device_ms(lambda: quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype))[0],
+    h_fn = lambda: quant._int8_conv_cuda(q, amax, wq, mw, bias, stride, dtype)  # noqa: E731
+    case["h"] = dict(ms=time_ms(h_fn, device), device_ms=device_ms(h_fn)[0], graph_ms=graph_ms(h_fn),
                      plain_ms=time_ms(lambda: quant.int8_conv_plain(q_ref, amax, wq, mw, bias, stride, dtype), device,
                                       warmup=1, iters=3))
     case["h"]["bound_ms"], case["h"]["bound_by"] = bound_int8(nbytes(q, wq, mw, bias, out), 2.0 * m_rows * o * k)
-    case["i"] = dict(ms=time_ms(lambda: quant.quantize_activation(x, amax), device),
-                     device_ms=device_ms(lambda: quant.quantize_activation(x, amax))[0],
+    i_fn = lambda: quant.quantize_activation(x, amax)  # noqa: E731
+    case["i"] = dict(ms=time_ms(i_fn, device), device_ms=device_ms(i_fn)[0], graph_ms=graph_ms(i_fn),
                      plain_ms=time_ms(lambda: quant.quantize_activation_plain(x, amax), device, warmup=1, iters=3))
     case["i"]["bound_ms"], case["i"]["bound_by"] = bound_int8(nbytes(x, q), float(x.numel()))
     try:  # the library yardstick of I: one quantizing call (host scale: it waits for the card; no bf16 form)
@@ -4045,16 +4100,19 @@ def compare_int8_kernels(device) -> tuple[list, dict]:
             r = row_case[part]
             rows.append(dict(name=name + tag, route="cuda", source=f"disentangledcolorization_tpu_torch/csrc/{src}",
                              replaces=replaces, max_abs_err=row_case["max_abs_err"] if part == "h" else 0.0,
-                             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                             ms=r["ms"], device_ms=r["device_ms"], graph_ms=r["graph_ms"], plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"],
                              bound_by=r["bound_by"], library_ms=r.get("library_ms"),
                              library_device_ms=r.get("library_device_ms"), cudnn_bf16_ms=r.get("cudnn_bf16_ms"),
                              shape=row_case["shape"]))
     for c in cases:
         h, i = c["h"], c["i"]
-        log(f"int8 {c['dtype']} {c['shape']}: bit for bit; H {h['ms']:.4f} ms (device {h['device_ms']}), bound "
+        log(f"int8 {c['dtype']} {c['shape']}: bit for bit; H {h['ms']:.4f} ms (device {h['device_ms']}, graph "
+            f"{h['graph_ms']}), bound "
             f"{h['bound_ms']:.4f} ({h['bound_by']}), plain {h['plain_ms']:.3f}, _int_mm {h['library_ms']:.4f} "
             f"(device {h['library_device_ms']}), cuDNN bf16 {h['cudnn_bf16_ms']:.4f} (device "
-            f"{h['cudnn_bf16_device_ms']}); I {i['ms']:.4f} ms (device {i['device_ms']}), bound {i['bound_ms']:.4f}, "
+            f"{h['cudnn_bf16_device_ms']}); I {i['ms']:.4f} ms (device {i['device_ms']}, graph {i['graph_ms']}), bound "
+            f"{i['bound_ms']:.4f}, "
             f"quantize_per_tensor {i['library_ms']} (device {i.get('library_device_ms')})")
     return rows, {"int8_cases": cases}
 
@@ -4167,7 +4225,7 @@ def drive_int8_serving(device, smi: str, n_requests: int = 3, batch: int = 8, si
             fwd_ms, by_kernel = device_ms(lambda: col.model(grays), iters=5)
             flt_ms, _ = device_ms(lambda: flt.model(grays), iters=5)
         h_ms = sum(v for k, v in by_kernel.items() if "int8_conv_kernel" in k)
-        i_ms = sum(v for k, v in by_kernel.items() if "quantize_kernel" in k)
+        i_ms = sum(v for k, v in by_kernel.items() if k.startswith("quantize_"))  # I's two kernels
         syncs = {"int8": count_syncs(lambda: col.colorize_batch(requests[1])),
                  "float": count_syncs(lambda: flt.colorize_batch(requests[1]))}
         if syncs["int8"] != syncs["float"]:
@@ -4401,7 +4459,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "max_rel_err",
             "max_ulps", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "library_dropout_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "graph_ms", "library_device_ms", "library_dropout_ms",
             "library_dropout_device_ms", "cudnn_bf16_ms", "shape")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows], "also_measured": extras}))

@@ -60,12 +60,17 @@ KERNELS = {
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
-    "prob_grad": ("prob_grad.cu", "disco_prob_grad", [*[_P] * 4, *[_I] * 6, _P]),
+    "prob_grad": ("prob_grad.cu", "disco_prob_grad", [*[_P] * 4, *[_I] * 9, _P]),
     "quantize": ("quantize.cu", "disco_quantize", [_P, _P, _P, _L, _I, _I, _P]),
     "quantize[bf16]": ("quantize.cu", "disco_quantize_bf16", [_P, _P, _P, _L, _I, _I, _P]),
     "int8_conv": ("int8_conv.cu", "disco_int8_conv", [*[_P] * 6, *[_I] * 11, _P]),
     "int8_conv[bf16]": ("int8_conv.cu", "disco_int8_conv_bf16", [*[_P] * 6, *[_I] * 11, _P]),
 }
+
+#: shared memory of an H100: what one block may take (dynamic), and what an SM holds (each resident block
+#: also takes 1 KB of it)
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict[str, str] = {}

@@ -48,9 +48,12 @@ its one user, trains in f32 in the JAX package whatever the flag says).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from .kernels import check_cuda, launch
+from .kernels import SMEM_BLOCK, SMEM_SM, check_cuda, launch
 
 _OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
@@ -183,8 +186,69 @@ def shift_add(t, mass=None, hard=None, dtype=torch.float32):
     return out, mass_sum, sizes
 
 
-# shared floats kernel G may take a block: the card's 227 KB
-_PROB_GRAD_SMEM_FLOATS = 232448 // 4
+#: kernel G's ring (``csrc/prob_grad.cu``: kStages) and blocks an SM (its launch bounds)
+PROB_GRAD_STAGES = 3
+PROB_GRAD_BLOCKS_PER_SM = 4
+PROB_GRAD_TILE_BYTES = 8192  # input bytes a tile, about
+
+
+class ProbGradPlan(NamedTuple):
+    """Kernel G's launch: units of ``seg`` cells of a cell row (all ``wc``:
+    the whole band), tiles of ``tile_px`` pixels, ``stage_bytes`` a ring
+    stage, two output tiles of ``out_floats``, PROB_GRAD_STAGES slots of a
+    unit's three token rows of ``seg + 2`` cells (C floats and a beta each),
+    ``per_sm`` blocks an SM. ``seg`` 0: no slots, whole bands, the kernel
+    reads the tokens from global memory."""
+
+    seg: int
+    tile_px: int
+    stage_bytes: int
+    out_floats: int
+    smem_bytes: int
+    per_sm: int
+
+    def tiles(self, n: int, hc: int, wc: int, sp_h: int, sp_w: int) -> list:
+        """(first pixel, pixels, j0, cells) of every tile, flat over the
+        tensor's pixels, unit by unit as the kernel cuts them (``unit_at`` and
+        ``tile_at`` in ``csrc/prob_grad.cu``): a unit is cells [j0, j0 + cells)
+        of a cell row, a whole band a contiguous span of sp_h * W pixels, a
+        narrower unit sp_h spans of cells * sp_w."""
+        seg, w = min(self.seg or wc, wc), wc * sp_w
+        nseg = -(-wc // seg)
+        out = []
+        for u in range(n * hc * nseg):
+            j0, band = (u % nseg) * seg, u // nseg
+            cells = min(seg, wc - j0)
+            spans, length = (1, sp_h * w) if nseg == 1 else (sp_h, cells * sp_w)
+            base = band * sp_h * w + j0 * sp_w
+            for span in range(spans):
+                for off in range(0, length, self.tile_px):
+                    out.append((base + span * w + off, min(self.tile_px, length - off), j0, cells))
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def prob_grad_plan(c: int, wc: int) -> ProbGradPlan:
+    """Kernel G's plan for C = ``c`` channels and ``wc`` cells a row, cached:
+    about PROB_GRAD_TILE_BYTES of features a tile, at most 256 pixels (one a
+    thread), a multiple of 8 of them where a pixel is at most an eighth of
+    that; the widest unit, up to the whole band, whose tokens fit beside
+    the ring (a slot for each of its stages), or, where not even one cell's
+    do, seg 0 (tokens from global memory); as many blocks an SM (at most
+    PROB_GRAD_BLOCKS_PER_SM) as shared memory holds. Raises where not even a
+    ring of one-pixel tiles fits a block."""
+    tile_px = max(1, min(256, PROB_GRAD_TILE_BYTES // (4 * c)))
+    if tile_px >= 8:
+        tile_px -= tile_px % 8
+    stage = -(-tile_px * c * 4 // 16) * 16 + 16
+    out_floats = -(-(tile_px * 9 + 4) // 4) * 4
+    fixed = PROB_GRAD_STAGES * stage + 8 * out_floats
+    per_cell = PROB_GRAD_STAGES * 12 * (c + 1)  # a slot a stage: three rows of a cell's C tokens and its beta
+    if fixed > SMEM_BLOCK:
+        raise ValueError(f"prob_grad: C={c} needs more shared memory than a block has")
+    seg = max(0, min(wc, (SMEM_BLOCK - fixed) // per_cell - 2))
+    smem = fixed + per_cell * (seg + 2) if seg else fixed
+    return ProbGradPlan(seg, tile_px, stage, out_floats, smem, min(PROB_GRAD_BLOCKS_PER_SM, SMEM_SM // (smem + 1024)))
 
 
 def _neighbours(x: torch.Tensor) -> torch.Tensor:
@@ -222,11 +286,11 @@ def prob_grad(x, tokens, beta=None, sp_h: int = 16, sp_w: int = 16):
     if tokens.shape != (n, hc, wc, c) or (beta is not None and beta.shape != (n, hc, wc)):
         raise ValueError(f"prob_grad: tokens {tuple(tokens.shape)} / beta {None if beta is None else tuple(beta.shape)} "
                          f"do not fit x {tuple(x.shape)} at a {sp_h}x{sp_w} cell")
-    rows = min(max(1, 256 // sp_w), sp_h)  # the kernel's pass: whole rows of the cell
-    if 9 * (c + 1 + rows * sp_w) > _PROB_GRAD_SMEM_FLOATS:  # tokens, beta, the pass's output
-        raise ValueError(f"prob_grad: C={c} at a {sp_h}x{sp_w} cell needs more shared memory than a block has")
+    if h * w >= 2**31:
+        raise ValueError(f"prob_grad: a {h}x{w} image has 2^31 pixels or more")
+    p = prob_grad_plan(c, wc)
     out = torch.empty((n, h, w, 9), device=x.device, dtype=torch.float32)
-    launch("prob_grad", x, tokens, beta, out, n, hc, wc, c, sp_h, sp_w)
+    launch("prob_grad", x, tokens, beta, out, n, hc, wc, c, sp_h, sp_w, p.seg, p.tile_px, p.per_sm)
     return out
 
 

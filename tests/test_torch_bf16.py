@@ -46,6 +46,7 @@ model: uint8 RGB within the stated levels.
 """
 
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +70,7 @@ from disentangledcolorization_tpu_torch.ops import superpixel as tsp
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from disentangledcolorization_tpu_torch.utils import cielab
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 BF16 = torch.bfloat16
 # (absolute) affinity_map and pred_colors; (relative to the largest entry) the logits
@@ -481,7 +483,8 @@ def serving_variables(tmp_path_factory):
     pkl = tmp_path_factory.mktemp("ckpt") / "bridged.pkl"
     with open(pkl, "wb") as f:
         pickle.dump(variables, f)
-    return str(pkl), from_jax_variables(variables, sn_folded=True)
+    yield str(pkl), from_jax_variables(variables, sn_folded=True)
+    shutil.rmtree(pkl.parent, ignore_errors=True)
 
 
 def _hinted_request(seed=3):

@@ -40,7 +40,7 @@ from disentangledcolorization_tpu.models.colorprobnet import _SNStage
 from disentangledcolorization_tpu_torch.models import AnchorColorProb
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables, grads_from_jax
 from test_torch_bridge import random_state_dict, to_jax_variables
-from test_torch_bf16_train_step import one_thread  # noqa: F401 (autouse: one intra-op thread)
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 BF16 = torch.bfloat16
 # The port's bf16 results against JAX's, relative L2 over a block's output,

@@ -21,7 +21,7 @@ from disentangledcolorization_tpu_torch.models import AnchorColorProb
 from disentangledcolorization_tpu_torch.tools.convert import fold_spectral_norm
 from disentangledcolorization_tpu_torch.train import data
 from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser, spixel_argparser
-from test_torch_bf16_train_step import one_thread  # noqa: F401 (autouse: one intra-op thread)
+from torch_fixtures import one_thread, tmp_path  # noqa: F401 (one thread; tmp_path removed if passed)
 
 SMALL = ["--input_size", "32", "--batch_size", "2", "--num_workers", "1", "--device", "cpu", "--seed", "3",
          "--compute_dtype", "bfloat16"]

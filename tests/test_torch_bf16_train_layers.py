@@ -33,7 +33,7 @@ from disentangledcolorization_tpu.models import layers as jl
 from disentangledcolorization_tpu.ops import superpixel as sp
 from disentangledcolorization_tpu_torch.models import layers
 from disentangledcolorization_tpu_torch.ops import superpixel as tsp
-from test_torch_bf16_train_step import one_thread  # noqa: F401 (autouse: one intra-op thread)
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 BF16 = torch.bfloat16
 # A layer's bf16 results against JAX's: at most this share of entries apart

@@ -50,6 +50,7 @@ from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables,
 from disentangledcolorization_tpu_torch.train import losses, state, steps
 from test_torch_bridge import random_state_dict, to_jax_variables
 from test_torch_train import _conditioned
+from torch_fixtures import one_thread  # noqa: F401 (autouse; bf16 CPU kernels slow down 10-50x beside other workers)
 
 BF16 = torch.bfloat16
 SIZE = 32
@@ -70,17 +71,6 @@ BUFFER_TOL = 2e-2
 # values in an f32 step: chance (one in 2^16 per entry, more where a gradient
 # is an exact small sum)
 CHANCE = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread while this module runs: its shapes are tiny, and
-    the suite's parallel workers, each with a thread per core, would
-    oversubscribe the cores (bf16 CPU kernels slow down 10-50x then)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _quiet(fn):

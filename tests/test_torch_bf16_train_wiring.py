@@ -27,9 +27,10 @@ from disentangledcolorization_tpu_torch.models.vgg import VGG19Features
 from disentangledcolorization_tpu_torch.ops import superpixel as tsp
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from disentangledcolorization_tpu_torch.train import losses, state, steps
-from test_torch_bf16_train_step import LOSS_RTOL, LOSSES, _batch, one_thread  # noqa: F401 (autouse)
+from test_torch_bf16_train_step import LOSS_RTOL, LOSSES, _batch
 from test_torch_bridge import random_state_dict, to_jax_variables
 from test_torch_train import _conditioned
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 BF16 = torch.bfloat16
 

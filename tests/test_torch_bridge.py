@@ -25,6 +25,7 @@ from disentangledcolorization_tpu_torch import resolve_device
 from disentangledcolorization_tpu_torch.models import AnchorColorProb
 from disentangledcolorization_tpu_torch.ops import affinity, attention, colorlabel, kernels, quant, superpixel
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
+from torch_fixtures import one_thread, tmp_path  # noqa: F401 (one thread; tmp_path removed if passed)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from disentangledcolorization_tpu_torch.models import AnchorColorProb, SpixelSeg
 from disentangledcolorization_tpu_torch.tools.convert import fold_spectral_norm, grads_from_jax
 from disentangledcolorization_tpu_torch.train import checkpoint, losses, optim, state, steps
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import one_thread, tmp_path  # noqa: F401 (one thread; tmp_path removed if passed)
 
 SIZE = 32
 

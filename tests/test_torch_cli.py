@@ -23,6 +23,7 @@ runs the stage-2 trainer with each.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 import warnings
@@ -38,6 +39,7 @@ from disentangledcolorization_tpu_torch.train import data
 from disentangledcolorization_tpu_torch.train.checkpoint import load_train_variables
 from disentangledcolorization_tpu_torch.utils.config import pcolor_argparser
 from test_torch_bridge import REPO
+from torch_fixtures import one_thread, tmp_path  # noqa: F401 (one thread; tmp_path removed if passed)
 
 SMALL = ["--input_size", "32", "--batch_size", "2", "--num_workers", "1", "--device", "cpu", "--seed", "3"]
 COLOR = ["--n_enc", "2", "--n_dec", "2", "--n_clusters", "2", "--enhanced"]
@@ -51,7 +53,8 @@ def folder(tmp_path_factory):
         os.makedirs(root / "data" / split)
         for i in range(n):
             cv2.imwrite(str(root / "data" / split / f"im{i}.png"), rng.integers(0, 256, (40, 36, 3), dtype=np.uint8))
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +62,7 @@ def stage_one(folder):
     """Stage 1 through ``python -m`` (2 epochs), as a user runs it."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # as the in-process runs: one intra-op thread
     cmd = [sys.executable, "-m", "disentangledcolorization_tpu_torch.cli.train_spixel", "--data",
            str(folder / "data"), "--save_dir", str(folder / "runs"), "--name", "sp", "--epochs", "2", *SMALL]
     out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)

@@ -21,6 +21,7 @@ against the JAX package's, on one tiny image folder (OpenCV decodes both).
 
 import json
 import os
+import shutil
 
 import cv2
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from disentangledcolorization_tpu_torch.ops import hints, superpixel
 from disentangledcolorization_tpu_torch.train import data
 from disentangledcolorization_tpu_torch.utils import config, io, seeding
 from disentangledcolorization_tpu_torch.utils import logging as tlogging
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +58,8 @@ def root(tmp_path_factory):
             cv2.imwrite(str(root / sub / name), img)
         names.append(name)
     (root / "train_list.txt").write_text("".join(f"{n} {i}\n" for i, n in enumerate(names)))
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _items_equal(a, b):

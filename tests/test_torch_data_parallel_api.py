@@ -22,6 +22,7 @@ import torch
 from disentangledcolorization_tpu_torch.api import Colorizer
 from disentangledcolorization_tpu_torch.cli import infer
 from disentangledcolorization_tpu_torch.parallel import mesh
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 TOL = 1e-5
 TWO = [torch.device("cpu")] * 2

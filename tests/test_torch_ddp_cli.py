@@ -59,7 +59,8 @@ def folder(tmp_path_factory):
         os.makedirs(root / "data" / split)
         for i in range(n):
             cv2.imwrite(str(root / "data" / split / f"im{i}.png"), rng.integers(0, 256, (40, 36, 3), dtype=np.uint8))
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _metrics(run_dir, name):

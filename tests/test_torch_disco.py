@@ -15,6 +15,7 @@ known source of the uint8 gap, bounded below.
 """
 
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from disentangledcolorization_tpu_torch.api import Colorizer
 from disentangledcolorization_tpu_torch.models import AnchorColorProb
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 ATOL = 1e-4
 # cv2's float Lab conversion and the port's chain differ in the last digits of
@@ -93,7 +95,8 @@ def colorizers(tmp_path_factory):
     assert jcol.loaded
     ours = Colorizer(n_clusters=2, device="cpu", state_dict=from_jax_variables(variables, sn_folded=True),
                      compute_dtype="float32")
-    return jcol, ours
+    yield jcol, ours
+    shutil.rmtree(pkl.parent, ignore_errors=True)
 
 
 def test_colorize_with_hints_matches_jax(colorizers):

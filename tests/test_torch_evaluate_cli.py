@@ -20,6 +20,7 @@
 
 import json
 import pickle
+import shutil
 
 import cv2
 import numpy as np
@@ -34,6 +35,7 @@ from disentangledcolorization_tpu_torch.train import metrics as M
 from disentangledcolorization_tpu_torch.utils import io as tio
 from test_torch_inception import seeded_inception_state_dict
 from test_torch_metrics import structured
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 REL = 1e-4
 
@@ -67,7 +69,8 @@ def weights(tmp_path_factory):
     rng = np.random.default_rng(7)
     np.savez(lin, **{f"lin{i}": rng.uniform(0, 0.1, c).astype(np.float32)
                      for i, c in enumerate((64, 128, 256, 512, 512))})
-    return ["--vgg_npz", npz, "--inception_pkl", pkl, "--lpips_lin", lin]
+    yield ["--vgg_npz", npz, "--inception_pkl", pkl, "--lpips_lin", lin]
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def folders(tmp_path, size, n=4):

@@ -40,6 +40,7 @@ from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from disentangledcolorization_tpu_torch.utils import color, io
 from test_torch_bridge import random_state_dict, to_jax_variables
 from test_torch_disco import ATOL, _inputs
+from torch_fixtures import one_thread, tmp_path  # noqa: F401 (one thread; tmp_path removed if passed)
 
 
 def test_fast_seg_is_the_standard_segnet_and_matches_jax():

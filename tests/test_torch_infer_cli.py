@@ -29,6 +29,7 @@
 import functools
 import os
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,7 @@ from disentangledcolorization_tpu_torch.ops import attention
 from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from disentangledcolorization_tpu_torch.utils import io as tio
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 UINT8_TOL = 2
 SIZES = [(45, 37), (48, 40), (40, 33)]  # all pad to 48x48 at bucket 16
@@ -77,7 +79,8 @@ def folder(tmp_path_factory):
     for i, (h, w) in enumerate(SIZES):
         img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (5, 5), 2)
         cv2.imwrite(str(d / f"im{i}.png"), img)
-    return str(d)
+    yield str(d)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +103,8 @@ def weights(tmp_path_factory):
                 pickle.dump(to_jax_variables(_unfolded(**options), sn_folded=True), f)
         return made[key]
 
-    return pkl
+    yield pkl
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _mask(n, h, w):

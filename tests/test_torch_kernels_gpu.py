@@ -21,7 +21,11 @@ equal their plain versions bit for bit: C = 65 and C < 32 (channel padding),
 O = 2 and 70, stride 2 on odd sizes, ragged pixel counts, half-steps and
 clipped entries, both dtypes, static and dynamic amax, every tile path of
 H (box widths, boxes cut at both edges, ragged channel tiles, K slices of
-32, 64 and 128 bytes) and other tile plans than the default.
+32, 64 and 128 bytes) and other tile plans than the default; both of I's
+paths (vector, word) at widths 1 to 512, pixel counts below one block and
+across several, and views at odd offsets; kernel G's whole bands at C = 1,
+2, 3, 5, 66 and, through wide C, its narrower units, one-pixel tiles and
+tokens read from global memory.
 """
 
 import pytest
@@ -240,6 +244,34 @@ def test_prob_grad_kernel_takes_views_at_odd_offsets(cuda, offset):
                                atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 66, 1024, 1400, 1900, 3000])
+@pytest.mark.parametrize("sh,sw", [(8, 8), (6, 10)])
+def test_prob_grad_units_tiles_and_offsets(cuda, c, sh, sw):
+    """Kernel G's design on one image of 3 x 5 cells, each unit path reached
+    through C (the plan follows from C and the grid): whole bands in tiles
+    of many pixels (C up to 66), units of 3 cells (C = 1024: 5 is not a
+    multiple, the last takes 2), 2 and 1 cells in one-pixel tiles, and the
+    tokens read from global memory (C = 3000, past what a slot holds); each
+    with and without beta and with x at offsets of 0, 1 and 2 floats; within
+    1e-5 of the plain version and bitwise repeatable."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    n, hc, wc = 1, 3, 5
+    seg = {1024: 3, 1400: 2, 1900: 1, 3000: 0}.get(c, wc)
+    assert sp.prob_grad_plan(c, wc).seg == seg
+    # past 130 products, unit-sized tokens would put the order of f32's sums
+    # above 1e-5: they are scaled so that each dot product stays of order 1
+    scale = 1.0 if c <= 130 else 0.25 / c**0.5
+    tok, beta = _rand(cuda, n, hc, wc, c, seed=1) * scale, _rand(cuda, n, hc, wc, seed=2)
+    for offset in (0, 1, 2):
+        x = _rand(cuda, n, hc * sh, wc * sw, c, seed=offset)
+        x = _odd_view(x, offset) if offset else x
+        for bb in (None, beta):
+            out = sp.prob_grad(x, tok, bb, sh, sw)
+            torch.testing.assert_close(out, sp.prob_grad_plain(x, tok, bb, sh, sw), atol=1e-5, rtol=0)
+            assert torch.equal(out, sp.prob_grad(x, tok, bb, sh, sw))
+
+
 def test_prob_grad_rejects_what_kernel_g_does_not_take(cuda):
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
@@ -249,7 +281,7 @@ def test_prob_grad_rejects_what_kernel_g_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple"):
         sp.prob_grad(x[:, :30].contiguous(), tok, None, 16, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        sp.prob_grad(_rand(cuda, 1, 16, 16, 7000), _rand(cuda, 1, 1, 1, 7000), None, 16, 16)
+        sp.prob_grad(_rand(cuda, 1, 16, 16, 20000), _rand(cuda, 1, 1, 1, 20000), None, 16, 16)
 
 
 @pytest.mark.parametrize("n,hc,wc,c,sh,sw", SUPERPIXEL_CASES + [(2, 4, 4, 64, 16, 16), (1, 3, 5, 7, 8, 8)])
@@ -979,3 +1011,25 @@ def test_int8_conv_refuses_what_it_does_not_take(cuda):
         quant.int8_conv_q(x, wq, mw, bias, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="expected"):
         quant.int8_conv_q(x, wq[:, :, :, :32].contiguous(), mw, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 16, 32, 33, 64, 65, 96, 256, 512])
+def test_quantize_paths_bit_for_bit(cuda, c, dtype):
+    """Kernel I's two paths: the vector path (c == cp, x aligned) and the word
+    path (c != cp, or x at an offset of 1 or 3 elements); one pixel, fewer
+    words than a block takes, and a count that spreads over several blocks
+    with a ragged end; amax 0 (the 1e-12 floor), 2.0 (half-steps and clipped
+    entries) and the live max; bit for bit against the plain version."""
+    from disentangledcolorization_tpu_torch.ops import quant
+
+    for npix in (1, 63, 3001):
+        for offset in (0, 1, 3):
+            x = _planted(cuda, 1, 1, npix, c, dtype, seed=npix + offset)
+            x = _odd_view(x, offset) if offset else x
+            xc = _channels_last(x)
+            for amax in (torch.tensor(0.0, device=cuda), torch.tensor(2.0, device=cuda), None):
+                a = xc.abs().amax().float() if amax is None else amax
+                ref = quant.quantize_activation_plain(xc, a)
+                q = quant.quantize_activation(xc, amax)
+                assert torch.equal(q, ref), (npix, offset, int((q != ref).sum()))

@@ -36,6 +36,7 @@ from disentangledcolorization_tpu_torch.models.vgg import make_random_vgg19_npz
 from disentangledcolorization_tpu_torch.tools.convert import inception_to_jax_variables
 from disentangledcolorization_tpu_torch.train import metrics as M
 from test_torch_inception import seeded_inception_state_dict
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 REL = 1e-5
 

@@ -30,6 +30,7 @@ from disentangledcolorization_tpu_torch.models.spixelnet import SpixelSeg
 from disentangledcolorization_tpu_torch.ops import colorlabel as tcl
 from disentangledcolorization_tpu_torch.ops import kmeans as tkm
 from disentangledcolorization_tpu_torch.tools import convert
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _randomize(variables, rng):

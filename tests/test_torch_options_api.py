@@ -26,6 +26,7 @@ is held within ``test_torch_disco.py``'s 2 levels in f32:
 
 import functools
 import pickle
+import shutil
 
 import jax
 import numpy as np
@@ -67,7 +68,8 @@ def _weights(hint2regress: bool, tmp: str):
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("ckpt"))
-    return lambda hint2regress=False: _weights(hint2regress, tmp)
+    yield lambda hint2regress=False: _weights(hint2regress, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _image(seed=3):

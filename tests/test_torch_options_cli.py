@@ -26,6 +26,7 @@ import torch
 
 from disentangledcolorization_tpu_torch.cli import train_colorizer
 from disentangledcolorization_tpu_torch.train.checkpoint import load_train_variables
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 SMALL = ["--input_size", "32", "--batch_size", "2", "--num_workers", "1", "--device", "cpu", "--seed", "3",
          "--n_enc", "2", "--n_dec", "2", "--n_clusters", "2"]
@@ -56,7 +57,8 @@ def folder(tmp_path_factory):
         os.makedirs(root / "data" / split)
         for i in range(n):
             cv2.imwrite(str(root / "data" / split / f"im{i}.png"), rng.integers(0, 256, (40, 36, 3), dtype=np.uint8))
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("name", list(RUNS))

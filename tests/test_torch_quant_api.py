@@ -30,6 +30,7 @@ restores them: every test that builds one deletes both through
 
 import os
 import pickle
+import shutil
 
 import cv2
 import jax
@@ -47,6 +48,7 @@ from disentangledcolorization_tpu_torch.utils.io import encode_png, read_png
 from test_torch_bridge import to_jax_variables
 from test_torch_infer_cli import _unfolded, pinned  # noqa: F401 (pinned is a fixture)
 from test_torch_serve import _post, _Serving
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 MEAN_TOL, MAX_TOL = 1.0, 12
 
@@ -73,7 +75,8 @@ def pkl(tmp_path_factory):
     path = tmp_path_factory.mktemp("ckpt") / "w.pkl"
     with open(path, "wb") as f:
         pickle.dump(to_jax_variables(_unfolded(), sn_folded=True), f)
-    return str(path)
+    yield str(path)
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _images(n=2, h=32, w=32, seed=6):

@@ -43,6 +43,7 @@ from disentangledcolorization_tpu_torch.models import AnchorColorProb
 from disentangledcolorization_tpu_torch.ops import quant
 from disentangledcolorization_tpu_torch.tools import convert
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 N, SIZE = 1, 32

@@ -43,6 +43,7 @@ from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables
 from disentangledcolorization_tpu_torch.utils.io import encode_png, read_png
 from test_torch_infer_cli import UINT8_TOL, _unfolded, pinned  # noqa: F401 (pinned is a fixture)
 from test_torch_bridge import to_jax_variables
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -45,6 +45,7 @@ from disentangledcolorization_tpu_torch.ops import superpixel as tsp
 from disentangledcolorization_tpu_torch.tools.convert import spixel_from_jax_variables, spixel_grads_from_jax
 from disentangledcolorization_tpu_torch.train import data, losses, optim, state, steps
 from test_torch_bridge import random_state_dict
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N, SIZE, PSIZE = 2, 64, 16
 LR, EPOCHS, STEPS_PER_EPOCH = 2e-4, 20, 10  # scripts/spixelseg_ab16.sh: Adam 2e-4, poly over 20 epochs

@@ -26,6 +26,7 @@ import torch
 from disentangledcolorization_tpu.ops import pallas_superpixel as psp
 from disentangledcolorization_tpu.ops import superpixel as sp
 from disentangledcolorization_tpu_torch.ops import superpixel as tsp
+from torch_fixtures import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 # (n, h, w, c, sp)
 CASES = [(2, 64, 64, 66, 16), (1, 32, 48, 5, 8)]

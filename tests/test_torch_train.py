@@ -51,6 +51,7 @@ from disentangledcolorization_tpu_torch.tools.convert import from_jax_variables,
 from disentangledcolorization_tpu_torch.train import losses, state, steps
 from chip_smoke import center_conv_biases
 from test_torch_bridge import random_state_dict, to_jax_variables
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 LR = 0.5
 SIZE = 32

@@ -26,6 +26,7 @@ One seeded random-init VGG19 npz in the torchvision layout (the port's
 """
 
 import os
+import shutil
 import sys
 
 import jax
@@ -48,11 +49,14 @@ from chip_smoke import condition_vgg
 from disentangledcolorization_tpu_torch.utils.color import lab2rgb
 from test_torch_bridge import REPO, random_state_dict, to_jax_variables
 from test_torch_train import LOSSES, SIZE, _gap_conditioned, _quiet
+from torch_fixtures import tmp_path  # noqa: F401 (removed after a passing test)
 
 
 @pytest.fixture(scope="module")
 def npz(tmp_path_factory):
-    return make_random_vgg19_npz(str(tmp_path_factory.mktemp("vgg") / "vgg19.npz"), seed=0)
+    d = tmp_path_factory.mktemp("vgg")
+    yield make_random_vgg19_npz(str(d / "vgg19.npz"), seed=0)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

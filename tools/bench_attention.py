@@ -1,7 +1,7 @@
 """Device time of the port's hand-written kernels, of variants of their sources, and of another checkout, on the card.
 
-Three kernel sets, ``--set attention`` (the default), ``--set superpixel`` and
-``--set head_labels``.
+Four kernel sets, ``--set attention`` (the default), ``--set superpixel``,
+``--set head_labels`` and ``--set prob_grad``.
 A set's kernels are built from ``csrc/`` as they are ("base") and once per
 variant, a variant being a list of text substitutions ``[file, old, new]``
 applied to a temporary copy of ``csrc/``. ``--before DIR`` adds the build
@@ -22,6 +22,7 @@ bytes, then one per build and round. Needs a CUDA device and nvcc:
     python tools/bench_attention.py --variants my.json      # {"name": [[file, old, new], ...], ...}
     python tools/bench_attention.py --set superpixel --before _archive/parent
     python tools/bench_attention.py --set head_labels --before _archive/parent
+    python tools/bench_attention.py --set prob_grad --before _archive/parent
 
 attention, at the main path's shapes (T=256, d=64, 8 heads, f32): the backward
 at batch 24 with a keep-mask and saved statistics (``bwd_dq``, ``bwd_dkv``),
@@ -50,6 +51,17 @@ the constant bank by a device-to-device copy). The built-in variants: kernel
 B with one output row a thread instead of two (8x32 tiles instead of
 16x32), with one tile a block (a grid of every tile, so no block prefetches
 a next one), and with 128-thread blocks; kernel E with 256-pixel blocks.
+
+prob_grad, f32: kernel G (the affinity map's gradient) at stage 1's
+(128,256,256,4) with beta (pooling's, ``g_beta``) and without (unpooling's,
+``g_no_beta``), each timed by the profiler, by CUDA events around 20 calls
+(``*_events_ms``) and by CUDA events around a CUDA graph of 10 calls
+(``*_graph_ms``), beside its byte bound; and, for the check alone, at C=5, at
+6x10 cells (C=4 without beta, C=66 with), at 2x300 cells and on a view at an
+odd offset. Every case's output is held against the plain version (1e-5),
+against itself run again (bit for bit) and against the first build's output
+(``--before``'s where given: ``*_equal_first``, bit for bit). The built-in
+variant: a ring of 4 stages instead of 3.
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ sys.path.insert(0, ROOT)
 
 import disentangledcolorization_tpu_torch as port  # noqa: E402
 import disentangledcolorization_tpu_torch.ops  # noqa: E402,F401  (port.ops)
-from chip_smoke import device_ms, kernel_label, max_err, time_ms  # noqa: E402
+from chip_smoke import bound, device_ms, graph_ms, kernel_label, max_err, nbytes, time_ms  # noqa: E402
 
 SETS = {
     "attention": {
@@ -101,6 +113,13 @@ SETS = {
                                     "const long blocks = tiles;"]],
             "b_128_threads": [["affinity_head.cu", "kThreads = 256;", "kThreads = 128;"]],
             "e_256_pixels": [["encode_ab2ind.cu", "kPixels = 128;", "kPixels = 256;"]],
+        },
+        "instances": lambda args: True,
+    },
+    "prob_grad": {
+        "kernels": ("prob_grad",),
+        "variants": {
+            "g_four_stages": [["prob_grad.cu", "kStages = 3;", "kStages = 4;"]],
         },
         "instances": lambda args: True,
     },
@@ -279,6 +298,56 @@ def head_label_cases(dev):
     return measure
 
 
+def prob_grad_cases(dev):
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    def odd_view(x, offset):
+        buf = torch.empty(x.numel() + offset, device=dev, dtype=x.dtype)
+        buf[offset:] = x.reshape(-1)
+        return buf[offset:].view(x.shape)
+
+    n, hw, s, c = 128, 256, 16, 4
+    x, tok, beta = rand(n, hw, hw, c), rand(n, hw // s, hw // s, c), rand(n, hw // s, hw // s)
+    cases = {  # name: (x, tokens, beta, sp_h, sp_w)
+        "g_beta": (x, tok, beta, s, s),
+        "g_no_beta": (x, tok, None, s, s),
+        "g_c5": (rand(8, hw, hw, 5), rand(8, 16, 16, 5), rand(8, 16, 16), s, s),
+        "g_6x10_c4": (rand(2, 48, 80, 4), rand(2, 8, 8, 4), None, 6, 10),
+        "g_6x10_c66": (rand(2, 48, 80, 66), rand(2, 8, 8, 66), rand(2, 8, 8), 6, 10),
+        "g_2x300_c3": (rand(1, 4, 600, 3), rand(1, 2, 2, 3), rand(1, 2, 2), 2, 300),
+        "g_offset1": (odd_view(rand(2, 32, 48, 4), 1), rand(2, 2, 3, 4), rand(2, 2, 3), s, s),
+    }
+    plain = port.ops.superpixel.prob_grad_plain
+    refs = {name: plain(*case) for name, case in cases.items()}
+    first = {}  # the first build's outputs
+
+    def measure(pkg, first_round):
+        sp = pkg.ops.superpixel
+        res = {}
+        for name, case in cases.items():
+            out = sp.prob_grad(*case)
+            res[f"{name}_max_abs_err"] = max_err(out, refs[name])
+            res[f"{name}_repeatable"] = bool(torch.equal(out, sp.prob_grad(*case)))
+            if name in first:
+                res[f"{name}_equal_first"] = bool(torch.equal(out, first[name]))
+            else:
+                first[name] = out
+        for name in ("g_beta", "g_no_beta"):
+            fn = lambda case=cases[name]: sp.prob_grad(*case)  # noqa: E731
+            res[f"{name}_ms"] = device_ms(fn)[0]
+            res[f"{name}_events_ms"] = time_ms(fn, dev)
+            res[f"{name}_graph_ms"] = graph_ms(fn, iters=10)
+            xx, tt, bb = cases[name][:3]
+            res[f"{name}_bound_ms"] = bound(nbytes(xx, tt, bb) + xx[..., :1].numel() * 9 * 4,
+                                            xx[..., :1].numel() * 9 * (2.0 * xx.shape[-1] + 1))[0]
+        return res
+
+    return measure
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--set", choices=sorted(SETS), default="attention", dest="kernel_set")
@@ -299,7 +368,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     measure = {"attention": attention_cases, "superpixel": superpixel_cases,
-               "head_labels": head_label_cases}[args.kernel_set](dev)
+               "head_labels": head_label_cases, "prob_grad": prob_grad_cases}[args.kernel_set](dev)
 
     built = {}  # build name -> (package, its libraries)
     todo = [("base", port, [])] + [(name, port, subs) for name, subs in variants.items()]

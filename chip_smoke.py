@@ -13,10 +13,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and 4x256x256), with its time, the plain version's time, a library
      call's time where one computes the same function, and its bound; the
      pooling and unpooling autograd functions' backward passes against
-     autograd of the plain versions. Kernels A, C and F (pooling statistics,
-     unpooling, the 9-direction shift-add) also at C = 64, 66 and 5, with a
-     scale and without mass, with a per-token factor, and twice for bitwise
-     equality. Kernel B (the affinity head) also at C = 3 on a ragged
+     autograd of the plain versions. Kernel A runs kernel F's function (the
+     9-direction shift-add) as the epilogue of its launch: the epilogue's
+     outputs are held bit for bit against the plain shift-add of the launch's
+     own t, mass and hard, and the launch's t against kernel A alone (bit for
+     bit) and its plain version; both timed by events and a CUDA graph
+     (pooling's forward at batch 8, C=66; unpooling's token
+     gradient at batch 24, C=64). Kernels A and C also at C = 64, 66 and 5,
+     with a scale and without mass, with a per-token factor, and twice for
+     bitwise equality. Kernel B (the affinity head) also at C = 3 on a ragged
      17x33 image and twice for bitwise equality; the SASS of its C=16
      instance (``cuobjdump``) says how it reads its weights. Kernel E (soft
      labels) also at K = 9 (its warp kernel) and twice for bitwise equality.
@@ -28,14 +33,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (device time alone);
   4. serving path: a seeded random-weight ``Colorizer`` answers 3
      ``colorize_batch`` requests of 8 images at 256x256 and one ``colorize``
-     with hints; launches per forward: pool_stats 1, shift_add 1,
-     affinity_head 1, upfeat 1, attention 12; the card's forward is held against the same
+     with hints; launches per forward: pool_stats 1 (the shift-add its
+     epilogue), affinity_head 1, upfeat 1, attention 12; the card's forward is held against the same
      model's plain path on the CPU;
   5. training path: a seeded random-weight trainer at the recipe's
      configuration (6+6 layers, 8 clusters, dropout 0.1, Adam 2e-4 poly)
      takes 10 steps at batch 24 on 240 synthetic 256x256 images held on the
      card, then one eval step; launches per step: affinity_head 1,
-     pool_stats 2, upfeat 2, shift_add 2, attention 12, attention_bwd 12; then 5 steps
+     pool_stats 2, upfeat 2, attention 12, attention_bwd 12; then 5 steps
      with TF32 on. One step at batch 2, 32x32, dropout 0, pinned anchors is
      held against the same step on the CPU;
   6. label path: ``encode_ab2ind`` soft-encodes training colors (kernel E);
@@ -49,7 +54,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      recipe's configuration (batch 128, 256x256, psize 16, feat ab, Adam
      2e-4 poly) for 10 steps on 128 synthetic images held on the card (one
      batch, so the loss must fall), then 5 steps with TF32 on; launches per step:
-     affinity_head 1, pool_stats 2, shift_add 2, upfeat 1, prob_grad 2. One
+     affinity_head 1, pool_stats 2, upfeat 1, prob_grad 2; stage 1's
+     pooling (batch 128, C=4) as one launch against its plain version. One
      step at batch 2, 64x64, conditioned weights, is held against the same
      step on the CPU.
   8. training command lines: a random-init VGG19 npz (seed 0), then
@@ -71,31 +77,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
   9. bf16 serving (the default ``Colorizer``): the bf16 instances of kernels
      B, A and C against their plain versions at the bf16 forward's shapes
      (batch 8, 256x256: the head's bf16 input, the bf16 proxy of 66
-     channels, the bf16 tokens), twice for bitwise equality, B also at C=16
+     channels, the bf16 tokens), twice for bitwise equality, A's one launch
+     with pooled and mass leaving in bf16 and A alone timed by events and
+     a CUDA graph, B also at C=16
      and C=3 on a ragged 17x33 image, A and C at C = 64, 66 and 5 with a
-     scale, without mass, with a per-token factor; B and A within 1e-5 of
+     scale, without mass, with a per-token factor, A also at a 2-byte offset
+     and with its epilogue in each mode; B and A within 1e-5 of
      the plain version's largest entry, C within one bf16 ulp; each timed,
      B in turns with the bf16->f32 cast + cuDNN conv2d + softmax. A seeded
      random-weight bf16 ``Colorizer`` answers 3 ``colorize_batch`` requests
      of 8 at 256x256, one hinted ``colorize`` and one batch through the
      uint8 wire; launches per forward: affinity_head[bf16] 1,
-     pool_stats[bf16] 1, shift_add 1, upfeat[bf16] 1, attention 12 (the f32
+     pool_stats[bf16] 1, upfeat[bf16] 1, attention 12 (the f32
      instances of A, B, C none); images/s, latency, the device's busy share
      and the host<->device synchronisations of a forward and of a request
      (with the bin tables kept on the card, and copied at every use as
      before); the card's bf16 forward against the same model's bf16 plain
      path on the CPU, anchors pinned;
  10. bf16 stage-2 training (the JAX trainer's ``--compute_dtype bfloat16``):
-     ``shift_add[bf16]`` (the unpooling's bf16 token gradient) against its
-     plain version bit for bit at (24,16,16,9,64), C=66 and C=5, twice, timed;
-     kernel A's bf16 instance without mass at the token gradient's shape
-     (24,256,256,64), twice bitwise and against its plain version;
+     the unpooling's bf16 token gradient (kernel A's bf16 instance with the
+     epilogue's rounded chain, one launch) bit for bit against the plain
+     chain of its own t at (24,256,256,64), C=66 and C=5, twice, timed;
+     kernel A's bf16 instance alone at the token gradient's shape, timed;
      ``cli.train_colorizer.train`` with ``--compute_dtype bfloat16 --enhanced
      --vgg_npz`` (random npz, seed 0), ``--device_data``, batch 24 at full
      width, 1 epoch of 4 steps with validation and one dump (finite losses,
-     launches per step: affinity_head[bf16] 1, pool_stats 1, shift_add 1,
-     upfeat 1, upfeat[bf16] 1, pool_stats[bf16] 1, shift_add[bf16] 1,
-     attention 12, attention_bwd 12, prob_grad 0, affinity_head 0), whose best
+     launches per step: affinity_head[bf16] 1, pool_stats 1,
+     upfeat 1, upfeat[bf16] 1, pool_stats[bf16] 1, attention 12, attention_bwd 12, prob_grad 0, affinity_head 0), whose best
      checkpoint serves one bf16 request; 10 timed steps with TF32 off and 5
      with it on, with the VGG19 term and with the L1 fallback (images/s, the
      step's device time and busy share, peak memory, launches per step); one
@@ -103,7 +111,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      weights, on the card against the CPU's plain path and beside the CPU's
      f32 step.
  11. the model options and anchor modes: kernels A and A[bf16] at C=130
-     (``spix_pos``'s [features | ab | positions]), C and C[bf16] at 3N
+     (``spix_pos``'s [features | ab | positions]; alone and as one launch
+     with the epilogue), C and C[bf16] at 3N
      (diverse), C=128 (d_model 128) and C=130 (pooling's feature gradient),
      D and ``attention_bwd`` on a mask that ``use_mask`` made in a real forward
      (one image's keys then all masked) at head widths 8 and 16, each against
@@ -130,7 +139,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``--no_resize`` on a ragged 300x452 image, f32 ``--d_model 32`` (PNG
      count, names and shapes read back with ``read_png``, launches per
      forward, images/s with the writes); ``cli.infer_spixel.infer_spixel`` on
-     4 images (B, A, F, C once an image); the HTTP server (``serve.start``,
+     4 images (B, A, C once an image); the HTTP server (``serve.start``,
      bf16, uint8 wire, ``--warmup 1,8``, ``--max_batch 56``) under 1, 8 and
      32 concurrent clients (images/s, p50/p99 latency, batches, each answer
      within 2 levels of ``colorize_batch`` replayed with the batch's draws),
@@ -222,11 +231,6 @@ TOLERANCES = {
     "affinity_head": 1e-5,
     # 9 f32 multiply-adds per output
     "upfeat": 1e-5,
-    # the 9 terms are added in the plain version's order, so the sums must be
-    # equal bit for bit (checked apart); the pooled features are then one
-    # correctly rounded f32 division on each side: 1e-6 allows for a last-bit
-    # difference in a quotient of size about 1
-    "shift_add": 1e-6,
     # online softmax over 256 keys vs the two-pass softmax, with and without
     # a dropout keep-mask
     "attention": 1e-5,
@@ -414,6 +418,8 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
         blocks = re.split(r"Function properties for ", text)[1:]
         for blk in blocks:
             sym = blk.split()[0]
+            if "Used " not in blk:  # a device function that ptxas reports apart from its kernel
+                continue
             inst = re.search(r"\d+(attention\w*?kernel\w*?)ILi(\d+)ELb([01])E", sym)
             regs = int(re.search(r"Used (\d+) registers", blk).group(1))
             spills = [int(x) for x in re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", blk).groups()]
@@ -483,12 +489,76 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def pool_epilogue_case(label: str, feat, prob, sp_size: int, device, with_hard: bool = True, with_mass: bool = True,
+                       scale=None, dtype=torch.float32, timed: bool = True) -> dict:
+    """Kernel A with kernel F's function as its epilogue (``pool_shift_add``,
+    one launch): its outputs against the plain shift-add of the launch's own
+    t, mass and hard bit for bit (``shift_add_plain``; pooled and mass rounded
+    to ``dtype`` from f32), twice bit for bit; the launch's t, mass and hard
+    equal to kernel A's alone (epilogue off) bit for bit and within
+    ``TOLERANCES["pool_stats"]`` of the plain version, relative to the largest
+    entry where it exceeds 1, the winner counts exact. ``timed``: by CUDA
+    events (enqueue included) and a CUDA graph, beside its bound
+    (feat and prob read once, the outputs written once) and the plain
+    composition's time."""
+    from disentangledcolorization_tpu_torch.ops import superpixel
+
+    kw = dict(with_hard=with_hard, with_mass=with_mass, scale=scale)
+    run = lambda: superpixel.pool_shift_add(feat, prob, sp_size, sp_size, dtype=dtype, **kw)  # noqa: E731
+    same = lambda xs, ys: all((a is None and b is None) or torch.equal(a, b) for a, b in zip(xs, ys))  # noqa: E731
+    out, stats = superpixel.pool_shift_add(feat, prob, sp_size, sp_size, dtype=dtype, with_stats=True, **kw)
+    if not same(stats, superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw)):
+        raise AssertionError(f"{label}: the fused launch's t, mass and hard differ from kernel A's alone")
+    if with_mass:
+        ref = superpixel.shift_add_plain(*stats)
+        ref = (ref[0].to(dtype), ref[1].to(dtype), ref[2])
+    else:
+        ref = superpixel.shift_add_plain(stats[0], dtype=dtype)
+    if not same(out, ref) or out[0].dtype != dtype:
+        raise AssertionError(f"{label}: the epilogue differs from the plain shift-add of the launch's own t, mass and hard")
+    if not same(out, run()):
+        raise AssertionError(f"{label}: two runs on the same inputs are not bitwise equal")
+    plain = superpixel.pool_stats_plain(feat, prob, sp_size, sp_size, **kw)
+    err = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in zip(stats, plain) if b is not None)
+    if with_hard and not torch.equal(stats[2], plain[2]):
+        raise AssertionError(f"{label}: winner-take-all counts differ from the plain version")
+    if not err <= TOLERANCES["pool_stats"]:
+        raise AssertionError(f"{label}: t/mass max|d| {err} above {TOLERANCES['pool_stats']}")
+    res = dict(shape=list(feat.shape), dtype=str(feat.dtype), out_dtype=str(dtype), max_abs_err=err)
+    if timed:
+        b_ms, b_by = bound(nbytes(feat, prob, *(x for x in out if x is not None)), 2.0 * feat.numel() * 9)
+        res.update(ms=time_ms(run, device), graph_ms=graph_ms(run),
+                   plain_ms=time_ms(lambda: superpixel.pool_shift_add_plain(feat, prob, sp_size, sp_size, dtype=dtype, **kw),
+                                    device), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"{label} (kernel A with its epilogue, one launch): outputs bitwise equal to the plain shift-add of its own t, "
+        f"twice; t/mass max|d| {err:.3e} (tol {TOLERANCES['pool_stats']:.0e})"
+        + ("; " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()
+                           if k.endswith("_ms") or k == "bound_by") if timed else ""))
+    return res
+
+
+def pool_alone_case(label: str, feat, prob, sp_size: int, device, **kw) -> dict:
+    """Kernel A alone (the epilogue off) timed by CUDA events and a CUDA
+    graph, beside its bound (feat and prob read, t, mass and hard written)."""
+    from disentangledcolorization_tpu_torch.ops import superpixel
+
+    run = lambda: superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw)  # noqa: E731
+    b_ms, b_by = bound(nbytes(feat, prob, *(x for x in run() if x is not None)), 2.0 * feat.numel() * 9)
+    res = dict(shape=list(feat.shape), dtype=str(feat.dtype), ms=time_ms(run, device), graph_ms=graph_ms(run),
+               bound_ms=b_ms, bound_by=b_by)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+    log(f"{label} (kernel A alone): ms={res['ms']:.4f} graph {fmt(res['graph_ms'])} bound_ms={b_ms:.4f} ({b_by})")
+    return res
+
+
 def superpixel_variants(device, g, sp_size: int, n: int = 2, h: int = 64, w: int = 96) -> float:
     """Kernels A and C beside the paths' calls: every channel-vector width
     (C = 64, 66, 5), kernel A with a scale and without mass (what unpooling's
     backward asks for), kernel C with a per-token factor (pooling's backward),
-    each twice for bitwise equality. Returns the largest error, relative to
-    the reference's largest entry where the sums are unscaled."""
+    each twice for bitwise equality; kernel A's epilogue in both of its f32
+    modes, bit for bit against the plain shift-add of its own t. Returns the
+    largest error, relative to the reference's largest entry where the sums
+    are unscaled."""
     from disentangledcolorization_tpu_torch.ops import superpixel
 
     hc, wc, worst = h // sp_size, w // sp_size, 0.0
@@ -513,8 +583,11 @@ def superpixel_variants(device, g, sp_size: int, n: int = 2, h: int = 64, w: int
             if [x is None for x in out] != [x is None for x in ref]:
                 raise AssertionError(f"superpixel kernels, C={c}: outputs and plain outputs differ in which are None")
             worst = max(worst, max_err(out, ref) / max(1.0, float(ref[0].abs().max())))
-    log(f"kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, twice each: "
-        f"bitwise equal, max|d| (relative where sums are unscaled) {worst:.3e}")
+        for kw in ({}, dict(with_hard=False), dict(with_hard=False, with_mass=False, scale=1.0)):
+            worst = max(worst, pool_epilogue_case(f"pool_shift_add C={c} {kw}", feat, prob, sp_size, device,
+                                                  timed=False, **kw)["max_abs_err"])
+    log(f"kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, A's epilogue in its "
+        f"f32 modes, twice each: bitwise equal, max|d| (relative where sums are unscaled) {worst:.3e}")
     return worst
 
 
@@ -530,7 +603,8 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     hc, wc = h // sp_size, w // sp_size
     rows = []
 
-    # A: pool_stats at the proxy width C = 64 features + 2 ab
+    # A with F's function as its epilogue, one launch: pooling's forward at the proxy width C = 64 features +
+    # 2 ab; kernel A alone (the epilogue off) against its plain version and timed beside it
     feat = rand(n, h, w, d + 2)
     logits = rand(n, h, w, 9)
     logits[..., 4] = logits[..., 3]  # exact ties in the 9-way max on some pixels
@@ -543,49 +617,21 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
     if not all(torch.equal(a, b) for a, b in zip(out, superpixel.pool_stats(feat, prob, sp_size, sp_size))):
         raise AssertionError("pool_stats: two runs on the same inputs are not bitwise equal")
     err = max(err, superpixel_variants(device, g, sp_size))
-    b_ms, b_by = bound(nbytes(feat, prob, *out), 2.0 * n * h * w * 9 * (d + 2))
+    fused = pool_epilogue_case(f"pooling's forward, batch {n}, C={d + 2}, with counts", feat, prob, sp_size, device)
+    alone = pool_alone_case(f"pool_stats, batch {n}, C={d + 2}, with counts", feat, prob, sp_size, device)
     rows.append(dict(
         name="pool_stats", source="disentangledcolorization_tpu_torch/csrc/pool_stats.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:153",
-        also_replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:78",
-        max_abs_err=err,
-        ms=time_ms(lambda: superpixel.pool_stats(feat, prob, sp_size, sp_size), device),
-        plain_ms=time_ms(lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size), device),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
-
-    # F: the 9-direction shift-add of kernel A's outputs, both uses: pooled
-    # features, mass and sizes (pooling's forward), and the bare sum at the
-    # training batch (unpooling's backward)
-    t_in, mass_in, hard_in = ref
-    out = superpixel.shift_add(t_in, mass_in, hard_in)
-    ref_f = superpixel.shift_add_plain(t_in, mass_in, hard_in)
-    t24 = rand(24, hc, wc, 9, d)
-    bare = superpixel.shift_add(t24)[0]
-    if not (torch.equal(out[1], ref_f[1]) and torch.equal(out[2], ref_f[2]) and torch.equal(bare, superpixel._shift_add(t24))):
-        raise AssertionError("shift_add: the sums differ from the plain version's, which adds in the same order")
-    again = superpixel.shift_add(t_in, mass_in, hard_in)
-    if not (all(torch.equal(a, b) for a, b in zip(out, again)) and torch.equal(bare, superpixel.shift_add(t24)[0])):
-        raise AssertionError("shift_add: two runs on the same inputs are not bitwise equal")
-    log(f"shift_add: sums bitwise equal to the plain version's; pooled features bitwise equal: {torch.equal(out[0], ref_f[0])}; "
-        f"bare sum at batch 24, C={d}: ms={time_ms(lambda: superpixel.shift_add(t24), device):.4f} "
-        f"plain_ms={time_ms(lambda: superpixel._shift_add(t24), device):.4f} "
-        f"bound_ms={bound(nbytes(t24, bare), 9.0 * bare.numel())[0]:.4f}")
-    b_ms, b_by = bound(nbytes(t_in, mass_in, hard_in, *out), 9.0 * out[0].numel())
-    rows.append(dict(
-        name="shift_add", source="disentangledcolorization_tpu_torch/csrc/shift_add.cu",
-        replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:187 (_shift_add after pool_stats, called at :206-208: XLA ops, no Pallas kernel)",
-        max_abs_err=max_err(out[0], ref_f[0]), max_rel_err=max_err(out[0], ref_f[0]) / float(ref_f[0].abs().max()),
-        ms=time_ms(lambda: superpixel.shift_add(t_in, mass_in, hard_in), device),
-        plain_ms=time_ms(lambda: superpixel.shift_add_plain(t_in, mass_in, hard_in), device),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        also_replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:78; the shift-add after both "
+                      "(pallas_superpixel.py:187, called at :206-208: XLA ops, no Pallas kernel) as its epilogue",
+        max_abs_err=max(err, fused["max_abs_err"]), alone=alone,
+        **{k: fused[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     ))
     pool_fwd = lambda: superpixel.pool_and_sizes(feat, prob, sp_size, sp_size)  # noqa: E731
     with torch.no_grad():
         dev_ms, by_kernel = device_ms(pool_fwd)
-        log(f"pool_and_sizes (kernels A and F), batch {n}, C={d + 2}: ms={time_ms(pool_fwd, device):.4f} "
+        log(f"pool_and_sizes (kernel A with its epilogue), batch {n}, C={d + 2}: ms={time_ms(pool_fwd, device):.4f} "
             f"device {dev_ms:.4f}: {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}")
-    del t24, bare, t_in, mass_in, hard_in
 
     # B: affinity head, 16 -> 9; also at C = 3 (the chunked instance) on a
     # ragged 17x33 image, twice each for bitwise equality
@@ -671,7 +717,7 @@ def compare_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size: int
 
     for r in rows:
         r["route"] = "cuda"
-        err = r.get("max_rel_err", r["max_abs_err"])  # shift_add: relative to the largest pooled feature
+        err = r["max_abs_err"]
         log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e}, held {err:.3e} (tol {TOLERANCES[r['name']]:.0e}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']}")
@@ -746,22 +792,23 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
         f"plain_ms={time_ms(lambda: attention.attention_plain(q, k, v, nhead, None, keep, rate), device):.4f}")
     extras = {"attention_training_shape": dict(fwd, bound_ms=fb_ms, bound_by=fb_by)}
 
-    # K5: kernel A without the winner-take-all counts (the unpooling backward's kernel), alone
+    # K5: kernel A without the masses and counts, scale 1, as unpooling's backward asks for it: alone, and with
+    # its summing epilogue (one launch: unpooling's token gradient)
     feat64 = rand(n, h, w, d)
     prob5 = torch.softmax(rand(n, h, w, 9), dim=-1).contiguous()
-    k5 = dict(with_hard=False, with_mass=False, scale=1.0)  # what unpooling's backward asks for
+    k5 = dict(with_hard=False, with_mass=False, scale=1.0)
     k5_out = superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5)
     k5_ref = superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, **k5)
     k5_err = max_err(k5_out, k5_ref) / float(k5_ref[0].abs().max())  # unscaled sums of 256 products: relative
-    k5_b, k5_by = bound(nbytes(feat64, prob5, k5_out[0]), 2.0 * n * h * w * 9 * d)
-    k5_ms = time_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5), device)
-    k5_dev = device_ms(lambda: superpixel.pool_stats(feat64, prob5, sp_size, sp_size, **k5))[0]
-    k5_plain = time_ms(lambda: superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, **k5), device)
-    log(f"pool_stats without mass and hard, scale 1 (K5) alone, batch {n}, C={d}: max|d|/max|ref|={k5_err:.3e} (tol {TOLERANCES['pool_stats']:.0e}) "
-        f"ms={k5_ms:.4f} device {k5_dev:.4f} plain_ms={k5_plain:.4f} bound_ms={k5_b:.4f} ({k5_by}) library_ms=None")
+    log(f"pool_stats without mass and hard, scale 1 (K5) alone, batch {n}, C={d}: max|d|/max|ref|={k5_err:.3e} "
+        f"(tol {TOLERANCES['pool_stats']:.0e})")
     if not k5_err <= TOLERANCES["pool_stats"]:
         raise AssertionError(f"pool_stats without mass and hard: max|d| {k5_err} above {TOLERANCES['pool_stats']}")
-    extras["pool_stats_without_mass_and_hard"] = dict(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by)
+    extras["pool_stats_without_mass_and_hard"] = dict(
+        pool_alone_case(f"pool_stats without mass and hard, batch {n}, C={d}", feat64, prob5, sp_size, device, **k5),
+        plain_ms=time_ms(lambda: superpixel.pool_stats_plain(feat64, prob5, sp_size, sp_size, **k5), device))
+    extras["pool_shift_add_token_sum"] = pool_epilogue_case(
+        f"unpooling's token gradient, batch {n}, C={d}", feat64, prob5, sp_size, device, **k5)
     del feat64, prob5, k5_out
 
     # E: soft labels at the token grid of a training batch and at full
@@ -803,13 +850,12 @@ def compare_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp
     g_pool, g_up, tokens = rand(n, hc, wc, d + 2), rand(n, h, w, d), rand(n, hc, wc, d)
 
     def pool_plain(f, affinity, sp_h, sp_w):
-        tt, mass, _ = superpixel.pool_stats_plain(f, affinity, sp_h, sp_w, with_hard=False)
-        return superpixel.shift_add_plain(tt, mass)[0]
+        return superpixel.pool_shift_add_plain(f, affinity, sp_h, sp_w, with_hard=False)[0]
 
     checks = [
         ("pooling backward", "kernel C with a per-token factor", superpixel.poolfeat, pool_plain, feat, g_pool,
          nbytes(g_pool, prob, feat), n * h * w * 9 * (d + 2) * 2.0),
-        ("unpooling backward", "kernels A and F", superpixel.upfeat, superpixel.upfeat_plain, tokens, g_up,
+        ("unpooling backward", "kernel A with its summing epilogue", superpixel.upfeat, superpixel.upfeat_plain, tokens, g_up,
          nbytes(g_up, prob, tokens), n * h * w * 9 * d * 2.0),
     ]
     for label, what, fn, plain, x, cotangent, moved, flops in checks:
@@ -913,7 +959,7 @@ def card_vs_cpu(col, size: int = 256, atol: float = 1e-3):
 
 
 # the frozen segnet's affinity map needs no gradient: no prob_grad launch
-TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "shift_add": 2, "attention": 12, "attention_bwd": 12,
+TRAIN_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 2, "attention": 12, "attention_bwd": 12,
                   "prob_grad": 0}
 
 
@@ -1276,8 +1322,11 @@ def compare_stage_one(device, n: int = 128, size: int = 256, sp_size: int = 16, 
         f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) library_ms=None")
     if not err <= TOLERANCES["prob_grad"]:
         raise AssertionError(f"prob_grad: max|d| {err} above {TOLERANCES['prob_grad']}")
-    del x, tok, beta, cases
     extras = {"prob_grad_without_beta": timed["without beta (unpooling)"]}
+    prob1 = torch.softmax(rand(n, size, size, 9), dim=-1).contiguous()
+    extras["stage1_pooling"] = pool_epilogue_case(f"stage 1's pooling, batch {n}, C={c}, with counts", x, prob1,
+                                                  sp_size, device)
+    del x, tok, beta, cases, prob1
 
     # the head's backward: the softmax's, then cuDNN's conv gradients, against
     # autograd of conv2d + softmax; the weight as the model passes it
@@ -1306,10 +1355,10 @@ def compare_stage_one(device, n: int = 128, size: int = 256, sp_size: int = 16, 
     return row, extras
 
 
-# stage 1: the head, pooling (A + F) and unpooling (C) forward; unpooling's
-# token gradient (A + F) and both affinity-map gradients (G); the features
+# stage 1: the head, pooling (A with its epilogue) and unpooling (C) forward; unpooling's
+# token gradient (A with its epilogue) and both affinity-map gradients (G); the features
 # need no gradient, so pooling's backward runs no kernel C
-SPIXEL_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "shift_add": 2, "upfeat": 1, "prob_grad": 2, "attention": 0,
+SPIXEL_PER_STEP = {"affinity_head": 1, "pool_stats": 2, "upfeat": 1, "prob_grad": 2, "attention": 0,
                    "attention_bwd": 0, "encode_ab2ind": 0}
 
 
@@ -1433,9 +1482,9 @@ def spixel_card_vs_cpu(device, size: int = 64, batch: int = 2, tol: float = 1e-3
 # phase 8: the launches of one validation batch and of one image dump, on top
 # of the train steps' (stage 2: the eval forward; the dump's forward and three
 # more unpoolings; stage 1: the eval forward and spixel_loss's pooling and unpooling)
-EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 12}
-DUMP_PER_EPOCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 4, "attention": 12}
-SPIXEL_EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1}
+EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "attention": 12}
+DUMP_PER_EPOCH = {"affinity_head": 1, "pool_stats": 1, "upfeat": 4, "attention": 12}
+SPIXEL_EVAL_PER_BATCH = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1}
 # remat against plain: losses and gradients relative to their largest entry
 # (the recompute may take other cuDNN algorithms for the same convolutions)
 REMAT_TOL = 1e-5
@@ -1767,7 +1816,7 @@ BF16_TOL = 1e-5
 BF16_ULPS = 1.0
 # one bf16 forward launches what an f32 forward does, through the bf16
 # instances of kernels A, B and C (kernel F and kernel D stay f32)
-BF16_PER_FORWARD = {"affinity_head[bf16]": 1, "pool_stats[bf16]": 1, "shift_add": 1, "upfeat[bf16]": 1,
+BF16_PER_FORWARD = {"affinity_head[bf16]": 1, "pool_stats[bf16]": 1, "upfeat[bf16]": 1,
                     "attention": 12, "affinity_head": 0, "pool_stats": 0, "upfeat": 0, "prob_grad": 0,
                     "int8_conv[bf16]": 0, "quantize[bf16]": 0}
 # the card's bf16 forward against the same model's bf16 plain path on the CPU:
@@ -1807,19 +1856,27 @@ def bf16_superpixel_variants(device, g, sp_size: int, n: int = 2, h: int = 64, w
         tokens = torch.randn(n, hc, wc, c, generator=g).to(device, torch.bfloat16)
         prob = torch.softmax(torch.randn(n, h, w, 9, generator=g), dim=-1).to(device)
         factor = (torch.rand(n, hc, wc, generator=g) + 0.5).to(device)
-        for kw in ({}, dict(with_hard=False, with_mass=False, scale=1.0)):
-            out = superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw)
-            if not all(torch.equal(a, b) for a, b in zip(out, superpixel.pool_stats(feat, prob, sp_size, sp_size, **kw))
-                       if a is not None):
-                raise AssertionError(f"pool_stats[bf16], C={c}: two runs on the same inputs are not bitwise equal")
-            worst_a = max(worst_a, rel_err(out, superpixel.pool_stats_plain(feat, prob, sp_size, sp_size, **kw)))
+        odd = torch.empty(feat.numel() + 1, device=device, dtype=feat.dtype)  # 2-byte aligned: two 2-byte loads a pair
+        odd[1:] = feat.reshape(-1)
+        for x in (feat, odd[1:].view(feat.shape)):
+            for kw in ({}, dict(with_hard=False, with_mass=False, scale=1.0)):
+                out = superpixel.pool_stats(x, prob, sp_size, sp_size, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(out, superpixel.pool_stats(x, prob, sp_size, sp_size, **kw))
+                           if a is not None):
+                    raise AssertionError(f"pool_stats[bf16], C={c}: two runs on the same inputs are not bitwise equal")
+                worst_a = max(worst_a, rel_err(out, superpixel.pool_stats_plain(x, prob, sp_size, sp_size, **kw)))
+            for kw, dt in (({}, torch.bfloat16), ({}, torch.float32), (dict(with_hard=False), torch.bfloat16),
+                           (dict(with_hard=False, with_mass=False, scale=1.0), torch.bfloat16)):
+                pool_epilogue_case(f"pool_shift_add[bf16] C={c} {kw} out {dt}", x, prob, sp_size, device, dtype=dt,
+                                   timed=False, **kw)
         for f in (factor, None):
             out = superpixel._upfeat(tokens, prob, sp_size, sp_size, f)
             if out.dtype != torch.bfloat16 or not torch.equal(out, superpixel._upfeat(tokens, prob, sp_size, sp_size, f)):
                 raise AssertionError(f"upfeat[bf16], C={c}: not bf16, or two runs are not bitwise equal")
             worst_c = max(worst_c, bf16_ulps(out, superpixel.upfeat_plain(tokens, prob, sp_size, sp_size, f)))
-    log(f"bf16 kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, twice each: "
-        f"bitwise equal; A max|d|/max|ref| {worst_a:.3e}, C {worst_c:.2f} ulp")
+    log(f"bf16 kernels A and C at C=64, 66, 5 with scale / without mass / with a per-token factor, A also at a 2-byte "
+        f"offset and with its epilogue in each mode, twice each: bitwise equal; A max|d|/max|ref| {worst_a:.3e}, "
+        f"C {worst_c:.2f} ulp")
     return worst_a, worst_c
 
 
@@ -1848,14 +1905,17 @@ def compare_bf16_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size
     if not all(torch.equal(a, b) for a, b in zip(out, pool())):
         raise AssertionError("pool_stats[bf16]: two runs on the same inputs are not bitwise equal")
     worst_a, worst_c = bf16_superpixel_variants(device, g, sp_size)
-    b_ms, b_by = bound(nbytes(feat, prob, *out), 2.0 * n * h * w * 9 * (d + 2))
+    # the serving forward's pooling: pooled and mass leave in bf16 from the one launch
+    fused = pool_epilogue_case(f"bf16 serving's pooling, batch {n}, C={d + 2}, with counts", feat, prob, sp_size,
+                               device, dtype=bf)
+    alone = pool_alone_case(f"pool_stats[bf16], batch {n}, C={d + 2}, with counts", feat, prob, sp_size, device)
     rows.append(dict(
         name="pool_stats[bf16]", source="disentangledcolorization_tpu_torch/csrc/pool_stats.cu",
         replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:153",
-        max_abs_err=max_err(out, ref), max_rel_err=max(rel_err(out, ref), worst_a), ms=time_ms(pool, device),
-        device_ms=device_ms(pool)[0],
-        plain_ms=time_ms(lambda: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size), device),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        also_replaces="the shift-add after it (pallas_superpixel.py:187, XLA ops) as its epilogue, and the casts of "
+                      "pooled and mass to bf16",
+        max_abs_err=max_err(out, ref), max_rel_err=max(rel_err(out, ref), worst_a, fused["max_abs_err"]), alone=alone,
+        **{k: fused[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     ))
 
     # B: the head on the bf16 trunk's output, f32 weights, f32 out; also at
@@ -1907,7 +1967,8 @@ def compare_bf16_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size
         r["route"] = "cuda"
         err = (f"{r['max_ulps']:.2f} ulp (max|d| {r['max_abs_err']:.3e})" if "max_ulps" in r
                else f"max|d| {r['max_abs_err']:.3e}, max|d|/max|ref| {r['max_rel_err']:.3e} (variants included)")
-        log(f"kernel {r['name']}: {err} ms={r['ms']:.4f} device_ms={r['device_ms']} plain_ms={r['plain_ms']:.4f} "
+        log(f"kernel {r['name']}: {err} ms={r['ms']:.4f} device_ms={r.get('device_ms')} graph_ms={r.get('graph_ms')} "
+            f"plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms={r['library_ms']}")
     if not (rows[0]["max_rel_err"] <= BF16_TOL and rows[1]["max_rel_err"] <= BF16_TOL and ulps <= BF16_ULPS):
         raise AssertionError(f"bf16 instances off their plain versions: A {rows[0]['max_rel_err']}, "
@@ -2055,17 +2116,17 @@ def drive_bf16_serving(device, smi: str, n_requests: int = 3, batch: int = 8, si
 
 
 # phase 10: bf16 stage-2 training (the JAX trainer's --compute_dtype bfloat16).
-# A step runs the f32 pooling (precise: kernel A and F) and its feature
+# A step runs the f32 pooling (precise: kernel A with its epilogue) and its feature
 # gradient (kernel C), the bf16 unpooling (C[bf16]) and its bf16 token gradient
-# (A[bf16] without mass, then shift_add[bf16]), the frozen segnet's bf16 head
+# (A[bf16] without mass, with the epilogue's rounded chain), the frozen segnet's bf16 head
 # (B[bf16]) and the f32 attention pair; no kernel G, no f32 head
-BF16_TRAIN_PER_STEP = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "upfeat[bf16]": 1,
-                       "pool_stats[bf16]": 1, "shift_add[bf16]": 1, "attention": 12, "attention_bwd": 12,
+BF16_TRAIN_PER_STEP = {"affinity_head[bf16]": 1, "pool_stats": 1, "upfeat": 1, "upfeat[bf16]": 1,
+                       "pool_stats[bf16]": 1, "attention": 12, "attention_bwd": 12,
                        "prob_grad": 0, "affinity_head": 0}
 # the command line's validation batch (the eval forward) and its image dump
 # (the eval forward and three f32 unpoolings of the decoded colors and hints)
-BF16_EVAL_PER_BATCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat[bf16]": 1, "attention": 12}
-BF16_DUMP_PER_EPOCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "shift_add": 1, "upfeat[bf16]": 1, "upfeat": 3,
+BF16_EVAL_PER_BATCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "upfeat[bf16]": 1, "attention": 12}
+BF16_DUMP_PER_EPOCH = {"affinity_head[bf16]": 1, "pool_stats": 1, "upfeat[bf16]": 1, "upfeat": 3,
                        "attention": 12}
 # One bf16 step on the card against the same step's plain path on the CPU:
 # the losses relative to their size (cuDNN's and oneDNN's sums in other
@@ -2092,59 +2153,28 @@ def bf16_share(grads: dict, prefix: str) -> float:
 
 
 def compare_bf16_training_kernels(device, n: int = 24, h: int = 256, w: int = 256, sp_size: int = 16, d: int = 64):
-    """Phase 10: shift_add[bf16] against its plain version bit for bit, at the
-    token gradient's shape (24,16,16,9,64) and at C = 66 and 5, twice; kernel
-    A's bf16 instance without mass at the token gradient's shape
-    (24,256,256,64), twice bitwise and against its plain version."""
+    """Phase 10: unpooling's bf16 token gradient, kernel A's bf16 instance with
+    the epilogue's rounded chain (one launch), bit for bit against the plain
+    chain of the launch's own t, at the token gradient's shape
+    (24,256,256,64) and at C = 66 and 5, twice; the launch's t against kernel
+    A's alone bit for bit and against its plain version; kernel A's bf16
+    instance alone at (24,256,256,64), timed beside its bound."""
     from disentangledcolorization_tpu_torch.ops import superpixel
 
     g = torch.Generator(device="cpu").manual_seed(10)
     bf = torch.bfloat16
-    hc, wc = h // sp_size, w // sp_size
-    for nn_, c in ((n, d), (2, 66), (2, 5)):
-        t = (torch.randn(nn_, hc, wc, 9, c, generator=g) * 4).to(device)
-        out = superpixel.shift_add(t, dtype=bf)[0]
-        if out.dtype != bf or not torch.equal(out, superpixel.shift_add_plain(t, dtype=bf)[0]):
-            raise AssertionError(f"shift_add[bf16], C={c}: not bf16, or not bitwise equal to its plain version")
-        if not torch.equal(out, superpixel.shift_add(t, dtype=bf)[0]):
-            raise AssertionError(f"shift_add[bf16], C={c}: two runs on the same inputs are not bitwise equal")
-    t = (torch.randn(n, hc, wc, 9, d, generator=g) * 4).to(device)
-    out = superpixel.shift_add(t, dtype=bf)[0]
-    f = lambda: superpixel.shift_add(t, dtype=bf)  # noqa: E731
-    b_ms, b_by = bound(nbytes(t, out), 17.0 * out.numel())  # 9 roundings and 8 adds an output
-    row = dict(
-        name="shift_add[bf16]", route="cuda", source="disentangledcolorization_tpu_torch/csrc/shift_add.cu",
-        replaces="disentangledcolorization_tpu/ops/superpixel.py:120 (the transpose of upfeat's neighbour stack in "
-                 "its vjp, after K5 pallas_superpixel.py:83 in the Pallas route: XLA ops, no Pallas kernel)",
-        max_abs_err=max_err(out, superpixel.shift_add_plain(t, dtype=bf)[0]), ms=time_ms(f, device),
-        device_ms=device_ms(f)[0], plain_ms=time_ms(lambda: superpixel.shift_add_plain(t, dtype=bf), device),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
-    log(f"kernel shift_add[bf16]: bitwise equal to its plain version at ({n},{hc},{wc},9,{d}), C=66 and C=5, twice; "
-        f"ms={row['ms']:.4f} device_ms={row['device_ms']} plain_ms={row['plain_ms']:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}) library_ms=None")
-    del t, out
-
-    # A[bf16] without mass, scale 1: the bf16 cotangent of the unpooling
+    k5 = dict(with_hard=False, with_mass=False, scale=1.0)
+    for nn_, c in ((2, 66), (2, 5)):
+        gt = torch.randn(nn_, 64, 96, c, generator=g).to(device, bf)
+        prob = torch.softmax(torch.randn(nn_, 64, 96, 9, generator=g), dim=-1).to(device).contiguous()
+        pool_epilogue_case(f"bf16 token gradient, C={c}", gt, prob, sp_size, device, dtype=bf, timed=False, **k5)
     gt = torch.randn(n, h, w, d, generator=g).to(device, bf)
     prob = torch.softmax(torch.randn(n, h, w, 9, generator=g), dim=-1).to(device).contiguous()
-    k5 = dict(with_hard=False, with_mass=False, scale=1.0)
-    pool = lambda: superpixel.pool_stats(gt, prob, sp_size, sp_size, **k5)  # noqa: E731
-    out = pool()
-    ref = superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5)
-    if not torch.equal(out[0], pool()[0]):
-        raise AssertionError("pool_stats[bf16] without mass: two runs on the same inputs are not bitwise equal")
-    err = rel_err(out, ref)
-    b_ms, b_by = bound(nbytes(gt, prob, out[0]), 2.0 * n * h * w * 9 * d)
-    k5 = dict(max_abs_err=max_err(out, ref), max_rel_err=err, ms=time_ms(pool, device), device_ms=device_ms(pool)[0],
-              plain_ms=time_ms(lambda: superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5), device),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"pool_stats[bf16] without mass, scale 1 (K5 in bf16 training), batch {n}, C={d}: twice bitwise; "
-        f"max|d|/max|ref| {err:.3e} (tol {BF16_TOL:.0e}) ms={k5['ms']:.4f} device_ms={k5['device_ms']} "
-        f"plain_ms={k5['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    if not err <= BF16_TOL:
-        raise AssertionError(f"pool_stats[bf16] without mass: {err} above {BF16_TOL}")
-    return row, {"pool_stats_bf16_token_gradient": k5}
+    fused = pool_epilogue_case(f"bf16 token gradient, batch {n}, C={d}", gt, prob, sp_size, device, dtype=bf, **k5)
+    alone = pool_alone_case(f"pool_stats[bf16] without mass, scale 1 (K5 in bf16 training), batch {n}, C={d}", gt, prob,
+                            sp_size, device, **k5)
+    alone["plain_ms"] = time_ms(lambda: superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5), device)
+    return {"pool_stats_bf16_token_gradient": alone, "pool_shift_add_bf16_token_gradient": fused}
 
 
 def timed_steps(step, st, dd, n_steps: int, batch: int, tf32: bool, n_images: int, offset: int = 0):
@@ -2351,9 +2381,9 @@ def bf16_train_card_vs_cpu(device, size: int = 32, batch: int = 2) -> dict:
 # kernel A at C=130 under spix_pos); a step without enhanceNet has no
 # unpooling of the hintpath's tokens, so neither its kernel C nor its token
 # gradient (A without counts, then F)
-F32_PER_FORWARD = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 12,
+F32_PER_FORWARD = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "attention": 12,
                    "prob_grad": 0, "attention_bwd": 0, "int8_conv": 0, "quantize": 0}
-NOT_ENHANCED_PER_STEP = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "shift_add": 1, "attention": 12,
+NOT_ENHANCED_PER_STEP = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "attention": 12,
                          "attention_bwd": 12, "prob_grad": 0}
 # the options step on the card against the CPU, as phase 5's
 OPTIONS_CARD_CPU_TOL = 1e-3
@@ -2410,11 +2440,11 @@ def kernel_case(name, shape, fn, plain, out, ref, err, bytes_moved, flops, devic
         raise AssertionError(f"{name} at {shape}: error {err} (tolerance {tol}), or two runs not bitwise equal")
     b_ms, b_by = bound(bytes_moved, flops)
     row = dict(name=name, shape=shape, max_err=err, tolerance=tol, ms=time_ms(fn, device), device_ms=device_ms(fn)[0],
-               plain_ms=time_ms(plain, device), bound_ms=b_ms, bound_by=b_by,
+               graph_ms=graph_ms(fn), plain_ms=time_ms(plain, device), bound_ms=b_ms, bound_by=b_by,
                library_ms=None if library is None else time_ms(library, device),
                library_device_ms=None if library is None else device_ms(library)[0])
     log(f"{name} at {shape}: err {err:.3e} (tol {tol}), bitwise twice; ms {row['ms']:.4f}, device {row['device_ms']}, "
-        f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), library {row['library_ms']} "
+        f"graph {row['graph_ms']}, plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), library {row['library_ms']} "
         f"(device {row['library_device_ms']})")
     return row
 
@@ -2451,6 +2481,8 @@ def compare_option_kernels(device, n: int = 8, batch: int = 24, h: int = 256, w:
                                 lambda feat=feat, prob=prob: superpixel.pool_stats_plain(feat, prob, sp_size, sp_size),
                                 out, ref, rel_err(out, ref), nbytes(feat, prob, *out), 2.0 * m * h * w * 9 * 130,
                                 device, TOLERANCES["pool_stats"]))
+        rows.append(dict(name=f"{label} with its epilogue", **pool_epilogue_case(
+            f"spix_pos pooling at C=130, batch {m}", feat, prob, sp_size, device, dtype=dtype)))
     for m, c, dtype, label in ((3 * n, 64, torch.bfloat16, "upfeat[bf16]"), (batch, 128, torch.float32, "upfeat"),
                                (n, 128, torch.bfloat16, "upfeat[bf16]"), (batch, 130, torch.float32, "upfeat")):
         tokens, prob = rand(m, hc, wc, c, dtype=dtype), probs(m)
@@ -2690,7 +2722,7 @@ def options_card_vs_cpu(device, size: int = 32, batch: int = 2, tol: float = OPT
 # --save_guided unpools the guided ab once a forward (kernel C at C=2) and
 # --save_anchors the hint mask once an image (C=1), both in f32; the segnet
 # command line pools the ab without counts (A, then F) and unpools it (C)
-SPIXEL_PER_IMAGE = {"affinity_head": 1, "pool_stats": 1, "shift_add": 1, "upfeat": 1, "attention": 0,
+SPIXEL_PER_IMAGE = {"affinity_head": 1, "pool_stats": 1, "upfeat": 1, "attention": 0,
                     "affinity_head[bf16]": 0}
 # the server's answers against colorize_batch replayed on the same batch with
 # the same draws, in levels of 8-bit RGB (the PNG round trip is lossless)
@@ -2883,7 +2915,7 @@ def drive_infer_cli(device, smi: str, batch: int = 8, size: int = 256, n_images:
 def drive_infer_spixel(device, smi: str, n_images: int = 4, size: int = 256):
     """Phase 12: ``cli.infer_spixel.infer_spixel`` (the segnet command line's
     loop) on 4 in-memory 256x256 images, seeded random weights: the ``spix``
-    and ``recon`` PNGs, launches per image (B 1, A 1, F 1, C 1)."""
+    and ``recon`` PNGs, launches per image (B 1, A 1, C 1)."""
     import tempfile
 
     from disentangledcolorization_tpu_torch.cli import infer_spixel
@@ -4371,7 +4403,7 @@ def main() -> int:
     # 4. serving path
     paths = {}
     col, counts, forwards, latencies, hint_latency = drive_main_path(device)
-    per_forward = {"pool_stats": 1, "shift_add": 1, "affinity_head": 1, "upfeat": 1, "attention": 12, "prob_grad": 0}
+    per_forward = {"pool_stats": 1, "affinity_head": 1, "upfeat": 1, "attention": 12, "prob_grad": 0}
     log(f"main path: launch counts {json.dumps(counts)} over {forwards} forwards")
     for k, per in per_forward.items():
         if counts[k] != per * forwards:
@@ -4411,10 +4443,9 @@ def main() -> int:
     paths["serving_bf16"], extras["serving_bf16"] = drive_bf16_serving(device, smi)
     mark(9)
 
-    # 10. bf16 stage-2 training: shift_add[bf16], the command line in bf16, card vs CPU
-    f_row, k5_bf16 = compare_bf16_training_kernels(device)
-    rows.append(f_row)
-    extras.update(k5_bf16)
+    # 10. bf16 stage-2 training: the bf16 token gradient (A[bf16] with its rounded chain), the command line in
+    # bf16, card vs CPU
+    extras.update(compare_bf16_training_kernels(device))
     paths["training_bf16"], extras["training_bf16"] = drive_bf16_training(device, smi)
     extras["training_bf16"]["card_vs_cpu"] = bf16_train_card_vs_cpu(device)
     mark(10)
@@ -4458,6 +4489,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']}: no path launched it")
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "launches_by_path", "max_abs_err", "max_rel_err",
+            "alone",
             "max_ulps", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "graph_ms", "library_device_ms", "library_dropout_ms",
             "library_dropout_device_ms", "cudnn_bf16_ms", "shape")

@@ -42,21 +42,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _F = ctypes.c_float
-_POOL_ARGS = [*[_P] * 5, *[_I] * 6, _F, _P]
+_POOL_ARGS = [*[_P] * 10, *[_I] * 7, _F]  # then the stream; the bf16 instance takes its ring plan before it
 _HEAD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _UP_ARGS = [*[_P] * 4, *[_I] * 6, _P]
 # kernel instance -> (source file, C entry point, argtypes); every entry point
 # returns cudaGetLastError() as an int and takes the stream last. An instance
 # named ``kernel[bf16]`` takes bf16 where its wrapper in ``ops/`` says so.
 KERNELS = {
-    "pool_stats": ("pool_stats.cu", "disco_pool_stats", _POOL_ARGS),
-    "pool_stats[bf16]": ("pool_stats.cu", "disco_pool_stats_bf16", _POOL_ARGS),
+    "pool_stats": ("pool_stats.cu", "disco_pool_stats", [*_POOL_ARGS, _P]),
+    "pool_stats[bf16]": ("pool_stats.cu", "disco_pool_stats_bf16", [*_POOL_ARGS, *[_I] * 5, _P]),
     "affinity_head": ("affinity_head.cu", "disco_affinity_head", _HEAD_ARGS),
     "affinity_head[bf16]": ("affinity_head.cu", "disco_affinity_head_bf16", _HEAD_ARGS),
     "upfeat": ("upfeat.cu", "disco_upfeat", _UP_ARGS),
     "upfeat[bf16]": ("upfeat.cu", "disco_upfeat_bf16", _UP_ARGS),
-    "shift_add": ("shift_add.cu", "disco_shift_add", [*[_P] * 6, *[_I] * 4, _P]),
-    "shift_add[bf16]": ("shift_add.cu", "disco_shift_add_bf16", [_P, _P, *[_I] * 4, _P]),
     "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
     "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
@@ -157,6 +155,17 @@ def launch(name: str, *args) -> None:
         err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def capture_id(device) -> int:
+    """The id of the CUDA graph capture under way on ``device``'s current
+    stream, 0 where none (``csrc/pool_stats.cu::disco_capture_id``)."""
+    if "pool_stats" not in _LIBS:
+        build(["pool_stats"])
+    fn = _LIBS["pool_stats"].disco_capture_id
+    fn.argtypes, fn.restype = [_P], ctypes.c_ulonglong
+    with torch.cuda.device(device):
+        return int(fn(torch.cuda.current_stream(device).cuda_stream))
 
 
 def check_cuda(name: str, tensors: dict, dtype=torch.float32, dtypes: dict | None = None) -> None:

@@ -4,8 +4,15 @@ Counterpart of ``disentangledcolorization_tpu/ops/superpixel.py`` and of the
 Pallas kernels in ``ops/pallas_superpixel.py``:
 
   pool:  t[n,i,j,d,c] = mean_{p in cell(i,j)} prob_d[p] * feat_c[p]   (kernel A)
-         pooled[n,i,j,c] = sum_d t[n, (i,j)-off_d, d, c] / mass        (kernel F)
+         pooled[n,i,j,c] = sum_d t[n, (i,j)-off_d, d, c] / mass        (kernel F's function,
+                                                                        kernel A's epilogue)
   up:    out[n,p,c] = sum_d prob_d[p] * tokens[cell(p)+off_d, c]       (kernel C)
+
+On CUDA both pooling lines are one launch of kernel A (``pool_shift_add``):
+the shift-add is the epilogue of the same launch, finished for each token by
+the last block that writes one of its cells (``csrc/pool_stats.cu``); the
+arrival counters are int32 scratch kept per (device, stream), or per graph
+capture, zero after every launch and never freed (``_counters``).
 
 Direction order d=0..8 is (top-left, top, top-right, left, center, right,
 bottom-left, bottom, bottom-right): off_d spans (-1,-1)..(1,1) row-major.
@@ -15,9 +22,9 @@ Both ops carry autograd to both inputs, through kernels (the JAX package's
 the XLA formulation instead):
 
   pooled = shift_add(t) / (mass + 1e-8)  =>  d feat   = upfeat(g * s, prob),  s = 1 / ((mass + 1e-8) * sp_h*sp_w)
-  out    = upfeat(tokens, prob)           =>  d tokens = shift_add(pool_stats(g, prob, scale=1).t)
+  out    = upfeat(tokens, prob)           =>  d tokens = shift_add(pool_stats(g, prob, scale=1).t)  (one launch)
 
-(``shift_add`` and upfeat's zero-padded neighbour read are adjoint.) The
+(The shift-add and upfeat's zero-padded neighbour read are adjoint.) The
 per-token factor ``s`` rides into kernel C as ``tok_scale`` and unpooling's
 backward asks kernel A for unscaled sums. The affinity map's gradient has one
 form in both ops, since pixel p of cell q feeds token q+off_d in direction d:
@@ -41,7 +48,7 @@ Unpooling's token gradient for bf16 tokens (bf16 training) rounds where the
 JAX package's ``jax.vjp`` of ``upfeat`` rounds: kernel A's bf16 instance sums
 each direction in f32 from the bf16 gradient, each direction's sum is rounded
 to bf16, and the 9 shifted slabs are added with a rounding after every add,
-direction 8 first (``shift_add[bf16]``). The affinity map's gradient is f32
+direction 8 first (the epilogue's rounded chain). The affinity map's gradient is f32
 only: a bf16 feature or pixel gradient that would need it raises (stage 1,
 its one user, trains in f32 in the JAX package whatever the flag says).
 """
@@ -53,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from .kernels import SMEM_BLOCK, SMEM_SM, check_cuda, launch
+from .kernels import SMEM_BLOCK, SMEM_SM, capture_id, check_cuda, launch
 
 _OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
@@ -87,12 +94,99 @@ def pool_stats_plain(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool
     return t, mass, hard
 
 
-def pool_stats(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = True,
-               with_mass: bool = True, scale: float | None = None):
-    """Kernel A (``csrc/pool_stats.cu``) for CUDA tensors, the plain version for
-    CPU tensors. Same outputs as :func:`pool_stats_plain`."""
-    if feat.device.type == "cpu" and prob.device.type == "cpu":
-        return pool_stats_plain(feat, prob, sp_h, sp_w, with_hard, with_mass, scale)
+#: kernel A's bf16 ring (``csrc/pool_stats.cu``): threads a block, pixel groups at most (partial sums an
+#: output); units of about POOL_UNIT_BYTES of features and affinities in POOL_STAGES stages where the masses
+#: or counts are asked for, of twice that in two stages where not (the plans measured fastest on the card: PERF.md)
+POOL_THREADS = 256
+POOL_GROUPS = 8
+POOL_UNIT_BYTES = 12288
+POOL_STAGES = 3
+POOL_STATIC = 1280  # static shared memory a block may take beside the dynamic (``csrc/pool_stats.cu``: kStaticSmem)
+#: the epilogue's modes (``csrc/pool_stats.cu``: kNone .. kSumBf16)
+EPILOGUE = {"none": 0, "pool": 1, "pool[bf16]": 2, "sum": 3, "sum[bf16]": 4}
+
+
+class PoolPlan(NamedTuple):
+    """Kernel A's bf16 launch: ``kp`` channel pairs a thread (1 or 2; 0:
+    past C = 1024, the f32 kernel's loop), ``bx`` threads a pixel, ``groups``
+    pixel groups, units of ``rows`` cell rows in a ring of ``stages`` stages of
+    ``stage_bytes``, ``smem_bytes`` of dynamic shared memory a block and
+    ``per_sm`` blocks an SM."""
+
+    kp: int
+    bx: int
+    groups: int
+    rows: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    per_sm: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def pool_bf16_plan(c: int, sp_h: int, sp_w: int, stats: bool = True) -> PoolPlan:
+    """Kernel A's bf16 plan for C = ``c`` at an sp_h x sp_w cell, with or
+    without the masses and counts (``stats``), cached: one channel pair a
+    thread where a pixel's pairs fit a block (C <= 512), else two; at most
+    POOL_GROUPS pixel groups; units of the most cell rows that divide sp_h and
+    take at most about POOL_UNIT_BYTES of features and affinities (twice that
+    without ``stats``; at most a thread a pixel), fewer rows where that leaves
+    an SM fewer than 3 blocks; POOL_STAGES stages with ``stats`` and 2
+    without, fewer where they do not fit a block; as many blocks an SM (at
+    most 4, or 3 at two pairs a thread, the kernel's launch bounds) as shared
+    memory holds. The wide path (kp 0) past 512 pairs, or where not even 2
+    stages of one row fit."""
+    wide = PoolPlan(0, 0, 0, 0, 0, 0, 0, 0)
+    pairs = (c + 1) // 2
+    kp = 1 if pairs <= POOL_THREADS else 2
+    bx = -(-pairs // kp)
+    if bx > POOL_THREADS:
+        return wide
+    groups = min(POOL_GROUPS, POOL_THREADS // bx)
+    row_bytes = _round16(sp_w * c * 2) + 16 + _round16(sp_w * 36) + 16  # a staged feature row and affinity row
+    unit = POOL_UNIT_BYTES if stats else 2 * POOL_UNIT_BYTES
+    most = max(1, min(sp_h, unit // row_bytes, POOL_THREADS // sp_w))
+    best = wide
+    for rows in (r for r in range(most, 0, -1) if sp_h % r == 0):  # equal units, the largest first
+        fixed = 4 * (rows * sp_w * 12 + groups * 9 * c) + 56 * min(rows * sp_w, POOL_THREADS)  # + masses, counts
+        for stages in range(POOL_STAGES if stats else 2, 1, -1):
+            smem = stages * rows * row_bytes + fixed
+            if smem <= SMEM_BLOCK - POOL_STATIC:
+                per_sm = min(4 if kp == 1 else 3, SMEM_SM // (smem + 1024 + POOL_STATIC))
+                if best.kp == 0:
+                    best = PoolPlan(kp, bx, groups, rows, stages, rows * row_bytes, smem, per_sm)
+                if per_sm >= 3:  # no fewer than 3 blocks an SM where smaller units give them
+                    return PoolPlan(kp, bx, groups, rows, stages, rows * row_bytes, smem, per_sm)
+                break
+    return best
+
+
+#: the epilogue's arrival counters: (device index, stream, capture id) -> int32 zeros. Every
+#: launch leaves its counters at 0, so none is reset between calls; one set a stream, and
+#: one a graph capture (zeroed once by a fill the graph holds). None is ever freed: a
+#: captured graph keeps the pointer.
+_COUNTERS: dict = {}
+_KEPT: list = []
+
+
+def _counters(device: torch.device, tokens: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream, capture_id(device) if torch.cuda.is_current_stream_capturing() else 0)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tokens:
+        buf = torch.zeros(max(tokens, 2 * buf.numel() if buf is not None else 0), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+        _KEPT.append(buf)
+    return buf
+
+
+def _pool_launch(feat, prob, sp_h, sp_w, with_hard, with_mass, scale, mode, dtype):
+    """Kernel A's launch with the epilogue ``mode`` (EPILOGUE's keys): t, mass,
+    hard, then out, mass_sum, sizes where the mode writes them."""
     bf16 = feat.dtype == torch.bfloat16
     check_cuda("pool_stats", {"feat": feat, "prob": prob}, dtypes={"feat": feat.dtype} if bf16 else None)
     n, h, w, c = feat.shape
@@ -101,12 +195,38 @@ def pool_stats(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = Tru
     if h % sp_h or w % sp_w:
         raise ValueError(f"pool_stats: {h}x{w} is not a multiple of the {sp_h}x{sp_w} cell")
     hc, wc = h // sp_h, w // sp_w
-    t = torch.empty((n, hc, wc, 9, c), device=feat.device, dtype=torch.float32)
-    mass = torch.empty((n, hc, wc, 9), device=feat.device, dtype=torch.float32) if with_mass else None
-    hard = torch.empty((n, hc, wc, 9), device=feat.device, dtype=torch.float32) if with_hard else None
-    launch("pool_stats[bf16]" if bf16 else "pool_stats", feat, prob, t, mass, hard, n, h, w, c, sp_h, sp_w,
-           1.0 / (sp_h * sp_w) if scale is None else scale)
-    return t, mass, hard
+    if n * hc * wc * 9 >= 2**31:
+        raise ValueError(f"pool_stats: {n * hc * wc} tokens, 2^31 / 9 or more")
+    dev = feat.device
+    t = torch.empty((n, hc, wc, 9, c), device=dev, dtype=torch.float32)
+    mass = torch.empty((n, hc, wc, 9), device=dev, dtype=torch.float32) if with_mass else None
+    hard = torch.empty((n, hc, wc, 9), device=dev, dtype=torch.float32) if with_hard else None
+    out = mass_sum = sizes = counters = slots = None
+    if mode != "none":
+        counters = _counters(dev, n * hc * wc)
+        slots = torch.empty((n * hc * wc * 9,), device=dev, dtype=torch.int32)  # each arrival's finisher
+        out = torch.empty((n, hc, wc, c), device=dev, dtype=dtype)
+        if mode.startswith("pool"):
+            mass_sum = torch.empty((n, hc, wc, 1), device=dev, dtype=dtype)
+            sizes = torch.empty((n, hc, wc, 1), device=dev, dtype=torch.float32) if with_hard else None
+    args = (feat, prob, t, mass, hard, out, mass_sum, sizes, counters, slots, EPILOGUE[mode], n, h, w, c, sp_h, sp_w,
+            1.0 / (sp_h * sp_w) if scale is None else scale)
+    if bf16:
+        p = pool_bf16_plan(c, sp_h, sp_w, with_mass or with_hard)
+        launch("pool_stats[bf16]", *args, p.kp, p.groups, p.rows, p.stages, p.per_sm)
+    else:
+        launch("pool_stats", *args)
+    return (t, mass, hard), (out, mass_sum, sizes)
+
+
+def pool_stats(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = True,
+               with_mass: bool = True, scale: float | None = None):
+    """Kernel A (``csrc/pool_stats.cu``) alone, its epilogue off, for CUDA
+    tensors; the plain version for CPU tensors. Same outputs as
+    :func:`pool_stats_plain`."""
+    if feat.device.type == "cpu" and prob.device.type == "cpu":
+        return pool_stats_plain(feat, prob, sp_h, sp_w, with_hard, with_mass, scale)
+    return _pool_launch(feat, prob, sp_h, sp_w, with_hard, with_mass, scale, "none", torch.float32)[0]
 
 
 def _shift_add(x: torch.Tensor) -> torch.Tensor:
@@ -139,17 +259,18 @@ def _shift_add_rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def shift_add_plain(t, mass=None, hard=None, dtype=torch.float32):
-    """Plain version of kernel F: the 9-direction shift-add of kernel A's
-    outputs. Returns (out (N,hc,wc,C), mass_sum (N,hc,wc,1), sizes (N,hc,wc,1)).
+    """Plain version of kernel F's function, which kernel A's epilogue
+    computes: the 9-direction shift-add of kernel A's outputs. Returns (out
+    (N,hc,wc,C), mass_sum (N,hc,wc,1), sizes (N,hc,wc,1)).
 
     With ``mass``: out = shift_add(t) / (mass_sum + 1e-8), the pooled features;
     ``sizes`` where ``hard`` is given. Without: out = shift_add(t), the rest
-    None; with ``dtype=torch.bfloat16`` (unpooling's bf16 token gradient,
-    ``shift_add[bf16]``) out is bf16, rounded as :func:`_shift_add_rounded`.
+    None; with ``dtype=torch.bfloat16`` (unpooling's bf16 token gradient) out
+    is bf16, rounded as :func:`_shift_add_rounded`.
     """
     if dtype != torch.float32:
         if mass is not None or hard is not None:
-            raise ValueError(f"shift_add: a {dtype} output is unpooling's token gradient, without masses")
+            raise ValueError(f"shift_add_plain: a {dtype} output is unpooling's token gradient, without masses")
         return _shift_add_rounded(t, dtype), None, None
     out = _shift_add(t)
     if mass is None:
@@ -159,31 +280,44 @@ def shift_add_plain(t, mass=None, hard=None, dtype=torch.float32):
     return out / (mass_sum + 1e-8), mass_sum, sizes
 
 
-def shift_add(t, mass=None, hard=None, dtype=torch.float32):
-    """Kernel F (``csrc/shift_add.cu``; ``shift_add[bf16]`` for a bf16 output)
-    for CUDA tensors, the plain version for CPU tensors. Same outputs as
-    :func:`shift_add_plain`."""
-    given = {k: v for k, v in (("t", t), ("mass", mass), ("hard", hard)) if v is not None}
-    if all(v.device.type == "cpu" for v in given.values()):
-        return shift_add_plain(t, mass, hard, dtype)
-    check_cuda("shift_add", given)
-    if dtype == torch.bfloat16:
-        if len(given) > 1 or t.shape[3] != 9:
-            raise ValueError("shift_add[bf16]: unpooling's token gradient takes t (N,hc,wc,9,C) alone")
-        n, hc, wc, _, c = t.shape
-        out = torch.empty((n, hc, wc, c), device=t.device, dtype=torch.bfloat16)
-        launch("shift_add[bf16]", t, out, n, hc, wc, c)
-        return out, None, None
-    n, hc, wc, _, c = t.shape
-    if t.shape[3] != 9 or any(v.shape != (n, hc, wc, 9) for k, v in given.items() if k != "t"):
-        raise ValueError(f"shift_add: shapes {[tuple(v.shape) for v in given.values()]} are not (N,hc,wc,9[,C])")
-    if hard is not None and mass is None:
-        raise ValueError("shift_add: hard counts come with the masses")
-    out = torch.empty((n, hc, wc, c), device=t.device, dtype=torch.float32)
-    mass_sum = torch.empty((n, hc, wc, 1), device=t.device, dtype=torch.float32) if mass is not None else None
-    sizes = torch.empty((n, hc, wc, 1), device=t.device, dtype=torch.float32) if hard is not None else None
-    launch("shift_add", t, mass, hard, out, mass_sum, sizes, n, hc, wc, c)
-    return out, mass_sum, sizes
+def pool_shift_add_plain(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = True,
+                         with_mass: bool = True, scale: float | None = None, dtype=torch.float32,
+                         with_stats: bool = False):
+    """Plain version of kernel A with its epilogue: :func:`shift_add_plain` of
+    :func:`pool_stats_plain`. With the masses, pooling's forward: (pooled,
+    mass_sum, sizes), pooled and mass_sum rounded to ``dtype`` from f32;
+    without (``with_hard`` False), unpooling's token gradient: (sum, None,
+    None), f32 or rounded as :func:`_shift_add_rounded` for a bf16 ``dtype``.
+    ``with_stats``: also (t, mass, hard)."""
+    stats = pool_stats_plain(feat, prob, sp_h, sp_w, with_hard, with_mass, scale)
+    if with_mass:
+        pooled, mass_sum, sizes = shift_add_plain(*stats)
+        out = (pooled.to(dtype), mass_sum.to(dtype), sizes)
+    else:
+        if with_hard:
+            raise ValueError("pool_shift_add: hard counts come with the masses")
+        out = shift_add_plain(stats[0], dtype=dtype)
+    return (out, stats) if with_stats else out
+
+
+def pool_shift_add(feat, prob, sp_h: int = 16, sp_w: int = 16, with_hard: bool = True,
+                   with_mass: bool = True, scale: float | None = None, dtype=torch.float32,
+                   with_stats: bool = False):
+    """Kernel A with kernel F's function as its epilogue, one launch
+    (``csrc/pool_stats.cu``; ``pool_stats[bf16]`` for bf16 features), for CUDA
+    tensors; the plain version for CPU tensors. Same outputs as
+    :func:`pool_shift_add_plain`; ``with_stats`` also returns the launch's own
+    t, mass and hard, which the epilogue added."""
+    if feat.device.type == "cpu" and prob.device.type == "cpu":
+        return pool_shift_add_plain(feat, prob, sp_h, sp_w, with_hard, with_mass, scale, dtype, with_stats)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pool_shift_add: the epilogue writes float32 or bfloat16, not {dtype}")
+    if with_hard and not with_mass:
+        raise ValueError("pool_shift_add: hard counts come with the masses")
+    mode = ("pool" if with_mass else "sum") + ("[bf16]" if dtype == torch.bfloat16 else "")
+    stats, out = _pool_launch(feat, prob, sp_h, sp_w, with_hard, with_mass, scale, mode, dtype)
+    out = out if with_mass else (out[0], None, None)
+    return (out, stats) if with_stats else out
 
 
 #: kernel G's ring (``csrc/prob_grad.cu``: kStages) and blocks an SM (its launch bounds)
@@ -304,13 +438,15 @@ def _f32_prob_grad(x: torch.Tensor) -> None:
 
 
 class _Pool(torch.autograd.Function):
-    """Kernels A and F forward; the features' gradient is kernel C, the
-    affinity map's kernel G (module docstring)."""
+    """Kernel A with its epilogue forward, one launch; the features' gradient
+    is kernel C, the affinity map's kernel G (module docstring). Where no
+    input needs a gradient (serving), pooled and mass leave in the features'
+    dtype from the launch itself."""
 
     @staticmethod
     def forward(ctx, feat, prob, sp_h, sp_w, with_hard):
-        t, mass, hard = pool_stats(feat, prob, sp_h, sp_w, with_hard)
-        pooled, mass_sum, sizes = shift_add(t, mass, hard)
+        dtype = torch.float32 if any(ctx.needs_input_grad[:2]) else feat.dtype
+        pooled, mass_sum, sizes = pool_shift_add(feat, prob, sp_h, sp_w, with_hard, dtype=dtype)
         # the features and the pooled output enter only the affinity map's gradient
         ctx.save_for_backward(prob, mass_sum, *((feat, pooled) if ctx.needs_input_grad[1] else ()))
         ctx.cell = (sp_h, sp_w)
@@ -340,7 +476,7 @@ class _Pool(torch.autograd.Function):
 
 
 def pool_and_sizes(feat, prob, sp_h: int = 16, sp_w: int = 16):
-    """poolfeat(need_entry_prob=True) and get_spixel_size from one pass of kernel A.
+    """poolfeat(need_entry_prob=True) and get_spixel_size from one launch of kernel A.
 
     Returns (pooled (N,hc,wc,C), mass (N,hc,wc,1), sizes (N,hc,wc,1)); pooled
     and mass carry the gradients w.r.t. ``feat`` and ``prob``. Pooled and mass
@@ -353,8 +489,8 @@ def pool_and_sizes(feat, prob, sp_h: int = 16, sp_w: int = 16):
 
 def poolfeat(feat, prob, sp_h: int = 16, sp_w: int = 16, need_entry_prob: bool = False):
     """Soft-pool pixel features (N,H,W,C) onto the token grid (N,hc,wc,C),
-    optionally with the per-token soft mass (N,hc,wc,1). Kernel A without the
-    hard counts."""
+    optionally with the per-token soft mass (N,hc,wc,1). Kernel A with its
+    epilogue, without the hard counts."""
     pooled, mass_sum, _ = _Pool.apply(feat, prob, sp_h, sp_w, False)
     if need_entry_prob:
         return pooled.to(feat.dtype), mass_sum.to(feat.dtype)
@@ -397,8 +533,9 @@ def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
 
 
 class _Upfeat(torch.autograd.Function):
-    """Kernel C forward; the tokens' gradient is kernels A and F (their bf16
-    instances for bf16 tokens), the affinity map's kernel G (module docstring)."""
+    """Kernel C forward; the tokens' gradient is kernel A with its summing
+    epilogue, one launch (the bf16 instance and the rounded chain for bf16
+    tokens), the affinity map's kernel G (module docstring)."""
 
     @staticmethod
     def forward(ctx, tokens, prob, up_h, up_w):
@@ -413,8 +550,8 @@ class _Upfeat(torch.autograd.Function):
         g = g.contiguous()
         g_tok = g_prob = None
         if ctx.needs_input_grad[0]:
-            t, _, _ = pool_stats(g, prob, up_h, up_w, with_hard=False, with_mass=False, scale=1.0)
-            g_tok = shift_add(t, dtype=tokens.dtype)[0]
+            g_tok = pool_shift_add(g, prob, up_h, up_w, with_hard=False, with_mass=False, scale=1.0,
+                                   dtype=tokens.dtype)[0]
         if ctx.needs_input_grad[1]:
             _f32_prob_grad(g)
             g_prob = prob_grad(g, tokens, None, up_h, up_w)

@@ -1,6 +1,7 @@
 """bf16 training, layer by layer: each layer's forward and backward in bf16
 against ``jax.vjp`` of the JAX layer alone, and the token gradient of the
-unpooling, the module that holds the new kernel (``shift_add[bf16]``).
+unpooling, the module that holds the new kernel (kernel A's bf16 instance with
+the epilogue's rounded chain).
 
 The rule (``models/layers.py``): bf16 operands, f32 accumulation, and each
 op's result rounded to bf16 once. Each comparison is held to a stated share
@@ -14,7 +15,7 @@ of 4 round after every add), the port is held against the f32 sum rounded
 once, and ``test_xla_cpu_rounds_bias_sums_per_add`` records the departure.
 
 The unpooling's bf16 token gradient (``ops/superpixel.py``: kernel A's bf16
-instance, then ``shift_add[bf16]``'s plain version) equals JAX's
+instance, then the rounded chain's plain version) equals JAX's
 ``jax.vjp`` of ``ops/superpixel.py::upfeat`` bit for bit; the same sums
 rounded once, as autograd would round them, differ in about half the
 entries. The f32 proxy's pooling gradient reaches the bf16 features rounded
@@ -279,7 +280,7 @@ def test_xla_cpu_rounds_bias_sums_per_add():
 @pytest.mark.parametrize("n,hc,wc,c,s", [(2, 4, 4, 64, 16), (1, 3, 5, 5, 8), (2, 2, 3, 66, 16)])
 def test_bf16_token_gradient_matches_jax_vjp_bitwise(n, hc, wc, c, s):
     """Unpooling's token gradient for bf16 tokens: kernel A's sums per
-    direction, each rounded to bf16, then ``shift_add[bf16]``'s chain of
+    direction, each rounded to bf16, then the epilogue's rounded chain of
     rounded adds, direction 8 first, equal to JAX's ``jax.vjp`` of ``upfeat``
     bit for bit. The same f32 sums rounded once (autograd's cast) differ
     from JAX in about half the entries."""

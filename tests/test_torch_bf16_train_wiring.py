@@ -138,10 +138,10 @@ def test_bf16_training_forward_rounds_where_jax_rounds(ref, monkeypatch, train):
     colors; the encoders in f32; the decoder's tokens rounded to bf16 and
     unpooled to bf16; ``tanh`` in f32; every loss term, the VGG19 one
     included, on f32 inputs. In the train step the unpooling's token gradient
-    is bf16 (kernel A's bf16 instance on the bf16 cotangent, then
-    ``shift_add[bf16]``) and the optimizer sees f32 gradients only."""
+    is bf16 (kernel A's bf16 instance on the bf16 cotangent, with the
+    epilogue's rounded chain) and the optimizer sees f32 gradients only."""
     model, st, batch = _model(ref, monkeypatch)
-    seen = {"pool_stats": [], "shift_add": [], "upfeat": [], "vgg": []}
+    seen = {"pool_shift_add": [], "upfeat": [], "vgg": []}
 
     def record(name, fn, key):
         def wrapped(x, *args, **kw):
@@ -149,9 +149,8 @@ def test_bf16_training_forward_rounds_where_jax_rounds(ref, monkeypatch, train):
             return fn(x, *args, **kw)
         return wrapped
 
-    monkeypatch.setattr(tsp, "pool_stats", record("pool_stats", tsp.pool_stats, lambda x, *a, **k: x.dtype))
-    monkeypatch.setattr(tsp, "shift_add", record("shift_add", tsp.shift_add,
-                                                 lambda x, *a, **k: k.get("dtype", torch.float32)))
+    monkeypatch.setattr(tsp, "pool_shift_add", record("pool_shift_add", tsp.pool_shift_add,
+                                                      lambda x, *a, **k: (x.dtype, k.get("dtype", torch.float32))))
     monkeypatch.setattr(tsp, "upfeat", record("upfeat", tsp.upfeat, lambda x, *a, **k: x.dtype))
     hooks = [getattr(model, k).register_forward_hook(lambda m, args, out, k=k: seen.__setitem__(k, (args, out)))
              for k in ("segnet", "repnet", "wildpath", "hintpath", "enhanceNet")]
@@ -172,9 +171,8 @@ def test_bf16_training_forward_rounds_where_jax_rounds(ref, monkeypatch, train):
     assert seen["repnet"][1].dtype == BF16 and seen["enhanceNet"][1].dtype == BF16
     assert seen["wildpath"][0][0].dtype == torch.float32 and seen["hintpath"][1].dtype == torch.float32
     assert seen["upfeat"] == [BF16]
-    # the forward's pooling of the f32 proxy, then (train) the token gradient
-    assert seen["pool_stats"] == ([torch.float32, BF16] if train else [torch.float32])
-    assert seen["shift_add"] == ([torch.float32, BF16] if train else [torch.float32])
+    # the forward's pooling of the f32 proxy, then (train) the token gradient: features and output dtypes
+    assert seen["pool_shift_add"] == ([(torch.float32,) * 2, (BF16,) * 2] if train else [(torch.float32,) * 2])
     if train:
         assert grads and all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values())
     for k in ("pal_logit", "ref_logit", "spix_color", "input_gray", "input_color", "pred_color", "class_weight"):

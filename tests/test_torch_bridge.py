@@ -167,10 +167,11 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
         (superpixel.pool_stats(feat.bfloat16(), prob, 16, 16), superpixel.pool_stats_plain(feat.bfloat16(), prob, 16, 16)),
         (superpixel.upfeat(tok.bfloat16(), prob, 16, 16), superpixel.upfeat_plain(tok.bfloat16(), prob, 16, 16)),
         (affinity.affinity_head(x.bfloat16(), kern, bias), affinity.affinity_head_plain(x.bfloat16(), kern, bias)),
-        (superpixel.shift_add(*superpixel.pool_stats_plain(feat, prob, 16, 16)),
-         superpixel.shift_add_plain(*superpixel.pool_stats_plain(feat, prob, 16, 16))),
-        (superpixel.shift_add(superpixel.pool_stats_plain(feat, prob, 16, 16)[0], dtype=torch.bfloat16)[0],
-         superpixel.shift_add_plain(superpixel.pool_stats_plain(feat, prob, 16, 16)[0], dtype=torch.bfloat16)[0]),
+        (superpixel.pool_shift_add(feat, prob, 16, 16), superpixel.pool_shift_add_plain(feat, prob, 16, 16)),
+        (superpixel.pool_shift_add(feat.bfloat16(), prob, 16, 16, dtype=torch.bfloat16),
+         superpixel.pool_shift_add_plain(feat.bfloat16(), prob, 16, 16, dtype=torch.bfloat16)),
+        (superpixel.pool_shift_add(feat.bfloat16(), prob, 16, 16, False, False, 1.0, torch.bfloat16)[0],
+         superpixel.pool_shift_add_plain(feat.bfloat16(), prob, 16, 16, False, False, 1.0, torch.bfloat16)[0]),
         (affinity.affinity_head(x, kern, bias), affinity.affinity_head_plain(x, kern, bias)),
         (attention.attention(q, k, v, 8), attention.attention_plain(q, k, v, 8)),
         (attention.attention(q, k, v, 8, None, keep, 0.1), attention.attention_plain(q, k, v, 8, None, keep, 0.1)),
@@ -190,8 +191,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
             assert torch.equal(x_, y_)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
     assert set(kernels.LAUNCHES) == {
-        "pool_stats", "affinity_head", "upfeat", "shift_add", "attention", "attention_bwd", "encode_ab2ind", "prob_grad",
-        "pool_stats[bf16]", "affinity_head[bf16]", "upfeat[bf16]", "shift_add[bf16]",
+        "pool_stats", "affinity_head", "upfeat", "attention", "attention_bwd", "encode_ab2ind", "prob_grad",
+        "pool_stats[bf16]", "affinity_head[bf16]", "upfeat[bf16]",
         "quantize", "quantize[bf16]", "int8_conv", "int8_conv[bf16]",
     }
 

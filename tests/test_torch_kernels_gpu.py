@@ -25,7 +25,12 @@ H (box widths, boxes cut at both edges, ragged channel tiles, K slices of
 paths (vector, word) at widths 1 to 512, pixel counts below one block and
 across several, and views at odd offsets; kernel G's whole bands at C = 1,
 2, 3, 5, 66 and, through wide C, its narrower units, one-pixel tiles and
-tokens read from global memory.
+tokens read from global memory. Kernel A's epilogue (kernel F's function,
+the shift-add, in the same launch) equals the plain shift-add of the launch's
+own t, mass and hard bit for bit in each of its modes, on grids 1 and 2 cells
+a side, C from 1 to 256, batch 128, views at odd offsets, on two streams at
+once and replayed from a CUDA graph; kernel A's bf16 instance at its paths'
+three shapes.
 """
 
 import pytest
@@ -126,9 +131,8 @@ def test_superpixel_kernels_take_views_at_odd_offsets(cuda, offset, c):
     for a, b in zip(sp.pool_stats(feat, prob, s, s), sp.pool_stats_plain(feat, prob, s, s)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
     torch.testing.assert_close(sp._upfeat(tok, prob, s, s, scale), sp.upfeat_plain(tok, prob, s, s, scale), atol=1e-5, rtol=0)
-    t, mass, hard = (_odd_view(x, offset) for x in sp.pool_stats_plain(feat, prob, s, s))
-    for a, b in zip(sp.shift_add(t, mass, hard), sp.shift_add_plain(t, mass, hard)):
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    out, stats = sp.pool_shift_add(feat, prob, s, s, with_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, sp.shift_add_plain(*stats)))
 
 
 # kernel B's tiles are 8 rows x 32 columns: ragged in both (17x33, 9x40), one
@@ -299,51 +303,131 @@ def test_upfeat_kernel(cuda, n, hc, wc, c, sh, sw, scaled):
         assert torch.equal(out, sp.upfeat(tok, prob, sh, sw)) and torch.equal(out, sp.upfeat_fused(tok, prob, sh, sw))
 
 
-@pytest.mark.parametrize("n,hc,wc,c", [(1, 1, 1, 3), (2, 1, 5, 66), (1, 3, 5, 7), (2, 16, 16, 64), (1, 16, 16, 66), (1, 5, 1, 300)])
-def test_shift_add_kernel(cuda, n, hc, wc, c):
-    """Kernel F adds its 9 terms in the plain version's order: the sums are
-    equal bit for bit; the division by mass + 1e-8 is held to 1e-6 relative to
-    the largest entry (one correctly rounded f32 division each side)."""
-    from disentangledcolorization_tpu_torch.ops import superpixel as sp
-
-    t = _rand(cuda, n, hc, wc, 9, c)
-    mass = _rand(cuda, n, hc, wc, 9, seed=1).abs() + 0.01
-    hard = torch.round(_rand(cuda, n, hc, wc, 9, seed=2).abs() * 8) / 16
-    out, mass_sum, sizes = sp.shift_add(t, mass, hard)
-    ref, ref_mass, ref_sizes = sp.shift_add_plain(t, mass, hard)
-    assert out.shape == (n, hc, wc, c) and mass_sum.shape == sizes.shape == (n, hc, wc, 1)
-    assert torch.equal(mass_sum, ref_mass) and torch.equal(sizes, ref_sizes)
-    torch.testing.assert_close(out, ref, atol=1e-6 * float(ref.abs().max()), rtol=0)
-    no_hard = sp.shift_add(t, mass)
-    assert no_hard[2] is None and torch.equal(no_hard[0], out) and torch.equal(no_hard[1], mass_sum)
-    alone = sp.shift_add(t)
-    assert alone[1] is None and alone[2] is None and torch.equal(alone[0], sp._shift_add(t))
+# (n, hc, wc, c, sp_h, sp_w): kernel A's epilogue on grids 1 and 2 cells a side (tokens of 1 to 4
+# contributors), non-square grids, C from 1 to 256, batch 128, and a 6x10 cell
+EPILOGUE_CASES = [(1, 1, 1, 4, 16, 16), (2, 1, 2, 66, 16, 16), (1, 2, 1, 1, 8, 8), (1, 2, 2, 2, 16, 16),
+                  (2, 3, 5, 64, 8, 8), (1, 5, 3, 66, 16, 16), (1, 4, 6, 130, 16, 16), (1, 2, 3, 256, 16, 16),
+                  (128, 2, 2, 4, 16, 16), (1, 3, 2, 5, 6, 10)]
+# (features' dtype, output dtype, the pool_shift_add keywords): pooling's forward with and without the
+# counts (pooled and mass in f32, or in bf16 from a bf16 launch), unpooling's token gradient (the bare f32
+# sum, or the rounded chain)
+EPILOGUE_MODES = {
+    "f32_counts": (torch.float32, torch.float32, {}),
+    "f32_no_counts": (torch.float32, torch.float32, dict(with_hard=False)),
+    "f32_sum": (torch.float32, torch.float32, dict(with_hard=False, with_mass=False, scale=1.0)),
+    "bf16_counts": (torch.bfloat16, torch.float32, {}),
+    "bf16_counts_bf16_out": (torch.bfloat16, torch.bfloat16, {}),
+    "bf16_no_counts_bf16_out": (torch.bfloat16, torch.bfloat16, dict(with_hard=False)),
+    "bf16_chain": (torch.bfloat16, torch.bfloat16, dict(with_hard=False, with_mass=False, scale=1.0)),
+}
 
 
-@pytest.mark.parametrize("n,hc,wc,c", [(1, 1, 1, 3), (2, 1, 5, 66), (1, 3, 5, 7), (2, 16, 16, 64), (1, 16, 16, 66), (1, 5, 1, 300)])
-def test_shift_add_bf16_kernel(cuda, n, hc, wc, c):
-    """``shift_add[bf16]`` (unpooling's bf16 token gradient) rounds each
-    direction and then each add as its plain version does, direction 8
-    first: bit for bit, twice; it takes no masses."""
+def _epilogue_ref(sp, stats, with_mass, dtype):
+    if with_mass:
+        pooled, mass_sum, sizes = sp.shift_add_plain(*stats)
+        return pooled.to(dtype), mass_sum.to(dtype), sizes
+    return sp.shift_add_plain(stats[0], dtype=dtype)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("mode", sorted(EPILOGUE_MODES))
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", EPILOGUE_CASES)
+def test_pool_epilogue(cuda, n, hc, wc, c, sh, sw, mode, offset):
+    """Kernel A with kernel F's function as its epilogue, one launch: its
+    outputs equal the plain shift-add of the launch's own t, mass and hard bit
+    for bit (pooled and mass rounded to bf16 from the same f32 values); its t,
+    mass and hard equal kernel A's alone bit for bit, within 1e-5 of the plain
+    version (relative to the largest entry where that exceeds 1) with exact
+    counts; twice bit for bit; at a view whose storage offset breaks the
+    alignment (2-byte loads a bf16 pair, 4-byte f32)."""
     from disentangledcolorization_tpu_torch.ops import kernels
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
-    t = _rand(cuda, n, hc, wc, 9, c) * 3
+    fdt, odt, kw = EPILOGUE_MODES[mode]
+    h, w = hc * sh, wc * sw
+    feat = _rand(cuda, n, h, w, c).to(fdt)
+    feat = _odd_view(feat, offset) if offset else feat
+    prob = _tied_prob(cuda, n, h, w)
     kernels.reset_launch_counts()
-    out, mass_sum, sizes = sp.shift_add(t, dtype=torch.bfloat16)
-    assert kernels.LAUNCHES["shift_add[bf16]"] == 1 and kernels.LAUNCHES["shift_add"] == 0
-    assert out.dtype == torch.bfloat16 and out.shape == (n, hc, wc, c) and mass_sum is None and sizes is None
-    assert torch.equal(out, sp.shift_add_plain(t, dtype=torch.bfloat16)[0])
-    assert torch.equal(out, sp.shift_add(t, dtype=torch.bfloat16)[0])
-    with pytest.raises(ValueError):
-        sp.shift_add(t, t[..., 0].abs(), dtype=torch.bfloat16)
+    out, stats = sp.pool_shift_add(feat, prob, sh, sw, dtype=odt, with_stats=True, **kw)
+    assert kernels.LAUNCHES["pool_stats[bf16]" if fdt == torch.bfloat16 else "pool_stats"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    ref = _epilogue_ref(sp, stats, kw.get("with_mass", True), odt)
+    assert out[0].dtype == odt and out[0].shape == (n, hc, wc, c)
+    for a, b in zip(out, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, sp.pool_shift_add(feat, prob, sh, sw, dtype=odt, **kw)))
+    alone = sp.pool_stats(feat, prob, sh, sw, **{k: v for k, v in kw.items()})
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(stats, alone))
+    plain = sp.pool_stats_plain(feat, prob, sh, sw, **kw)
+    for a, b in zip(stats[:2], plain[:2]):
+        if b is not None:
+            torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
+    if stats[2] is not None:
+        assert torch.equal(stats[2], plain[2])
+
+
+@pytest.mark.parametrize("mode", ["f32_counts", "bf16_counts_bf16_out", "f32_sum", "bf16_chain"])
+def test_pool_epilogue_two_streams_and_a_graph(cuda, mode):
+    """The arrival counters are zero after every launch: pooling on two
+    streams at once (one set of counters each) and one CUDA graph of two
+    launches replayed three times (its own counters, zeroed once in the graph)
+    give an eager call's bits."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    fdt, odt, kw = EPILOGUE_MODES[mode]
+    feat, prob = _rand(cuda, 8, 256, 256, 66).to(fdt), _tied_prob(cuda, 8, 256, 256)
+    run = lambda: sp.pool_shift_add(feat, prob, 16, 16, dtype=odt, **kw)  # noqa: E731
+    eager = run()
+    same = lambda o: all((a is None and b is None) or torch.equal(a, b) for a, b in zip(o, eager))  # noqa: E731
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(run())
+    torch.cuda.synchronize()
+    assert all(same(o) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run(), run()]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(same(o) for o in captured)
+    assert same(run())
+
+
+@pytest.mark.parametrize("n,c,kw", [(8, 66, {}), (24, 64, dict(with_hard=False, with_mass=False, scale=1.0)),
+                                    (8, 130, {})], ids=["serving_66", "token_gradient_64", "spix_pos_130"])
+def test_bf16_pool_stats_at_the_paths_shapes(cuda, n, c, kw):
+    """Kernel A's bf16 instance (the ring) at the three shapes its paths give
+    it: within 1e-5 of the plain version's largest entry, exact counts, the
+    same bits twice."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    feat, prob = _rand(cuda, n, 256, 256, c).bfloat16(), _tied_prob(cuda, n, 256, 256)
+    out, ref = sp.pool_stats(feat, prob, 16, 16, **kw), sp.pool_stats_plain(feat, prob, 16, 16, **kw)
+    for a, b in zip(out[:2], ref[:2]):
+        if b is not None:
+            torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
+    if ref[2] is not None:
+        assert torch.equal(out[2], ref[2])
+    assert all(a is None or torch.equal(a, b) for a, b in zip(out, sp.pool_stats(feat, prob, 16, 16, **kw)))
 
 
 def test_bf16_token_gradient_launches_its_kernels(cuda):
     """Unpooling bf16 tokens: kernel C's bf16 instance forward; the bf16
-    token gradient is kernel A's bf16 instance (no mass, scale 1) and
-    ``shift_add[bf16]``, whose output equals its plain version on kernel A's
-    sums bit for bit; an affinity map that needs a gradient raises."""
+    token gradient is one launch of kernel A's bf16 instance (no mass, scale
+    1) with the epilogue's rounded chain, whose output equals the plain chain
+    of kernel A's sums bit for bit; an affinity map that needs a gradient
+    raises."""
     from disentangledcolorization_tpu_torch.ops import kernels
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
@@ -353,8 +437,7 @@ def test_bf16_token_gradient_launches_its_kernels(cuda):
     g = _rand(cuda, n, hc * s, wc * s, c, seed=3).to(torch.bfloat16)
     kernels.reset_launch_counts()
     sp.upfeat(tok, prob, s, s).backward(g)
-    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"upfeat[bf16]": 1, "pool_stats[bf16]": 1,
-                                                                 "shift_add[bf16]": 1}
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"upfeat[bf16]": 1, "pool_stats[bf16]": 1}
     t = sp.pool_stats(g, prob, s, s, with_hard=False, with_mass=False, scale=1.0)[0]
     assert tok.grad.dtype == torch.bfloat16 and torch.equal(tok.grad, sp.shift_add_plain(t, dtype=torch.bfloat16)[0])
     with pytest.raises(NotImplementedError):
@@ -362,16 +445,17 @@ def test_bf16_token_gradient_launches_its_kernels(cuda):
 
 
 def test_superpixel_functions_launch_their_kernels(cuda):
-    """pool_and_sizes is kernels A and F, its backward kernel C for the
-    features and kernel G for the affinity map; upfeat is kernel C, its
-    backward kernels A and F for the tokens and kernel G for the affinity map.
-    Each backward kernel runs only where its input needs a gradient."""
+    """pool_and_sizes is one launch of kernel A (the shift-add its epilogue),
+    its backward kernel C for the features and kernel G for the affinity map;
+    upfeat is kernel C, its backward one launch of kernel A for the tokens and
+    kernel G for the affinity map. Each backward kernel runs only where its
+    input needs a gradient."""
     from disentangledcolorization_tpu_torch.ops import kernels
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 
     n, hc, wc, c, s = 2, 3, 4, 66, 16
     prob0 = _tied_prob(cuda, n, hc * s, wc * s)
-    ours = ("pool_stats", "upfeat", "shift_add", "prob_grad")
+    ours = ("pool_stats", "upfeat", "prob_grad")
     counts = []
     for x_grad, p_grad in ((True, False), (False, True), (True, True)):
         prob = prob0.clone().requires_grad_(p_grad)
@@ -384,9 +468,9 @@ def test_superpixel_functions_launch_their_kernels(cuda):
             kernels.reset_launch_counts()
             out.sum().backward()
             counts.append(tuple(kernels.LAUNCHES[k] for k in ours))
-    assert counts == [(1, 0, 1, 0), (0, 1, 0, 0), (0, 1, 0, 0), (1, 0, 1, 0),
-                      (1, 0, 1, 0), (0, 0, 0, 1), (0, 1, 0, 0), (0, 0, 0, 1),
-                      (1, 0, 1, 0), (0, 1, 0, 1), (0, 1, 0, 0), (1, 0, 1, 1)]
+    assert counts == [(1, 0, 0), (0, 1, 0), (0, 1, 0), (1, 0, 0),
+                      (1, 0, 0), (0, 0, 1), (0, 1, 0), (0, 0, 1),
+                      (1, 0, 0), (0, 1, 1), (0, 1, 0), (1, 0, 1)]
 
 
 def _bf16_ulps(out, ref) -> float:
@@ -633,7 +717,7 @@ def test_encode_ab2ind_kernel(cuda, shape, neighbours):
 def test_superpixel_function_gradients(cuda, s):
     """The pooling gradients (kernel C for the features, kernel G for the
     affinity map, through pooled and mass) and the unpooling gradients
-    (kernels A and F for the tokens, kernel G) against autograd of the plain
+    (kernel A with its epilogue for the tokens, kernel G) against autograd of the plain
     versions, 1e-5 of each gradient's largest entry."""
     from disentangledcolorization_tpu_torch.ops import superpixel as sp
 

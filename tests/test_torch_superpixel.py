@@ -149,17 +149,22 @@ def test_pool_stats_scale_and_no_mass_match_pallas(n, h, w, c, s):
 def test_fused_shift_add_matches_jax(n, h, w, c, s):
     """Kernel F's plain version on kernel A's: pooled, mass and sizes as the
     XLA formulation and the Pallas pool_and_sizes give them; and its second
-    use, the bare 9-direction sum, against the JAX package's shifted slices."""
+    use, the bare 9-direction sum, against the JAX package's shifted slices.
+    ``pool_shift_add`` (kernel A with F's function as its epilogue, one launch
+    on the card) runs the same composition on CPU tensors."""
     feat, prob = _inputs(9, n, h, w, c, ties=True)
     t, mass, hard = tsp.pool_stats_plain(torch.from_numpy(feat), torch.from_numpy(prob), s, s)
-    ours = tsp.shift_add(t, mass, hard)
+    ours = tsp.shift_add_plain(t, mass, hard)
     _close(ours, sp.pool_and_sizes(jnp.asarray(feat), jnp.asarray(prob), s, s, backend="xla"))
     _close(ours, psp.pool_and_sizes(jnp.asarray(feat), jnp.asarray(prob), s, s))
     np.testing.assert_array_equal(_np(ours[2]), np.asarray(sp.get_spixel_size(jnp.asarray(prob), s, s)))
-    no_hard = tsp.shift_add(t, mass)
+    fused, stats = tsp.pool_shift_add(torch.from_numpy(feat), torch.from_numpy(prob), s, s, with_stats=True)
+    for a, b in zip(fused + stats, ours + (t, mass, hard)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    no_hard = tsp.shift_add_plain(t, mass)
     assert no_hard[2] is None
     np.testing.assert_array_equal(_np(no_hard[0]), _np(ours[0]))
-    bare, none_a, none_b = tsp.shift_add(t)
+    bare, none_a, none_b = tsp.shift_add_plain(t)
     assert none_a is None and none_b is None
     # pooled * (mass + 1e-8) undoes the division
     np.testing.assert_allclose(_np(bare), _np(ours[0] * (ours[1] + 1e-8)), atol=ATOL, rtol=0)

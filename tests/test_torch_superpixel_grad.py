@@ -93,24 +93,27 @@ def test_upfeat_fused_matches_pallas(n, h, w, c, s):
 def test_backward_goes_through_the_kernel_wrappers(monkeypatch):
     """The pooling gradient is an unpooling with a per-token factor (kernel
     C's wrapper alone), the unpooling gradient a pooling of unscaled sums
-    without mass or hard counts (kernel A's wrapper) and its shift-add (kernel
-    F's): the composition the card runs, here with the plain versions."""
+    without mass or hard counts and its bare shift-add (kernel A's wrapper with
+    its summing epilogue, one call where kernels A and F were two): the
+    composition the card runs, here with the plain versions. Pooling's forward
+    is the same wrapper with the masses and counts, in f32 where a gradient
+    is asked for."""
     feat, prob, tok = _inputs(4, 1, 32, 32, 3, 16)
     calls = []
-    up, pool, add = tsp._upfeat, tsp.pool_stats, tsp.shift_add
+    up, pool = tsp._upfeat, tsp.pool_shift_add
     monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append(("upfeat", len(a) == 5 and a[4] is not None)) or up(*a))
-    monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append(
-        ("pool_stats", k.get("with_hard", True), k.get("with_mass", True), k.get("scale"))) or pool(*a, **k))
-    monkeypatch.setattr(tsp, "shift_add", lambda *a, **k: calls.append(("shift_add", len(a))) or add(*a, **k))
+    monkeypatch.setattr(tsp, "pool_shift_add", lambda *a, **k: calls.append(
+        ("pool_shift_add", a[4] if len(a) > 4 else k.get("with_hard", True), k.get("with_mass", True),
+         k.get("scale"), k.get("dtype"))) or pool(*a, **k))
     f, t, p = torch.from_numpy(feat).requires_grad_(), torch.from_numpy(tok).requires_grad_(), torch.from_numpy(prob)
     pooled = tsp.pool_and_sizes(f, p, 16, 16)[0]
     out = tsp.upfeat(t, p, 16, 16)
-    assert calls == [("pool_stats", True, True, None), ("shift_add", 3), ("upfeat", False)]
+    assert calls == [("pool_shift_add", True, True, None, torch.float32), ("upfeat", False)]
     assert type(pooled.grad_fn).__name__ == "_PoolBackward" and type(out.grad_fn).__name__ == "_UpfeatBackward"
     calls.clear()
     pooled.sum().backward()
     out.sum().backward()
-    assert calls == [("upfeat", True), ("pool_stats", False, False, 1.0), ("shift_add", 1)]
+    assert calls == [("upfeat", True), ("pool_shift_add", False, False, 1.0, torch.float32)]
     assert f.grad.abs().sum() > 0 and t.grad.abs().sum() > 0
 
 
@@ -191,14 +194,13 @@ def test_pool_and_sizes_prob_grad_matches_jax(n, h, w, c, sh, sw):
 def test_prob_backward_goes_through_the_kernel_wrappers(monkeypatch, feat_grad):
     """Both affinity-map gradients are kernel G's wrapper (pooling's with a
     beta, unpooling's without); pooling's backward runs kernel C only when the
-    features need a gradient, and unpooling's kernels A and F only when the
-    tokens do."""
+    features need a gradient, and unpooling's kernel A with its summing
+    epilogue (one wrapper call) only when the tokens do."""
     feat, prob, tok = _inputs(12, 1, 32, 32, 4, 16)
     calls = []
-    up, pool, add, grad = tsp._upfeat, tsp.pool_stats, tsp.shift_add, tsp.prob_grad
+    up, pool, grad = tsp._upfeat, tsp.pool_shift_add, tsp.prob_grad
     monkeypatch.setattr(tsp, "_upfeat", lambda *a: calls.append("upfeat") or up(*a))
-    monkeypatch.setattr(tsp, "pool_stats", lambda *a, **k: calls.append("pool_stats") or pool(*a, **k))
-    monkeypatch.setattr(tsp, "shift_add", lambda *a, **k: calls.append("shift_add") or add(*a, **k))
+    monkeypatch.setattr(tsp, "pool_shift_add", lambda *a, **k: calls.append("pool_shift_add") or pool(*a, **k))
     monkeypatch.setattr(tsp, "prob_grad", lambda *a: calls.append(("prob_grad", a[2] is not None)) or grad(*a))
     f = torch.from_numpy(feat).requires_grad_(feat_grad)
     t = torch.from_numpy(tok).requires_grad_(feat_grad)
@@ -210,5 +212,5 @@ def test_prob_backward_goes_through_the_kernel_wrappers(monkeypatch, feat_grad):
     assert calls == (["upfeat"] if feat_grad else []) + [("prob_grad", True)]
     calls.clear()
     out.sum().backward()
-    assert calls == (["pool_stats", "shift_add"] if feat_grad else []) + [("prob_grad", False)]
+    assert calls == (["pool_shift_add"] if feat_grad else []) + [("prob_grad", False)]
     assert p.grad.abs().sum() > 0 and (f.grad is not None) == feat_grad and (t.grad is not None) == feat_grad

@@ -31,14 +31,27 @@ batch 8 without (``fwd_serve``). The built-in variant gives every thread one
 row of the tile instead of two (256-thread blocks): the design before the
 register tile.
 
-superpixel, 256x256 images and 16x16 cells, f32: kernel A at (8,256,256,66)
-with counts (``a_serve``) and at (24,256,256,64) as unpooling's backward asks
-for it (``a_k5``); kernel C at (8,16,16,64) (``c_serve``) and (24,16,16,66)
-(``c_66``); pooling's and unpooling's backward at batch 24 (``pool_bwd`` at
-C=66, ``up_bwd`` at C=64) and ``pool_and_sizes`` at batch 8, C=66
-(``pool_fwd``), these three with the names of the kernels they launched in the
-first round. The built-in variants: kernel C with plain instead of streaming
-stores, kernel A with two instead of four loads in flight.
+superpixel, 256x256 images and 16x16 cells: kernel A alone (its epilogue off)
+in f32 at (8,256,256,66) with counts (``a_serve``), at (24,256,256,64) as
+unpooling's backward asks for it (``a_k5``) and at stage 1's (128,256,256,4)
+(``a_stage1``), its bf16 instance at (8,256,256,66) (``abf_serve``),
+(24,256,256,64) without mass (``abf_k5``) and (8,256,256,130) (``abf_130``);
+pooling in one launch (kernel A with kernel F's function as its epilogue; in a
+``--before`` checkout that predates the epilogue, A then F, and the two casts
+for bf16 output) at f32 (8,256,256,66) with counts (``pool_f32_66``), bf16
+(8,256,256,66) with counts (``pool_bf16_66``; with pooled and mass in bf16 as
+serving takes them, ``pool_bf16_66_serving``), the f32 bare sum at
+(24,256,256,64) (``sum_f32_64``), the bf16 rounded chain there
+(``chain_bf16_64``) and stage 1's (128,256,256,4) (``pool_stage1_4``), each
+held bit for bit against the first build's output (``*_equal_first``) and
+itself; kernel C at (8,16,16,64) (``c_serve``) and (24,16,16,66) (``c_66``);
+pooling's and unpooling's backward at batch 24 (``pool_bwd`` at C=66,
+``up_bwd`` at C=64) and ``pool_and_sizes`` at batch 8, C=66 (``pool_fwd``),
+these and the one-launch cases with the names of the kernels they launched in
+the first round. Kernel A's and the one-launch cases also by CUDA events
+around a CUDA graph of 10 calls (``*_graph_ms``). The built-in variants:
+kernel C with plain instead of streaming stores, kernel A's f32 loop with two
+instead of four loads in flight.
 
 head_labels, f32: kernel B (the affinity head, C=16) at batch 8 (``b_serve``)
 and 24 (``b_train``) of 256x256, kernel E (soft labels, K=5) at
@@ -133,6 +146,8 @@ def ptxas_table(build_log: dict, keep) -> dict:
     for text in build_log.values():
         for blk in text.split("Function properties for ")[1:]:
             label = kernel_label(blk.split()[0])
+            if "Used " not in blk.split("Function properties for ")[0]:  # a device function ptxas reports apart
+                continue
             if keep(label[label.index("<") + 1:-1].split(",") if "<" in label else []):
                 regs[label] = [
                     int(re.search(r"Used (\d+) registers", blk).group(1)),
@@ -217,19 +232,37 @@ def superpixel_cases(dev):
     tok66 = torch.randn(n, hw // s, hw // s, d + 2, generator=g).to(dev)
     tok64 = tok66[..., :d].contiguous()
     feat66_8, prob8, tok64_8 = feat66[:n8].contiguous(), prob[:n8].contiguous(), tok64[:n8].contiguous()
+    bf66_8, bf64 = feat66_8.bfloat16(), feat64.bfloat16()
+    bf130_8 = torch.randn(n8, hw, hw, 2 * d + 2, generator=g).to(dev, torch.bfloat16)
+    feat4 = torch.randn(128, hw, hw, 4, generator=g).to(dev)
+    prob128 = torch.softmax(torch.randn(128, hw, hw, 9, generator=g), dim=-1).to(dev)
     plain = port.ops.superpixel
     ref_a = plain.pool_stats_plain(feat66_8, prob8, s, s)
     ref_c = plain.upfeat_plain(tok64_8, prob8, s, s)
+    k5 = dict(with_hard=False, with_mass=False, scale=1.0)
+    first = {}  # the first build's outputs of the fused cases
 
     def backward_of(fn, x, cotangent):
         x = x.detach().requires_grad_()
         out = fn(x)
         return lambda: torch.autograd.grad(out, x, cotangent, retain_graph=True)[0]
 
+    def fused(sp, feat, p, kw, dtype=torch.float32):
+        """Pooling (or unpooling's token gradient) in one launch, or, in a
+        checkout from before kernel A took F's function as its epilogue, A then F."""
+        if hasattr(sp, "pool_shift_add"):
+            return lambda: sp.pool_shift_add(feat, p, s, s, dtype=dtype, **kw)
+        if kw.get("with_mass", True):
+            def a_then_f():
+                pooled, mass, sizes = sp.shift_add(*sp.pool_stats(feat, p, s, s, **kw))
+                return pooled.to(dtype), mass.to(dtype), sizes
+            return a_then_f
+        return lambda: sp.shift_add(sp.pool_stats(feat, p, s, s, **kw)[0], dtype=dtype)
+
     def measure(pkg, first_round):
         sp = pkg.ops.superpixel
         if "with_mass" in inspect.signature(sp.pool_stats).parameters:
-            a_k5 = lambda: sp.pool_stats(feat64, prob, s, s, with_hard=False, with_mass=False, scale=1.0)  # noqa: E731
+            a_k5 = lambda: sp.pool_stats(feat64, prob, s, s, **k5)  # noqa: E731
         else:  # a checkout from before kernel A took a scale
             a_k5 = lambda: sp.pool_stats(feat64, prob, s, s, with_hard=False)  # noqa: E731
         pool_bwd = backward_of(lambda f: sp.pool_and_sizes(f, prob, s, s)[0], feat66, tok66)
@@ -238,10 +271,32 @@ def superpixel_cases(dev):
             "max_abs_err_a": max_err(sp.pool_stats(feat66_8, prob8, s, s), ref_a),
             "max_abs_err_c": max_err(sp.upfeat(tok64_8, prob8, s, s), ref_c),
         }
+        fused_cases = {  # the five shapes of the one-launch pooling, and bf16 serving's with pooled and mass in bf16
+            "pool_f32_66": fused(sp, feat66_8, prob8, {}),
+            "pool_bf16_66": fused(sp, bf66_8, prob8, {}),
+            "pool_bf16_66_serving": fused(sp, bf66_8, prob8, {}, torch.bfloat16),
+            "sum_f32_64": fused(sp, feat64, prob, k5),
+            "chain_bf16_64": fused(sp, bf64, prob, k5, torch.bfloat16),
+            "pool_stage1_4": fused(sp, feat4, prob128, {}),
+        }
+        for name, fn in fused_cases.items():
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            if name in first:
+                res[f"{name}_equal_first"] = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, first[name]))
+            else:
+                first[name] = out
+            res[f"{name}_repeatable"] = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, fn()))
+            del out
         with torch.no_grad():
             cases = {
                 "a_serve": lambda: sp.pool_stats(feat66_8, prob8, s, s),
                 "a_k5": a_k5,
+                "a_stage1": lambda: sp.pool_stats(feat4, prob128, s, s),
+                "abf_serve": lambda: sp.pool_stats(bf66_8, prob8, s, s),
+                "abf_k5": lambda: sp.pool_stats(bf64, prob, s, s, **k5),
+                "abf_130": lambda: sp.pool_stats(bf130_8, prob8, s, s),
+                **fused_cases,
                 "c_serve": lambda: sp.upfeat(tok64_8, prob8, s, s),
                 "c_66": lambda: sp._upfeat(tok66, prob, s, s),
                 "pool_bwd": pool_bwd,
@@ -251,7 +306,9 @@ def superpixel_cases(dev):
             for name, fn in cases.items():
                 res[f"{name}_ms"], by_kernel = device_ms(fn)
                 res[f"{name}_events_ms"] = time_ms(fn, dev)
-                if first_round and name in ("pool_bwd", "up_bwd", "pool_fwd"):
+                if name.startswith(("a", "pool_", "sum_", "chain_")):
+                    res[f"{name}_graph_ms"] = graph_ms(fn, iters=10)
+                if first_round and name in ("pool_bwd", "up_bwd", "pool_fwd", *fused_cases):
                     res[f"{name}_kernels"] = {k: round(ms, 5) for k, ms in by_kernel.items()}
         return res
 

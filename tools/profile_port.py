@@ -17,10 +17,15 @@ backward (its torch ops, at the step's shape, timed alone). ``--train --vgg``
 adds the VGG19 perceptual term to the step (a seeded random-init VGG19 npz
 written to a temporary directory). Needs a CUDA device:
 
-    python tools/profile_port.py [--bf16] [--batch 8] [--size 256] [--iters 5]
+    python tools/profile_port.py [--bf16] [--batch 8] [--size 256] [--iters 5] [--before DIR]
     python tools/profile_port.py --train [--bf16] [--vgg] [--batch 24] [--iters 3]
     python tools/profile_port.py --spixel [--batch 128] [--iters 3]
     python tools/profile_port.py --cat [--batch 24]
+
+``--before DIR`` profiles the serving forward of another checkout's package
+(say the parent commit, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists) in turns with this one's, TF32 off: before, this, this,
+before, the same seed and inputs.
 
 ``--cat`` times one op of the model alone, the concatenation of the 64
 features and the 2 ab channels that pooling reads (``models/disco.py``,
@@ -32,6 +37,7 @@ for the convolution's backward.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -47,7 +53,8 @@ from disentangledcolorization_tpu_torch.api import Colorizer  # noqa: E402
 OURS = {
     "pool_stats_kernel": "pool_stats", "affinity_head_kernel": "affinity_head",
     "affinity_head_pipe_kernel": "affinity_head", "upfeat_kernel": "upfeat",
-    "shift_add_kernel": "shift_add", "shift_add_bf16_kernel": "shift_add[bf16]",
+    "pool_bf16_kernel": "pool_stats[bf16]",
+    "shift_add_kernel": "shift_add",  # another checkout's (--before): kernel F before it became A's epilogue
     "attention_kernel": "attention", "attention_bwd_kernel": "attention_bwd",
     "encode_ab2ind_kernel": "encode_ab2ind", "encode_ab2ind_warp_kernel": "encode_ab2ind",
     "prob_grad_kernel": "prob_grad",
@@ -198,6 +205,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=None, help="default 8 (forward), 24 (--train, --cat) or 128 (--spixel)")
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--before", help="root of another checkout whose serving forward is profiled in turns with this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port: needs a CUDA device")
@@ -228,10 +236,24 @@ def main() -> None:
             print(json.dumps({"card": smi, "what": what, **profile(run, batch, args.iters, tf32)}), flush=True)
         return
     batch = args.batch or 8
-    col = Colorizer(device="cuda", seed=130, compute_dtype="bfloat16" if args.bf16 else "float32")
+    dtype = "bfloat16" if args.bf16 else "float32"
     g = torch.Generator().manual_seed(0)
     grays = (torch.rand(batch, args.size, args.size, 1, generator=g) * 2 - 1).cuda()
     what = "forward_bf16" if args.bf16 else "forward"
+    if args.before:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from bench_attention import import_checkout
+
+        before = import_checkout(args.before)
+        cols = {"before": importlib.import_module(f"{before.__name__}.api").Colorizer(device="cuda", seed=130,
+                                                                                       compute_dtype=dtype),
+                "this": Colorizer(device="cuda", seed=130, compute_dtype=dtype)}
+        with torch.no_grad():
+            for build in ("before", "this", "this", "before"):
+                res = profile(lambda col=cols[build]: col.model(grays), batch, args.iters, False)
+                print(json.dumps({"card": smi, "what": what, "build": build, **res}), flush=True)
+        return
+    col = Colorizer(device="cuda", seed=130, compute_dtype=dtype)
     with torch.no_grad():
         for tf32 in (False, True):
             print(json.dumps({"card": smi, "what": what, **profile(lambda: col.model(grays), batch, args.iters, tf32)}),

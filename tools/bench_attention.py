@@ -51,7 +51,10 @@ these and the one-launch cases with the names of the kernels they launched in
 the first round. Kernel A's and the one-launch cases also by CUDA events
 around a CUDA graph of 10 calls (``*_graph_ms``). The built-in variants:
 kernel C with plain instead of streaming stores, kernel A's f32 loop with two
-instead of four loads in flight.
+instead of four loads in flight, and two that show where the time goes and
+compute wrong outputs: the one launch without its end-of-block finishing
+(``epi_no_finishing``) and A[bf16] without its multiply-adds
+(``abf_no_multiply_adds``: the ring's copies, barriers and repacks alone).
 
 head_labels, f32: kernel B (the affinity head, C=16) at batch 8 (``b_serve``)
 and 24 (``b_train``) of 256x256, kernel E (soft labels, K=5) at
@@ -111,10 +114,16 @@ SETS = {
         "instances": lambda args: args[:1] == ["8"],  # the main path's head width
     },
     "superpixel": {
-        "kernels": ("pool_stats", "upfeat", "shift_add"),
+        # every instance of the set's sources, so that each build's bf16 instances are its own
+        "kernels": ("pool_stats", "pool_stats[bf16]", "upfeat", "upfeat[bf16]", "shift_add", "shift_add[bf16]"),
         "variants": {
             "c_plain_stores": [["upfeat.cu", "__stcs(", "__stwb("]],
             "a_two_loads_in_flight": [["pool_stats.cu", "kUnroll = 4;", "kUnroll = 2;"]],
+            # where the one launch and A[bf16] spend their time; these two builds' outputs are wrong by design
+            "epi_no_finishing": [["pool_stats.cu", "  const int slots = (cells - (int)blockIdx.x",
+                                  "  if (cells > 0) return;\n  const int slots = (cells - (int)blockIdx.x"]],
+            "abf_no_multiply_adds": [["pool_stats.cu", "      if (ty < rg.groups) {\n        const int sy = rg.spw_div",
+                                      "      if (ty < rg.groups && C < 0) {\n        const int sy = rg.spw_div"]],
         },
         "instances": lambda args: True,
     },

@@ -99,6 +99,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      epilogue's rounded chain, one launch) bit for bit against the plain
      chain of its own t at (24,256,256,64), C=66 and C=5, twice, timed;
      kernel A's bf16 instance alone at the token gradient's shape, timed;
+     kernel C's bf16 instance at the step's unpooling (24,16,16,64), within
+     one bf16 ulp of its plain version, timed (graph ms) beside its bound;
      ``cli.train_colorizer.train`` with ``--compute_dtype bfloat16 --enhanced
      --vgg_npz`` (random npz, seed 0), ``--device_data``, batch 24 at full
      width, 1 epoch of 4 steps with validation and one dump (finite losses,
@@ -1960,7 +1962,7 @@ def compare_bf16_kernels(device, n: int = 8, h: int = 256, w: int = 256, sp_size
         replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:273",
         also_replaces="disentangledcolorization_tpu/ops/pallas_superpixel.py:230 (upfeat_fused, K6)",
         max_abs_err=max_err(out, ref), max_ulps=ulps, ms=time_ms(up, device), device_ms=device_ms(up)[0],
-        plain_ms=time_ms(lambda: superpixel.upfeat_plain(tokens, prob, sp_size, sp_size), device),
+        graph_ms=graph_ms(up), plain_ms=time_ms(lambda: superpixel.upfeat_plain(tokens, prob, sp_size, sp_size), device),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
     for r in rows:
@@ -2158,7 +2160,9 @@ def compare_bf16_training_kernels(device, n: int = 24, h: int = 256, w: int = 25
     chain of the launch's own t, at the token gradient's shape
     (24,256,256,64) and at C = 66 and 5, twice; the launch's t against kernel
     A's alone bit for bit and against its plain version; kernel A's bf16
-    instance alone at (24,256,256,64), timed beside its bound."""
+    instance alone at (24,256,256,64), timed beside its bound; kernel C's bf16
+    instance at the step's unpooling, (24,16,16,64) bf16 tokens, within one
+    ulp of its plain version, timed beside its bound."""
     from disentangledcolorization_tpu_torch.ops import superpixel
 
     g = torch.Generator(device="cpu").manual_seed(10)
@@ -2174,7 +2178,14 @@ def compare_bf16_training_kernels(device, n: int = 24, h: int = 256, w: int = 25
     alone = pool_alone_case(f"pool_stats[bf16] without mass, scale 1 (K5 in bf16 training), batch {n}, C={d}", gt, prob,
                             sp_size, device, **k5)
     alone["plain_ms"] = time_ms(lambda: superpixel.pool_stats_plain(gt, prob, sp_size, sp_size, **k5), device)
-    return {"pool_stats_bf16_token_gradient": alone, "pool_shift_add_bf16_token_gradient": fused}
+    tokens = torch.randn(n, h // sp_size, w // sp_size, d, generator=g).to(device, bf)
+    up = lambda: superpixel.upfeat(tokens, prob, sp_size, sp_size)  # noqa: E731
+    up_plain = lambda: superpixel.upfeat_plain(tokens, prob, sp_size, sp_size)  # noqa: E731
+    out, ref = up(), up_plain()
+    step_c = kernel_case("upfeat[bf16]", tuple(tokens.shape), up, up_plain, out, ref, bf16_ulps(out, ref),
+                         nbytes(tokens, prob, out), 2.0 * n * h * w * 9 * d, device, BF16_ULPS)
+    return {"pool_stats_bf16_token_gradient": alone, "pool_shift_add_bf16_token_gradient": fused,
+            "upfeat_bf16_step": step_c}
 
 
 def timed_steps(step, st, dd, n_steps: int, batch: int, tf32: bool, n_images: int, offset: int = 0):
@@ -4443,8 +4454,8 @@ def main() -> int:
     paths["serving_bf16"], extras["serving_bf16"] = drive_bf16_serving(device, smi)
     mark(9)
 
-    # 10. bf16 stage-2 training: the bf16 token gradient (A[bf16] with its rounded chain), the command line in
-    # bf16, card vs CPU
+    # 10. bf16 stage-2 training: the bf16 token gradient (A[bf16] with its rounded chain), C[bf16] at the step's
+    # shape, the command line in bf16, card vs CPU
     extras.update(compare_bf16_training_kernels(device))
     paths["training_bf16"], extras["training_bf16"] = drive_bf16_training(device, smi)
     extras["training_bf16"]["card_vs_cpu"] = bf16_train_card_vs_cpu(device)

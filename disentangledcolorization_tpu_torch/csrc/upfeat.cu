@@ -6,37 +6,51 @@
 // tokens zero outside the hc x wc grid, and s an optional per-token factor
 // (tok_scale; 1 where the pointer is null). Pooling's backward passes
 // 1 / ((mass + 1e-8) * up_h * up_w) there, so no pass over the pixels follows
-// the kernel. f32 throughout; the 9 terms are added in the order of d.
+// the kernel. Sums in f32: each scaled token is the f32 product tk * s, the
+// first term a product, the other 8 fmaf in the order of d. The f32 instance
+// (disco_upfeat) writes the sums; the bf16 instance (disco_upfeat_bf16: bf16
+// tokens and output, f32 affinities and tok_scale; the unpooling of the bf16
+// serving forward and of the bf16 step) rounds each sum once to nearest even
+// (__float2bfloat16_rn, XLA's convert and torch's .to()).
 //
-// Bound: bytes. It reads prob once and writes C floats per pixel (about
-// 19.1 MB per 256x256 image at C=64); the token grid is tiny and stays in L2.
-// Design: one block per cell. A thread owns one vector of channels (16 bytes
-// where C % 4 == 0, 8 where C % 2 == 0, else 4; narrower where a pointer is
-// not aligned to the vector) and holds the cell's 9 neighbour token vectors,
-// already scaled, in registers for all its pixels: an output vector costs the
-// pixel's 9 affinities (one address per pixel, broadcast to the threads that
-// share it) and 9 x width multiply-adds. Threads run over (pixel, vector) with
-// the vector fastest, so a warp stores one contiguous run (512 bytes at C=64:
-// two pixels). The output exceeds L2 at every batch size of the paths and is
-// not read again by this kernel: streaming stores (st.global.cs).
-//
-// The bf16 instance (disco_upfeat_bf16) takes bf16 tokens with the f32
-// affinities (and f32 tok_scale) and writes bf16: the unpooling of the bf16
-// serving forward, whose f32 sums JAX rounds to bf16 (ops/superpixel.py::
-// upfeat). The sums are the f32 instance's, in the order of d, rounded once
-// to nearest even (__float2bfloat16_rn, XLA's convert and torch's .to()). A
-// vector holds 8 channels (16 bytes) where C % 8 == 0, so at C=64 eight
-// threads share a pixel; the stores stay streaming. The output, the kernel's
-// dominant traffic, halves.
+// Bound: bytes. It reads prob once (36 bytes a pixel) and writes C outputs a
+// pixel (at (8,16,16,64) bf16: 18.9 + 67.1 MB, 0.026 ms at 3.35 TB/s); the
+// token grid is tiny. Its 9 x C multiply-adds a pixel take about 40% of that
+// time at the card's FFMA rate in bf16, so compute and loads must overlap.
+// Design (tile_stream.cuh, as kernel G): a unit of work is one cell. One
+// persistent grid, as many blocks an SM as stay resident (kBlockThreads
+// threads each), walks the cells; a cell is cut into tiles of rows x cols of
+// its pixels (the whole cell up to about 16 KB of affinities:
+// ops/superpixel.py::upfeat_plan), and each tile's affinity rows (cols x 36
+// contiguous bytes each) stream through a ring of 3 shared stages by 16-byte
+// cp.async copies, two tiles in flight while one is computed, the copies
+// running on from one cell into the next. A cell's 9 neighbour tokens (and
+// their factors) travel with its first tile into one of 3 token slots, so no
+// cell waits for them. A thread owns one vector of channels (16 bytes where C
+// and the pointers allow, else 8, 4 or 2: 8 bf16 or 4 f32 channels) and, for
+// a tile, takes the 9 scaled neighbour tokens of its vector from the slot
+// into registers once, then walks the tile's pixels (blockDim / threads-a-pixel
+// of them at once, with the vector fastest, so a warp stores one contiguous
+// run) reading each pixel's 9 affinities from the stage (one address per
+// pixel, broadcast to the threads that share it). Outputs leave as streaming
+// stores (st.global.cs): the output exceeds L2 at every batch size of the
+// paths and is not read again here. Where not even the token slots fit beside
+// the ring (C above 3760 in bf16, 1880 in f32 at a 16x16 cell), a thread reads
+// its tokens from global memory instead, one channel at a time; the same sums
+// in the same order.
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_stream.cuh"
 #include "vector_loads.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // threads a block, at most
+constexpr int kStages = 3;     // ops/superpixel.py::UPFEAT_STAGES
+constexpr int kScaleBytes = 48;  // a slot's 9 factors, in 16-byte units
 
 template <int VEC>
 __device__ __forceinline__ void store_vec_streaming(float* __restrict__ p, const float (&r)[VEC]) {
@@ -70,99 +84,352 @@ __device__ __forceinline__ void store_vec_streaming(__nv_bfloat16* __restrict__ 
   }
 }
 
-// blockDim.x threads share a pixel and split its channel vectors; blockDim.y
-// pixels of the cell (row-major) are in flight at once. T: the tokens' and
-// the output's type (float or __nv_bfloat16); sums are f32.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-upfeat_kernel(const T* __restrict__ tok, const float* __restrict__ tok_scale,
-              const float* __restrict__ prob, T* __restrict__ out, int hc, int wc, int C,
-              int up_h, int up_w) {
-  const int cell = blockIdx.x;
-  const int j = cell % wc;
-  const int i = (cell / wc) % hc;
-  const long long n = cell / (wc * hc);
-  const int W = wc * up_w;
-  const long long pix0 = ((n * hc + i) * up_h) * W + (long long)j * up_w;  // the cell's first pixel
-  const int step_y = blockDim.y / up_w, step_x = blockDim.y % up_w;
-
-  for (int c = threadIdx.x * VEC; c < C; c += blockDim.x * VEC) {
-    float tk[9][VEC];
-#pragma unroll
-    for (int d = 0; d < 9; ++d) {
-      const int ti = i + d / 3 - 1, tj = j + d % 3 - 1;
-      if (ti >= 0 && ti < hc && tj >= 0 && tj < wc) {
-        const long long at = (n * hc + ti) * wc + tj;
-        load_vec<VEC>(tok + at * C + c, tk[d]);
-        if (tok_scale != nullptr) {
-          const float s = __ldg(tok_scale + at);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) tk[d][e] *= s;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) tk[d][e] = 0.f;
-      }
+// VEC channels from shared memory into f32 registers (bf16 converted exactly).
+template <int VEC>
+__device__ __forceinline__ void load_vec_shared(const __nv_bfloat16* p, float (&r)[VEC]) {
+  if constexpr (VEC == 8 || VEC == 4) {
+    unsigned int u[VEC / 2];
+    if constexpr (VEC == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x, u[1] = v.y;
     }
-    int py = threadIdx.y / up_w, px = threadIdx.y % up_w;
-    while (py < up_h) {
-      const long long pix = pix0 + (long long)py * W + px;
-      const float* pp = prob + pix * 9;
-      float p[9];
 #pragma unroll
-      for (int d = 0; d < 9; ++d) p[d] = __ldg(pp + d);
-      float acc[VEC];
+    for (int k = 0; k < VEC / 2; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+      r[2 * k] = f.x, r[2 * k + 1] = f.y;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    r[0] = f.x, r[1] = f.y;
+  } else {
+    r[0] = __bfloat162float(*p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec_shared(const float* p, float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
+  } else if constexpr (VEC == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    r[0] = x.x, r[1] = x.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// Threads a block and blocks an SM the registers must allow, by the width of
+// a thread's vector: bf16 16-byte vectors (the paths' widths; the 9 tokens
+// take 72 registers, the kernel 165) 96 threads and 4 blocks; f32 16-byte
+// vectors (36) 128 and 3; narrower vectors 256 and 2. Measured on an H100
+// (tools/bench_attention.py --set superpixel, variants of these lines): bf16
+// at (8,16,16,64) took 0.0302 ms at 96 threads, 0.0313 at 64, 0.0360 at 128,
+// 0.0414 at 32 and 0.053 at 256 (2 blocks, spilling); at (24,16,16,64) 0.0978
+// at 128 against 0.1005 at 96; f32 at (8,16,16,64) 0.0537 at 128, 0.058 at 256;
+// f32 at C = 130 (65 threads a pixel) 0.398 at 256, 0.504 at 128. Smaller
+// blocks amortize a cell's token loads over more pixels a thread and overlap
+// one another's waits at the barriers.
+template <typename T, int VEC>
+constexpr int kBlockThreads = VEC * (int)sizeof(T) != 16 ? 256 : sizeof(T) == 2 ? 96 : 128;
+// Pixels a block walks at once, at most: where a pixel takes few threads (C
+// up to 3 on the narrow instances) a block of 64 threads instead of 256 keeps
+// more blocks an SM and so more tiles in flight against so little work a
+// tile (on an H100, f32 at (8,16,16,2): 0.0110 ms at 64, 0.0130 at 32,
+// 0.0206 at 256).
+constexpr int kMaxSlots = 64;
+template <typename T, int VEC>
+constexpr int kMinBlocks = VEC * (int)sizeof(T) != 16 ? 2 : sizeof(T) == 2 ? 4 : 3;
+
+struct Shape {
+  int hc, wc, C, up_h, up_w, W;
+  int rows, cols, tiles_x, tiles;  // a tile: rows x cols pixels of a cell; tiles a row of them, a cell
+  int span_bytes, chunks_span;     // a staged affinity row's stride in a stage, its 16-byte copies
+  int tok_bytes, chunks_tok;       // a staged token's stride in a slot, its copies (0: no slots)
+  int stage_bytes, slot_bytes;
+  int bx, by;                      // threads a pixel (one vector each), pixels at once
+  int row_step;                    // (W * 36) % 16: how an affinity row's alignment moves from row to row
+  FastDiv wc_div, hc_div, tx_div, span_div, tok_div;
+};
+
+struct Cell {  // unit u: image n, cell (i, j)
+  long long n;
+  int i, j;
+};
+
+__device__ __forceinline__ Cell cell_at(const Shape& g, long long u) {
+  Cell c;
+  const int q = g.wc_div.div((int)u);
+  c.j = (int)u - q * g.wc;
+  const int n = g.hc_div.div(q);
+  c.i = q - n * g.hc;
+  c.n = n;
+  return c;
+}
+
+struct Tile {  // tile t of a cell: rows x cols pixels from (y0, x0) of the image
+  int y0, x0, rows, cols;
+};
+
+__device__ __forceinline__ Tile tile_at(const Shape& g, const Cell& c, int t) {
+  Tile r;
+  const int ty = g.tx_div.div(t), tx = t - ty * g.tiles_x;
+  const int dy = ty * g.rows, dx = tx * g.cols;
+  r.y0 = c.i * g.up_h + dy, r.x0 = c.j * g.up_w + dx;
+  r.rows = g.up_h - dy < g.rows ? g.up_h - dy : g.rows;
+  r.cols = g.up_w - dx < g.cols ? g.up_w - dx : g.cols;
+  return r;
+}
+
+// The neighbour token of cell c in direction d: its index, or -1 off the grid.
+__device__ __forceinline__ long long neighbour(const Shape& g, const Cell& c, int d) {
+  const int ti = c.i + d / 3 - 1, tj = c.j + d % 3 - 1;
+  return ti >= 0 && ti < g.hc && tj >= 0 && tj < g.wc ? (c.n * g.hc + ti) * g.wc + tj : -1;
+}
+
+// Issues the copies of cell c's 9 neighbour tokens (each the 16-byte chunks
+// covering its C values) and, where tok_scale is given, their factors into
+// one slot; nothing for a neighbour off the grid (the reader takes zeros
+// there). A chunk past the tensor's end is zero-filled, not read.
+template <typename T>
+__device__ __forceinline__ void stage_tokens(const Shape& g, const Cell& c, const T* __restrict__ tok,
+                                             const float* __restrict__ tok_scale, uintptr_t tok_end,
+                                             unsigned char* slot) {
+  for (int e = threadIdx.x; e < 9 * g.chunks_tok; e += blockDim.x) {
+    const int d = g.tok_div.div(e), k = e - d * g.chunks_tok;
+    const long long at = neighbour(g, c, d);
+    if (at < 0) continue;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(tok + at * g.C) & ~(uintptr_t)15, src = a0 + 16 * (uintptr_t)k;
+    const long long left = (long long)(tok_end - src);
+    cp_async16(slot + d * g.tok_bytes + 16 * k, reinterpret_cast<const void*>(left > 0 ? src : a0),
+               left >= 16 ? 16 : (left > 0 ? (int)left : 0));
+  }
+  if (tok_scale != nullptr && threadIdx.x < 9) {
+    const long long at = neighbour(g, c, threadIdx.x);
+    if (at >= 0) cp_async4(slot + 9 * g.tok_bytes + 4 * threadIdx.x, tok_scale + at, 4);
+  }
+}
+
+// Issues the copies of a tile's affinity rows into a stage: row r's chunks at
+// r * span_bytes, its first byte (lead) where its address lies in 16 bytes.
+__device__ __forceinline__ void stage_prob(const Shape& g, const Tile& t, const float* base, uintptr_t prob_end,
+                                           unsigned char* stage) {
+  for (int e = threadIdx.x; e < t.rows * g.chunks_span; e += blockDim.x) {
+    const int r = g.span_div.div(e), k = e - r * g.chunks_span;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(base + (long long)r * g.W * 9) & ~(uintptr_t)15,
+                    src = a0 + 16 * (uintptr_t)k;
+    const long long left = (long long)(prob_end - src);
+    cp_async16(stage + r * g.span_bytes + 16 * k, reinterpret_cast<const void*>(left > 0 ? src : a0),
+               left >= 16 ? 16 : (left > 0 ? (int)left : 0));
+  }
+}
+
+// The 9 neighbour tokens of cell c at channels [ch, ch + VEC), times their
+// factors, zeros off the grid: from the slot (STAGED) or from global memory.
+template <typename T, int VEC, bool STAGED>
+__device__ __forceinline__ void load_tokens(const Shape& g, const Cell& c, int ch, const T* __restrict__ tok,
+                                            const float* __restrict__ tok_scale, const unsigned char* slot,
+                                            float (&tk)[9][VEC]) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = p[0] * tk[0][e];
-#pragma unroll
-      for (int d = 1; d < 9; ++d) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p[d], tk[d][e], acc[e]);
+  for (int d = 0; d < 9; ++d) {
+    const long long at = neighbour(g, c, d);
+    if (at >= 0) {
+      const T* src = tok + at * g.C;
+      float s = 1.f;
+      if constexpr (STAGED) {
+        const int lead = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+        load_vec_shared<VEC>(reinterpret_cast<const T*>(slot + d * g.tok_bytes + lead) + ch, tk[d]);
+        if (tok_scale != nullptr) s = reinterpret_cast<const float*>(slot + 9 * g.tok_bytes)[d];
+      } else {
+        load_vec<VEC>(src + ch, tk[d]);
+        if (tok_scale != nullptr) s = __ldg(tok_scale + at);
       }
-      store_vec_streaming<VEC>(out + pix * C + c, acc);
-      px += step_x, py += step_y;
-      if (px >= up_w) px -= up_w, ++py;
+      if (tok_scale != nullptr) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) tk[d][e] *= s;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) tk[d][e] = 0.f;
     }
   }
 }
 
-template <typename T, int VEC>
-int launch(const T* tok, const float* tok_scale, const float* prob, T* out, int n, int hc,
-           int wc, int c, int up_h, int up_w, cudaStream_t stream) {
-  const int cv = c / VEC;
-  const int bx = cv < kThreads ? cv : kThreads;
-  int by = kThreads / bx;
-  if (by > up_h * up_w) by = up_h * up_w;
-  upfeat_kernel<T, VEC><<<n * hc * wc, dim3(bx, by), 0, stream>>>(tok, tok_scale, prob, out, hc, wc, c,
-                                                               up_h, up_w);
+// T: the tokens' and the output's type (float or __nv_bfloat16); sums are f32.
+// STAGED: the cell's tokens in a shared slot; else read from global memory.
+template <typename T, int VEC, bool STAGED>
+__global__ void __launch_bounds__(kBlockThreads<T, VEC>, kMinBlocks<T, VEC>)
+upfeat_kernel(const T* __restrict__ tok, const float* __restrict__ tok_scale, const float* __restrict__ prob,
+              T* __restrict__ out, long long units, const Shape g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const slots = smem + kStages * g.stage_bytes;
+  const long long H = (long long)g.hc * g.up_h;
+  const uintptr_t prob_end = reinterpret_cast<uintptr_t>(prob + units * g.up_h * g.up_w * 9);
+  const uintptr_t tok_end = reinterpret_cast<uintptr_t>(tok + units * g.C);
+  const int tx = threadIdx.x % g.bx, ty = threadIdx.x / g.bx;  // the thread's vector and pixel slot
+
+  // The producer's cursor runs kStages - 1 tiles ahead of the consumer's,
+  // through the same cells. Entering a cell, it also issues the cell's tokens
+  // into slot (cells entered) % kStages, in the group of the cell's first
+  // tile: it is at most kStages - 1 cells ahead, so the slot's last cell is done.
+  long long pu = blockIdx.x, kp = 0;
+  int pt = 0, pslot = 0;
+  auto issue = [&]() {  // always commits a group, empty past the last cell
+    if (pu < units) {
+      const Cell c = cell_at(g, pu);
+      if (STAGED && pt == 0) stage_tokens(g, c, tok, tok_scale, tok_end, slots + pslot * g.slot_bytes);
+      const Tile t = tile_at(g, c, pt);
+      stage_prob(g, t, prob + ((c.n * H + t.y0) * g.W + t.x0) * 9, prob_end, smem + (kp % kStages) * g.stage_bytes);
+      if (++pt == g.tiles) {
+        pt = 0;
+        pu += gridDim.x;
+        pslot = pslot + 1 == kStages ? 0 : pslot + 1;
+      }
+    }
+    cp_async_commit();
+    ++kp;
+  };
+  for (int k = 0; k < kStages - 1; ++k) issue();
+
+  long long k = 0;
+  int slot = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x, slot = slot + 1 == kStages ? 0 : slot + 1) {
+    const Cell c = cell_at(g, u);
+    for (int tt = 0; tt < g.tiles; ++tt, ++k) {
+      issue();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const Tile t = tile_at(g, c, tt);
+      const float* const first = prob + ((c.n * H + t.y0) * g.W + t.x0) * 9;
+      const int lead0 = (int)(reinterpret_cast<uintptr_t>(first) & 15);
+      const unsigned char* const stage = smem + (k % kStages) * g.stage_bytes;
+      T* const out0 = out + ((c.n * H + t.y0) * g.W + t.x0) * g.C;
+      const int step_y = g.by / t.cols, step_x = g.by - step_y * t.cols;
+      const int y_first = ty / t.cols, x_first = ty - y_first * t.cols;
+      for (int ch = tx * VEC; ch < g.C; ch += g.bx * VEC) {
+        float tk[9][VEC];
+        load_tokens<T, VEC, STAGED>(g, c, ch, tok, tok_scale, slots + slot * g.slot_bytes, tk);
+        int r = y_first, x = x_first;
+        while (r < t.rows) {
+          const float* pp =
+              reinterpret_cast<const float*>(stage + r * g.span_bytes + ((lead0 + r * g.row_step) & 15)) + x * 9;
+          float p[9];
+#pragma unroll
+          for (int d = 0; d < 9; ++d) p[d] = pp[d];
+          float acc[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[e] = p[0] * tk[0][e];
+#pragma unroll
+          for (int d = 1; d < 9; ++d) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p[d], tk[d][e], acc[e]);
+          }
+          store_vec_streaming<VEC>(out0 + ((long long)r * g.W + x) * g.C + ch, acc);
+          x += step_x, r += step_y;
+          if (x >= t.cols) x -= t.cols, ++r;
+        }
+      }
+      __syncthreads();  // the stage and the slot are read: the next issue may refill them
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int VEC, bool STAGED>
+int launch(const T* tok, const float* tok_scale, const float* prob, T* out, long long units, Shape g, int smem,
+           cudaStream_t stream) {
+  constexpr int kThreads = kBlockThreads<T, VEC>;
+  const int cv = g.C / VEC;
+  g.bx = cv < kThreads ? cv : kThreads;
+  g.by = kThreads / g.bx < kMaxSlots ? kThreads / g.bx : kMaxSlots;
+  const int threads = g.bx * g.by;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static bool smem_set[64] = {};
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {  // once a device: up to the whole of a block's shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(upfeat_kernel<T, VEC, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  // blocks an SM, as the registers and shared memory let them reside; the last answer kept, keyed by its request
+  static std::atomic<unsigned long long> last{0};
+  const unsigned long long key = ((unsigned long long)threads << 40) | ((unsigned long long)smem << 8);
+  unsigned long long got = last.load(std::memory_order_relaxed);
+  if ((got & ~0xffull) != key || (got & 0xff) == 0) {
+    int per_sm = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, upfeat_kernel<T, VEC, STAGED>, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    got = key | (unsigned long long)(per_sm < 255 ? per_sm : 255);
+    last.store(got, std::memory_order_relaxed);
+  }
+  const int grid = balanced_grid(units, (int)(got & 0xff), dev);
+  upfeat_kernel<T, VEC, STAGED><<<grid, threads, smem, stream>>>(tok, tok_scale, prob, out, units, g);
   return (int)cudaGetLastError();
+}
+
+// The tile plan (ops/superpixel.py::upfeat_plan) checked and completed; the
+// widest vector the channel count and the pointers allow (16 bytes at most).
+template <typename T>
+int dispatch(const T* tok, const float* tok_scale, const float* prob, T* out, int n, int hc, int wc, int c, int up_h,
+             int up_w, int rows, int cols, int span_bytes, int tok_bytes, int smem, cudaStream_t s) {
+  if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
+  const long long units = (long long)n * hc * wc;
+  if (c < 1 || rows < 1 || cols < 1 || units >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  Shape g;
+  g.hc = hc, g.wc = wc, g.C = c, g.up_h = up_h, g.up_w = up_w, g.W = wc * up_w;
+  g.rows = rows < up_h ? rows : up_h, g.cols = cols < up_w ? cols : up_w;
+  g.tiles_x = (up_w + g.cols - 1) / g.cols;
+  g.tiles = (up_h + g.rows - 1) / g.rows * g.tiles_x;
+  g.chunks_span = (g.cols * 36 + 30) / 16;  // the most 16-byte chunks a row of cols affinities touches
+  g.span_bytes = span_bytes;
+  g.chunks_tok = tok_bytes > 0 ? (c * (int)sizeof(T) + 30) / 16 : 0;
+  g.tok_bytes = tok_bytes;
+  g.stage_bytes = g.rows * span_bytes;
+  g.slot_bytes = tok_bytes > 0 ? 9 * tok_bytes + kScaleBytes : 0;
+  g.row_step = (int)(((long long)g.W * 36) & 15);
+  g.wc_div = FastDiv(wc), g.hc_div = FastDiv(hc), g.tx_div = FastDiv(g.tiles_x);
+  g.span_div = FastDiv(g.chunks_span), g.tok_div = FastDiv(g.chunks_tok > 0 ? g.chunks_tok : 1);
+  if (span_bytes < 16 * g.chunks_span || span_bytes % 16 || tok_bytes % 16 ||
+      (tok_bytes > 0 && tok_bytes < 16 * g.chunks_tok) ||
+      (long long)kStages * (g.stage_bytes + g.slot_bytes) > smem || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  if (tok_bytes == 0) return launch<T, 1, false>(tok, tok_scale, prob, out, units, g, smem, s);
+  const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;  // the vector reads and stores
+  constexpr int kWide = 16 / (int)sizeof(T);  // channels in 16 bytes
+  if (c % kWide == 0 && bits % 16 == 0) return launch<T, kWide, true>(tok, tok_scale, prob, out, units, g, smem, s);
+  if constexpr (kWide == 8) {
+    if (c % 4 == 0 && bits % 8 == 0) return launch<T, 4, true>(tok, tok_scale, prob, out, units, g, smem, s);
+  }
+  if (c % 2 == 0 && bits % (2 * sizeof(T)) == 0) return launch<T, 2, true>(tok, tok_scale, prob, out, units, g, smem, s);
+  return launch<T, 1, true>(tok, tok_scale, prob, out, units, g, smem, s);
 }
 
 }  // namespace
 
 // tok (n,hc,wc,c), tok_scale (n,hc,wc) or null, prob (n,hc*up_h,wc*up_w,9),
-// out (n,hc*up_h,wc*up_w,c); all f32 and contiguous.
-extern "C" int disco_upfeat(const float* tok, const float* tok_scale, const float* prob, float* out,
-                            int n, int hc, int wc, int c, int up_h, int up_w, void* stream) {
-  if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
-  const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;  // the vector loads and stores
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c % 4 == 0 && bits % 16 == 0) return launch<float, 4>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
-  if (c % 2 == 0 && bits % 8 == 0) return launch<float, 2>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
-  return launch<float, 1>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, s);
+// out (n,hc*up_h,wc*up_w,c); all f32 and contiguous. rows, cols, span_bytes,
+// tok_bytes (0: tokens from global memory) and smem: the plan of
+// ops/superpixel.py::upfeat_plan.
+extern "C" int disco_upfeat(const float* tok, const float* tok_scale, const float* prob, float* out, int n, int hc,
+                            int wc, int c, int up_h, int up_w, int rows, int cols, int span_bytes, int tok_bytes,
+                            int smem, void* stream) {
+  return dispatch<float>(tok, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, rows, cols, span_bytes, tok_bytes, smem,
+                         (cudaStream_t)stream);
 }
 
 // The same with tok (n,hc,wc,c) and out (n,hc*up_h,wc*up_w,c) bf16; tok_scale
 // and prob f32.
-extern "C" int disco_upfeat_bf16(const void* tok, const float* tok_scale, const float* prob, void* out, int n,
-                                 int hc, int wc, int c, int up_h, int up_w, void* stream) {
-  if ((long long)n * hc * wc * up_h * up_w * c == 0) return 0;
-  const uintptr_t bits = (uintptr_t)tok | (uintptr_t)out;
-  const __nv_bfloat16* tk = static_cast<const __nv_bfloat16*>(tok);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c % 8 == 0 && bits % 16 == 0) return launch<__nv_bfloat16, 8>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
-  if (c % 4 == 0 && bits % 8 == 0) return launch<__nv_bfloat16, 4>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
-  if (c % 2 == 0 && bits % 4 == 0) return launch<__nv_bfloat16, 2>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
-  return launch<__nv_bfloat16, 1>(tk, tok_scale, prob, o, n, hc, wc, c, up_h, up_w, s);
+extern "C" int disco_upfeat_bf16(const void* tok, const float* tok_scale, const float* prob, void* out, int n, int hc,
+                                 int wc, int c, int up_h, int up_w, int rows, int cols, int span_bytes, int tok_bytes,
+                                 int smem, void* stream) {
+  return dispatch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(tok), tok_scale, prob,
+                                 static_cast<__nv_bfloat16*>(out), n, hc, wc, c, up_h, up_w, rows, cols, span_bytes,
+                                 tok_bytes, smem, (cudaStream_t)stream);
 }

@@ -44,7 +44,7 @@ _L = ctypes.c_long
 _F = ctypes.c_float
 _POOL_ARGS = [*[_P] * 10, *[_I] * 7, _F]  # then the stream; the bf16 instance takes its ring plan before it
 _HEAD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-_UP_ARGS = [*[_P] * 4, *[_I] * 6, _P]
+_UP_ARGS = [*[_P] * 4, *[_I] * 11, _P]
 # kernel instance -> (source file, C entry point, argtypes); every entry point
 # returns cudaGetLastError() as an int and takes the stream last. An instance
 # named ``kernel[bf16]`` takes bf16 where its wrapper in ``ops/`` says so.

@@ -514,6 +514,54 @@ def upfeat_plain(tokens, prob, up_h: int = 16, up_w: int = 16, tok_scale=None):
     return out.reshape(n, hc * up_h, wc * up_w, c).to(tokens.dtype)
 
 
+#: kernel C's ring (``csrc/upfeat.cu``: kStages) and the affinity bytes a tile takes, about
+UPFEAT_STAGES = 3
+UPFEAT_TILE_BYTES = 16384
+
+
+class UpfeatPlan(NamedTuple):
+    """Kernel C's launch: tiles of ``rows`` x ``cols`` pixels of a cell, each
+    affinity row staged at a stride of ``span_bytes``; UPFEAT_STAGES slots of a
+    cell's 9 neighbour tokens at a stride of ``tok_bytes`` (and 48 bytes of
+    their factors); ``smem_bytes`` of dynamic shared memory a block.
+    ``tok_bytes`` 0: no slots, the kernel reads the tokens from global memory."""
+
+    rows: int
+    cols: int
+    span_bytes: int
+    tok_bytes: int
+    smem_bytes: int
+
+    def tiles(self, up_h: int, up_w: int) -> list:
+        """(first row, rows, first column, columns) of every tile of one cell,
+        in the kernel's order (``tile_at`` in ``csrc/upfeat.cu``)."""
+        return [(y, min(self.rows, up_h - y), x, min(self.cols, up_w - x))
+                for y in range(0, up_h, self.rows) for x in range(0, up_w, self.cols)]
+
+
+def _chunks16(nbytes: int) -> int:
+    """The most 16-byte chunks that ``nbytes`` contiguous bytes at any
+    address touch."""
+    return (nbytes + 30) // 16
+
+
+@functools.lru_cache(maxsize=256)
+def upfeat_plan(c: int, itemsize: int, up_h: int, up_w: int) -> UpfeatPlan:
+    """Kernel C's plan for C = ``c`` channels of ``itemsize`` bytes at an up_h
+    x up_w cell, cached: tiles of whole cell rows, as many as take at most
+    about UPFEAT_TILE_BYTES of affinities (a row cut into columns where one
+    row takes more); a stage a tile's rows, each at the chunks covering it;
+    token slots where the ring and UPFEAT_STAGES slots fit a block, else none."""
+    cols = max(1, min(up_w, UPFEAT_TILE_BYTES // 36))
+    rows = max(1, min(up_h, UPFEAT_TILE_BYTES // (36 * cols)))
+    span = 16 * _chunks16(cols * 36)
+    tok = 16 * _chunks16(c * itemsize)
+    smem = UPFEAT_STAGES * (rows * span + 9 * tok + 48)
+    if smem > SMEM_BLOCK:
+        tok, smem = 0, UPFEAT_STAGES * rows * span
+    return UpfeatPlan(rows, cols, span, tok, smem)
+
+
 def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
     """Kernel C (``csrc/upfeat.cu``) for CUDA tensors, the plain version for CPU
     tensors; no autograd."""
@@ -527,8 +575,12 @@ def _upfeat(tokens, prob, up_h: int, up_w: int, tok_scale=None):
         raise ValueError(f"upfeat: prob {tuple(prob.shape)} does not match tokens {tuple(tokens.shape)}")
     if tok_scale is not None and tok_scale.shape != (n, hc, wc):
         raise ValueError(f"upfeat: tok_scale {tuple(tok_scale.shape)} does not match tokens {tuple(tokens.shape)}")
+    if n * hc * wc >= 2**31:
+        raise ValueError(f"upfeat: {n * hc * wc} tokens, 2^31 or more")
+    p = upfeat_plan(c, tokens.element_size(), up_h, up_w)
     out = torch.empty((n, hc * up_h, wc * up_w, c), device=tokens.device, dtype=tokens.dtype)
-    launch("upfeat[bf16]" if bf16 else "upfeat", tokens, tok_scale, prob, out, n, hc, wc, c, up_h, up_w)
+    launch("upfeat[bf16]" if bf16 else "upfeat", tokens, tok_scale, prob, out, n, hc, wc, c, up_h, up_w, p.rows, p.cols,
+           p.span_bytes, p.tok_bytes, p.smem_bytes)
     return out
 
 

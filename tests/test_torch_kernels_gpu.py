@@ -30,7 +30,11 @@ the shift-add, in the same launch) equals the plain shift-add of the launch's
 own t, mass and hard bit for bit in each of its modes, on grids 1 and 2 cells
 a side, C from 1 to 256, batch 128, views at odd offsets, on two streams at
 once and replayed from a CUDA graph; kernel A's bf16 instance at its paths'
-three shapes.
+three shapes. Both instances of kernel C equal their own order of sums bit
+for bit (an f32 FMA chain emulated exactly in float64) at every vector width,
+cells from 1x1 to 1x1000, C from 1 to 4400 (tokens staged in shared memory
+and, past what fits, read from global memory), the bf16 instance at its paths'
+three shapes, on two streams at once and replayed from a CUDA graph.
 """
 
 import pytest
@@ -504,6 +508,108 @@ def test_bf16_superpixel_kernels(cuda, n, hc, wc, c, sh, sw, offset):
         assert torch.equal(out, sp._upfeat(tok, prob, sh, sw, f))
     assert kernels.LAUNCHES["pool_stats[bf16]"] == 4 and kernels.LAUNCHES["upfeat[bf16]"] == 4
     assert kernels.LAUNCHES["pool_stats"] == kernels.LAUNCHES["upfeat"] == 0
+
+
+def _upfeat_ordered(sp, tok, prob, sh, sw, tok_scale=None):
+    """Kernel C's sums in its own order, exactly: each neighbour token times
+    its factor (an f32 product; zero off the grid), the first term a product,
+    then fmaf for d = 1..8 (``quant.fma_f32``), rounded once to the tokens'
+    dtype. Both instances, before and after their redesign, compute this."""
+    from disentangledcolorization_tpu_torch.ops.quant import fma_f32
+
+    n, hc, wc, c = tok.shape
+    scaled = tok.float() if tok_scale is None else tok.float() * tok_scale.float()[..., None]
+    nb = sp._neighbours(scaled)[:, :, None, :, None]  # (n, hc, 1, wc, 1, 9, c)
+    pb = sp._block(prob.float(), sh, sw)  # (n, hc, sh, wc, sw, 9)
+    acc = pb[..., 0:1] * nb[..., 0, :]
+    for d in range(1, 9):
+        acc = fma_f32(pb[..., d:d + 1], nb[..., d, :], acc)
+    return acc.reshape(n, hc * sh, wc * sw, c).to(tok.dtype)
+
+
+# (n, hc, wc, c, sp_h, sp_w) beside SUPERPIXEL_CASES: C = 65, 7, 8; cells of one
+# pixel, of 2x300 and 1x1000 (a row cut into two tiles); C = 4400, whose token
+# slots do not fit beside the ring (tokens from global memory)
+UPFEAT_CASES = SUPERPIXEL_CASES + [(2, 4, 4, 64, 16, 16), (1, 3, 5, 7, 8, 8), (1, 2, 3, 65, 16, 16),
+                                   (2, 3, 2, 65, 6, 10), (1, 1, 2, 8, 2, 300), (1, 2, 1, 16, 1, 1000),
+                                   (1, 3, 2, 1, 1, 1), (1, 2, 3, 4400, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0), (torch.float32, 1), (torch.bfloat16, 0),
+                                          (torch.bfloat16, 1), (torch.bfloat16, 2), (torch.bfloat16, 4)],
+                         ids=["f32", "f32_off1", "bf16", "bf16_off1", "bf16_off2", "bf16_off4"])
+@pytest.mark.parametrize("n,hc,wc,c,sh,sw", UPFEAT_CASES)
+def test_upfeat_sums_in_the_kernels_order(cuda, n, hc, wc, c, sh, sw, dtype, offset):
+    """Both instances of kernel C equal their own order of sums bit for bit
+    (``_upfeat_ordered``), with and without a per-token factor, on every
+    vector width the pointers allow (tokens and affinities at storage offsets
+    that leave 8, 4 or 2-byte alignment only), and stay within the plain
+    version's tolerance (1e-5; one bf16 ulp)."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    tok = _odd_view(_rand(cuda, n, hc, wc, c, seed=2).to(dtype), offset)
+    prob = _odd_view(_tied_prob(cuda, n, hc * sh, wc * sw), offset)
+    for f in (None, _rand(cuda, n, hc, wc, seed=3).abs() + 0.5):
+        out = sp._upfeat(tok, prob, sh, sw, f)
+        assert out.dtype == dtype and torch.equal(out, _upfeat_ordered(sp, tok, prob, sh, sw, f))
+        ref = sp.upfeat_plain(tok, prob, sh, sw, f)
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(out, ref) <= 1.0
+        else:
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,c", [(8, 64), (24, 64), (8, 128)], ids=["serving", "step", "d_model_128"])
+def test_bf16_upfeat_at_the_paths_shapes(cuda, n, c):
+    """Kernel C's bf16 instance at the three shapes its paths give it (bf16
+    serving, the bf16 step and ``diverse``, ``d_model`` 128), with and without
+    a per-token factor: its own order of sums bit for bit, within one bf16 ulp
+    of the plain version, the same bits twice."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    tok, prob = _rand(cuda, n, 16, 16, c, seed=2).bfloat16(), _tied_prob(cuda, n, 256, 256)
+    for f in (None, _rand(cuda, n, 16, 16, seed=3).abs() + 0.5):
+        out = sp._upfeat(tok, prob, 16, 16, f)
+        assert torch.equal(out, _upfeat_ordered(sp, tok, prob, 16, 16, f))
+        assert _bf16_ulps(out, sp.upfeat_plain(tok, prob, 16, 16, f)) <= 1.0
+        assert torch.equal(out, sp._upfeat(tok, prob, 16, 16, f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_upfeat_two_streams_and_a_graph(cuda, dtype):
+    """Kernel C on two streams at once and replayed twice from one CUDA graph
+    of two launches gives an eager call's bits."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    tok, prob = _rand(cuda, 8, 16, 16, 64, seed=2).to(dtype), _tied_prob(cuda, 8, 256, 256)
+    scale = _rand(cuda, 8, 16, 16, seed=3).abs() + 0.5
+    runs = [lambda: sp._upfeat(tok, prob, 16, 16), lambda: sp._upfeat(tok, prob, 16, 16, scale)]
+    eager = [run() for run in runs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for st, run in zip(streams, runs):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(run())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager[k % 2]) for k, o in enumerate(outs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for run in runs:
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run() for run in runs]
+    for _ in range(2):
+        for o in captured:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(captured, eager))
 
 
 @pytest.mark.parametrize("offset", [0, 1])

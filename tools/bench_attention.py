@@ -21,6 +21,7 @@ bytes, then one per build and round. Needs a CUDA device and nvcc:
     python tools/bench_attention.py                        # attention: base and the built-in variant
     python tools/bench_attention.py --variants my.json      # {"name": [[file, old, new], ...], ...}
     python tools/bench_attention.py --set superpixel --before _archive/parent
+    python tools/bench_attention.py --set superpixel --before _archive/parent --only '^c(bf)?_'   # kernel C alone
     python tools/bench_attention.py --set head_labels --before _archive/parent
     python tools/bench_attention.py --set prob_grad --before _archive/parent
 
@@ -44,17 +45,28 @@ serving takes them, ``pool_bf16_66_serving``), the f32 bare sum at
 (24,256,256,64) (``sum_f32_64``), the bf16 rounded chain there
 (``chain_bf16_64``) and stage 1's (128,256,256,4) (``pool_stage1_4``), each
 held bit for bit against the first build's output (``*_equal_first``) and
-itself; kernel C at (8,16,16,64) (``c_serve``) and (24,16,16,66) (``c_66``);
-pooling's and unpooling's backward at batch 24 (``pool_bwd`` at C=66,
-``up_bwd`` at C=64) and ``pool_and_sizes`` at batch 8, C=66 (``pool_fwd``),
-these and the one-launch cases with the names of the kernels they launched in
-the first round. Kernel A's and the one-launch cases also by CUDA events
-around a CUDA graph of 10 calls (``*_graph_ms``). The built-in variants:
-kernel C with plain instead of streaming stores, kernel A's f32 loop with two
-instead of four loads in flight, and two that show where the time goes and
-compute wrong outputs: the one launch without its end-of-block finishing
-(``epi_no_finishing``) and A[bf16] without its multiply-adds
-(``abf_no_multiply_adds``: the ring's copies, barriers and repacks alone).
+itself; kernel C at its paths' shapes, in f32 at (8,16,16,64) (``c_serve``),
+(24,16,16,66) with a per-token factor (``c_66``, pooling's backward),
+(24,16,16,128) (``c_128``), (24,16,16,130) with a factor (``c_130``) and the
+infer command line's (8,16,16,2) and (8,16,16,1) (``c_guided_2``,
+``c_anchors_1``), and
+in bf16 at (8,16,16,64) (``cbf_serve``), (24,16,16,64) (``cbf_step``) and
+(8,16,16,128) (``cbf_128``), each also with a factor (``*_scaled``), held bit
+for bit against the first build's output and itself like the one-launch
+cases, beside its byte bound (``*_bound_ms``); pooling's and unpooling's
+backward at batch 24 (``pool_bwd`` at C=66, ``up_bwd`` at C=64) and
+``pool_and_sizes`` at batch 8, C=66 (``pool_fwd``), these and the one-launch
+cases with the names of the kernels they launched in the first round. Kernel
+A's, kernel C's and the one-launch cases also by CUDA events around a CUDA
+graph of 10 calls (``*_graph_ms``). ``--only REGEX`` measures only the cases
+whose names match. The built-in variants: kernel C with plain instead of
+streaming stores, kernel A's f32 loop with two instead of four loads in
+flight, and four that show where the time goes and compute wrong outputs:
+the one launch without its end-of-block finishing (``epi_no_finishing``),
+A[bf16] without its multiply-adds (``abf_no_multiply_adds``: the ring's
+copies, barriers and repacks alone), kernel C without its multiply-adds
+(``c_no_multiply_adds``: the ring's copies, the token loads and the stores)
+and without its stores (``c_no_stores``: the copies and the multiply-adds).
 
 head_labels, f32: kernel B (the affinity head, C=16) at batch 8 (``b_serve``)
 and 24 (``b_train``) of 256x256, kernel E (soft labels, K=5) at
@@ -100,7 +112,7 @@ sys.path.insert(0, ROOT)
 
 import disentangledcolorization_tpu_torch as port  # noqa: E402
 import disentangledcolorization_tpu_torch.ops  # noqa: E402,F401  (port.ops)
-from chip_smoke import bound, device_ms, graph_ms, kernel_label, max_err, nbytes, time_ms  # noqa: E402
+from chip_smoke import bf16_ulps, bound, device_ms, graph_ms, kernel_label, max_err, nbytes, time_ms  # noqa: E402
 
 SETS = {
     "attention": {
@@ -118,6 +130,11 @@ SETS = {
         "kernels": ("pool_stats", "pool_stats[bf16]", "upfeat", "upfeat[bf16]", "shift_add", "shift_add[bf16]"),
         "variants": {
             "c_plain_stores": [["upfeat.cu", "__stcs(", "__stwb("]],
+            # where kernel C spends its time; these two builds' outputs are wrong by design: its copies, token
+            # loads and stores without the multiply-adds, and its copies and multiply-adds without the stores
+            "c_no_multiply_adds": [["upfeat.cu", "for (int d = 1; d < 9; ++d) {", "for (int d = 1; d < 1; ++d) {"]],
+            "c_no_stores": [["upfeat.cu", "store_vec_streaming<VEC>(out0 +",
+                             "if (acc[0] == 1.2345e-30f) store_vec_streaming<VEC>(out0 +"]],
             "a_two_loads_in_flight": [["pool_stats.cu", "kUnroll = 4;", "kUnroll = 2;"]],
             # where the one launch and A[bf16] spend their time; these two builds' outputs are wrong by design
             "epi_no_finishing": [["pool_stats.cu", "  const int slots = (cells - (int)blockIdx.x",
@@ -232,7 +249,7 @@ def attention_cases(dev):
     return measure
 
 
-def superpixel_cases(dev):
+def superpixel_cases(dev, keep=lambda name: True):
     g = torch.Generator().manual_seed(0)
     n, n8, hw, s, d = 24, 8, 256, 16, 64
     feat66 = torch.randn(n, hw, hw, d + 2, generator=g).to(dev)
@@ -245,9 +262,23 @@ def superpixel_cases(dev):
     bf130_8 = torch.randn(n8, hw, hw, 2 * d + 2, generator=g).to(dev, torch.bfloat16)
     feat4 = torch.randn(128, hw, hw, 4, generator=g).to(dev)
     prob128 = torch.softmax(torch.randn(128, hw, hw, 9, generator=g), dim=-1).to(dev)
+    tok130 = torch.randn(n, hw // s, hw // s, 2 * d + 2, generator=g).to(dev)
+    tok128 = tok130[..., :2 * d].contiguous()
+    scale = (torch.rand(n, hw // s, hw // s, generator=g) + 0.5).to(dev)
+    scale8 = scale[:n8].contiguous()
+    # kernel C at its paths' shapes: (tokens, affinities, factor or None)
+    c_inputs = {
+        "c_serve": (tok64_8, prob8, None), "c_66": (tok66, prob, scale), "c_128": (tok128, prob, None),
+        "c_130": (tok130, prob, scale), "c_guided_2": (tok64_8[..., :2].contiguous(), prob8, None),
+        "c_anchors_1": (tok64_8[..., :1].contiguous(), prob8, None),
+        "cbf_serve": (tok64_8.bfloat16(), prob8, None), "cbf_serve_scaled": (tok64_8.bfloat16(), prob8, scale8),
+        "cbf_step": (tok64.bfloat16(), prob, None), "cbf_step_scaled": (tok64.bfloat16(), prob, scale),
+        "cbf_128": (tok128[:n8].bfloat16(), prob8, None), "cbf_128_scaled": (tok128[:n8].bfloat16(), prob8, scale8),
+    }
     plain = port.ops.superpixel
     ref_a = plain.pool_stats_plain(feat66_8, prob8, s, s)
     ref_c = plain.upfeat_plain(tok64_8, prob8, s, s)
+    ref_cbf = plain.upfeat_plain(tok64_8.bfloat16(), prob8, s, s)
     k5 = dict(with_hard=False, with_mass=False, scale=1.0)
     first = {}  # the first build's outputs of the fused cases
 
@@ -279,6 +310,7 @@ def superpixel_cases(dev):
         res = {
             "max_abs_err_a": max_err(sp.pool_stats(feat66_8, prob8, s, s), ref_a),
             "max_abs_err_c": max_err(sp.upfeat(tok64_8, prob8, s, s), ref_c),
+            "max_ulps_cbf": bf16_ulps(sp.upfeat(tok64_8.bfloat16(), prob8, s, s), ref_cbf),
         }
         fused_cases = {  # the five shapes of the one-launch pooling, and bf16 serving's with pooled and mass in bf16
             "pool_f32_66": fused(sp, feat66_8, prob8, {}),
@@ -288,14 +320,19 @@ def superpixel_cases(dev):
             "chain_bf16_64": fused(sp, bf64, prob, k5, torch.bfloat16),
             "pool_stage1_4": fused(sp, feat4, prob128, {}),
         }
-        for name, fn in fused_cases.items():
+        c_cases = {name: (lambda t=t, p=p, f=f: sp._upfeat(t, p, s, s, f)) for name, (t, p, f) in c_inputs.items()}
+        fused_cases = {k: v for k, v in fused_cases.items() if keep(k)}
+        c_cases = {k: v for k, v in c_cases.items() if keep(k)}
+        for name, fn in {**fused_cases, **c_cases}.items():
             out = fn()
             out = out if isinstance(out, tuple) else (out,)
             if name in first:
                 res[f"{name}_equal_first"] = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, first[name]))
             else:
                 first[name] = out
-            res[f"{name}_repeatable"] = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, fn()))
+            again = fn()
+            again = again if isinstance(again, tuple) else (again,)
+            res[f"{name}_repeatable"] = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, again))
             del out
         with torch.no_grad():
             cases = {
@@ -306,17 +343,22 @@ def superpixel_cases(dev):
                 "abf_k5": lambda: sp.pool_stats(bf64, prob, s, s, **k5),
                 "abf_130": lambda: sp.pool_stats(bf130_8, prob8, s, s),
                 **fused_cases,
-                "c_serve": lambda: sp.upfeat(tok64_8, prob8, s, s),
-                "c_66": lambda: sp._upfeat(tok66, prob, s, s),
+                **c_cases,
                 "pool_bwd": pool_bwd,
                 "up_bwd": up_bwd,
                 "pool_fwd": lambda: sp.pool_and_sizes(feat66_8, prob8, s, s),
             }
             for name, fn in cases.items():
+                if not keep(name):
+                    continue
                 res[f"{name}_ms"], by_kernel = device_ms(fn)
                 res[f"{name}_events_ms"] = time_ms(fn, dev)
-                if name.startswith(("a", "pool_", "sum_", "chain_")):
+                if name.startswith(("a", "pool_", "sum_", "chain_", "c")):
                     res[f"{name}_graph_ms"] = graph_ms(fn, iters=10)
+                if name in c_cases:
+                    t, p, f = c_inputs[name]
+                    res[f"{name}_bound_ms"] = bound(nbytes(t, p, f) + p[..., :1].numel() * t.shape[-1] * t.element_size(),
+                                                    2.0 * p[..., :1].numel() * 9 * t.shape[-1])[0]
                 if first_round and name in ("pool_bwd", "up_bwd", "pool_fwd", *fused_cases):
                     res[f"{name}_kernels"] = {k: round(ms, 5) for k, ms in by_kernel.items()}
         return res
@@ -420,6 +462,7 @@ def main() -> None:
     ap.add_argument("--variants", help="JSON file {name: [[file, old, new], ...]}; default: the set's built-in variants")
     ap.add_argument("--before", help="root of another checkout whose package is measured as the build 'before'")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", help="measure only the superpixel cases whose names match this regular expression")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_attention: needs a CUDA device")
@@ -433,8 +476,11 @@ def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    measure = {"attention": attention_cases, "superpixel": superpixel_cases,
-               "head_labels": head_label_cases, "prob_grad": prob_grad_cases}[args.kernel_set](dev)
+    if args.kernel_set == "superpixel":
+        measure = superpixel_cases(dev, keep=lambda name: args.only is None or re.search(args.only, name) is not None)
+    else:
+        measure = {"attention": attention_cases, "head_labels": head_label_cases,
+                   "prob_grad": prob_grad_cases}[args.kernel_set](dev)
 
     built = {}  # build name -> (package, its libraries)
     todo = [("base", port, [])] + [(name, port, subs) for name, subs in variants.items()]

@@ -197,6 +197,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``cli.infer.infer --quantize int8`` on 16 in-memory images at batch 8,
      one request to ``serve.start --quantize int8_safe``; and
      ``AnchorColorProb(fast_seg=True)`` equal to ``fast_seg=False`` bit for bit.
+ 16. native resolution: kernel D and ``attention_bwd`` (whose keys stream
+     through a shared-memory ring of tiles, so any token count runs) at one
+     1024x1024 image's 4,096 tokens and at 256 queries over those 4,096 keys
+     (T_q != T_k, the decoder's cross-attention), each with and without a key
+     mask and a keep-mask, within 1e-5 / 2e-5 of their plain versions, kernel D
+     alone at 16,384 tokens, each timed by events and a CUDA graph beside its
+     bound, the plain version and SDPA (rows of the ``kernels`` line with a
+     ``shape``); 256 random query rows of kernel D at 65,536 tokens (a
+     4096x4096 image) against the plain version of those rows; the seeded
+     f32 and bf16 ``Colorizer`` at 1024x1024 (launches as phases 4 and 9, the
+     card against the CPU's plain path with anchors pinned, phase 4's and
+     phase 9's tolerances); one 1024x1024 request to the server; the
+     ``TransformerDecoder`` (6 layers, 64 wide, 2 x 256 target tokens over
+     4,096 memory tokens) forward and backward on the card against the CPU
+     and once with dropout; ``cli.infer.infer --no_resize --shard_spatial``
+     over ``[cuda:0, cuda:0]`` (two slabs, neither holding the whole image)
+     against the one-device run on a 1024x1024 image, anchors pinned, PNGs
+     within 1 level. It ends with the seconds of all phases.
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the rest
 of the repository beside this script, it exits non-zero and prints no result.
@@ -430,7 +448,8 @@ def report_ptxas(build_log: dict, t: int = 256) -> None:
             if inst:
                 hd, keep = int(inst.group(2)), inst.group(3) == "1"
                 label = f"{inst.group(1)}<hd={hd}, keep-mask={keep}>"
-                kv, q_do = attention._smem_bytes(t, hd, keep)
+                plan = attention.attention_plan(t, t, hd, keep)
+                kv, q_do = plan.kv_bytes, plan.dkv_bytes
                 dynamic = f", {q_do if inst.group(1).endswith('dkv') else kv} bytes dynamic smem at T={t}"
                 if hd <= 8 and (max(spills) > 0 or regs > 128):
                     raise AssertionError(f"{label}: {regs} registers, spills {spills}")
@@ -4370,6 +4389,484 @@ def fast_seg_equal(device, batch: int, size: int) -> bool:
     return True
 
 
+# --------------------------------------------------------------------------------------------------------------
+# Phase 16: native resolution (the tiled attention kernels at any token count and T_q != T_k), the decoder and
+# spatially sharded serving
+
+NATIVE_SIZE = 1024  # one 1024x1024 image: 4,096 tokens at sp 16, past the 3,360 the one-tile kernel D took
+D_SOURCE = ("disentangledcolorization_tpu_torch/csrc/attention.cu", "disentangledcolorization_tpu/ops/pallas_attention.py:56")
+BWD_SOURCE = ("disentangledcolorization_tpu_torch/csrc/attention_bwd.cu",
+              "disentangledcolorization_tpu/ops/pallas_attention.py:56 (no Pallas backward: XLA autodiff of "
+              "models/transformer.py:50-58)")
+# the decoder on the card against the CPU: post-norm layers of f32 projections and LayerNorms, attention sums
+# over 4,096 memory tokens in another order; the gradients relative to each one's largest entry
+DECODER_TOL = {"forward": 1e-4, "gradients": 1e-4}
+# cli.infer --no_resize --shard_spatial against the one-device run, PNG levels (as tests/test_cli.py holds JAX's)
+SHARD_PNG_TOL = 1
+# the sharded forward's tokens, pal_logit and superpixel sizes against the one-device forward's, absolute: the
+# full-resolution nets run on windows, whose convolutions round otherwise (tests/test_torch_spatial.py's bound)
+SHARD_TOKEN_TOL = 1e-4
+
+
+def attention_flops(tq: int, tk: int, hd: int, heads: int, backward: bool = False) -> float:
+    """4 Tq Tk hd multiply-add flops and Tq Tk exponentials a head (the
+    backward: about 10 Tq Tk hd and 10 Tq Tk, as phase 3 counts them)."""
+    return heads * (10.0 * tq * tk * hd + 10.0 * tq * tk if backward else 4.0 * tq * tk * hd + 1.0 * tq * tk)
+
+
+def native_attention_row(name, shape, fn, plain, library, err, tol, bytes_moved, flops, device, iters: int = 10) -> dict:
+    """A row of the ``kernels`` line for the attention kernels at a native-resolution shape: the error against
+    the plain version, bitwise equal to itself, ms by CUDA events, graph ms, the plain version's and SDPA's ms,
+    and the bound."""
+    first, again = fn(), fn()
+    same = all(torch.equal(a, b) for a, b in zip(first, again)) if isinstance(first, tuple) else torch.equal(first, again)
+    if not same or not err <= tol:
+        raise AssertionError(f"{name} at {shape}: error {err} (tolerance {tol}), or two runs not bitwise equal")
+    del first, again
+    source, replaces = D_SOURCE if name == "attention" else BWD_SOURCE
+    b_ms, b_by = bound(bytes_moved, flops)
+    row = dict(name=name, route="cuda", source=source, replaces=replaces, shape=shape, max_abs_err=err,
+               ms=time_ms(fn, device, warmup=1, iters=iters), graph_ms=graph_ms(fn, iters=iters),
+               plain_ms=time_ms(plain, device, warmup=1, iters=3), bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(library, device, warmup=1, iters=iters))
+    log(f"{name} at {shape}: err {err:.3e} (tol {tol}), bitwise twice; ms {row['ms']:.4f}, graph {row['graph_ms']}, "
+        f"plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+    return row
+
+
+def compare_native_attention(device, seed: int = 16, long: int = 4096, cross: int = 256, alone: int = 16384,
+                             spot: int = 65536):
+    """Phase 16: kernel D and ``attention_bwd`` (64 wide, 8 heads) at one 1024x1024 image's 4,096 tokens, at 256
+    queries over those 4,096 keys (the decoder's cross-attention), each with and without a key mask and a
+    dropout keep-mask; kernel D alone at 16,384 tokens (a 2048x2048 image; the plain forward's logits take
+    8.6 GB there, and the plain backward's several T x T tensors would not fit the card) and, at 65,536 tokens
+    (4096x4096), 256 random query rows of its output and statistics against the plain version of those rows.
+    Returns the rows of the ``kernels`` line and the extras."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(seed)
+    d, nhead = 64, 8
+    hd = d // nhead
+    rows, extras = [], {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    def heads(x, grad=False):
+        x = x.view(x.shape[0], x.shape[1], nhead, hd).transpose(1, 2)
+        return x.detach().requires_grad_() if grad else x
+
+    for label, tq, tk in ((f"T={long}", long, long), (f"Tq={cross}, Tk={long}", cross, long)):
+        q, dout = rand(1, tq, d), rand(1, tq, d)
+        k, v = rand(1, tk, d), rand(1, tk, d)
+        mask = torch.rand(1, tk, generator=g).to(device) < 0.25
+        keep = (torch.rand(1, nhead, tq, tk, generator=g) >= 0.1).to(device)
+        f_err = b_err = 0.0
+        for m_, k_, r_ in ((None, None, 0.0), (mask, None, 0.0), (mask, keep, 0.1)):
+            out, stats = attention._attention(q, k, v, nhead, m_, k_, r_, with_stats=True)
+            ref, ref_stats = attention.attention_plain(q, k, v, nhead, m_, k_, r_, return_stats=True)
+            f_err = max(f_err, max_err(out, ref), stats_err(stats, ref_stats))
+            grads = attention.attention_bwd(q, k, v, dout, nhead, m_, k_, r_, out, stats)
+            b_err = max(b_err, max_err(grads, attention.attention_bwd_plain(q, k, v, dout, nhead, m_, k_, r_)))
+            del out, stats, ref, ref_stats, grads
+        shape = (1, tq, tk, d, nhead)
+        out, stats = attention._attention(q, k, v, nhead, None, None, 0.0, with_stats=True)
+        with torch.no_grad():
+            rows.append(native_attention_row(
+                "attention", shape, lambda: attention._attention(q, k, v, nhead, None, None, 0.0, with_stats=True),
+                lambda: attention.attention_plain(q, k, v, nhead, return_stats=True),
+                lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), f_err, TOLERANCES["attention"],
+                nbytes(q, k, v, out, stats), attention_flops(tq, tk, hd, nhead), device))
+        lib_in = [heads(x, grad=True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in)
+        rows.append(native_attention_row(
+            "attention_bwd", shape, lambda: attention.attention_bwd(q, k, v, dout, nhead, None, None, 0.0, out, stats),
+            lambda: attention.attention_bwd_plain(q, k, v, dout, nhead),
+            lambda: torch.autograd.grad(lib_out, lib_in, heads(dout), retain_graph=True), b_err,
+            TOLERANCES["attention_bwd"], nbytes(q, k, v, dout, out, stats) + nbytes(q, k, v),
+            attention_flops(tq, tk, hd, nhead, backward=True), device))
+        log(f"attention pair at {label}: forward err {f_err:.3e}, backward err {b_err:.3e} (no mask, key mask, "
+            f"key mask + keep-mask)")
+        del q, k, v, dout, keep, out, stats, lib_in, lib_out
+        torch.cuda.empty_cache()
+
+    t = alone
+    q, k, v = rand(1, t, d), rand(1, t, d), rand(1, t, d)
+    with torch.no_grad():
+        out = attention.attention(q, k, v, nhead)
+        err = max_err(out, attention.attention_plain(q, k, v, nhead))
+        rows.append(native_attention_row(
+            "attention", (1, t, t, d, nhead), lambda: attention.attention(q, k, v, nhead),
+            lambda: attention.attention_plain(q, k, v, nhead),
+            lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), err, TOLERANCES["attention"],
+            nbytes(q, k, v, out), attention_flops(t, t, hd, nhead), device, iters=5))
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+    t, picked = spot, 256
+    q, k, v = rand(1, t, d), rand(1, t, d), rand(1, t, d)
+    idx = torch.randperm(t, generator=g)[:picked].to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = attention._attention(q, k, v, nhead, None, None, 0.0, with_stats=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref, ref_stats = attention.attention_plain(q[:, idx].contiguous(), k, v, nhead, return_stats=True)
+        err = max(max_err(out[:, idx], ref), stats_err(stats[:, :, idx], ref_stats))
+    b_ms, b_by = bound(nbytes(q, k, v, out, stats), attention_flops(t, t, hd, nhead))
+    extras["attention_spot_check"] = {"tokens": t, "rows": picked, "max_abs_err": err, "tolerance": TOLERANCES["attention"],
+                                            "ms_one_call": ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"attention at T={t} (65,536: one 4096x4096 image): {picked} random query rows against the plain version of "
+        f"those rows: err {err:.3e} (tol {TOLERANCES['attention']}); one call {ms:.1f} ms by the host clock, "
+        f"bound {b_ms:.3f} ms ({b_by})")
+    if not err <= TOLERANCES["attention"]:
+        raise AssertionError(f"attention at T={t}: error {err}")
+    del q, k, v, out, stats
+    torch.cuda.empty_cache()
+    return rows, extras
+
+
+def native_colorizers(device, smi: str, size: int = NATIVE_SIZE) -> tuple[dict, dict, dict]:
+    """Phase 16: the seeded f32 and bf16 ``Colorizer`` (6+6 layers, 8 clusters) colorize one ``size`` x ``size``
+    image (4,096 tokens: ``ValueError`` in the one-tile kernel D); launches per forward as phases 4 and 9; each
+    card's forward against the same weights' plain path on the CPU, anchors and their colors pinned, within
+    phase 4's and phase 9's tolerances. Returns the f32 forward's launch counts, the bf16 forward's (two paths,
+    each counted from 0 just before its forward) and the extras."""
+    from disentangledcolorization_tpu_torch.api import Colorizer
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(16)
+    img = np.clip(rng.normal(128, 40, (size // 8, size // 8, 3)), 0, 255).astype(np.uint8).repeat(8, 0).repeat(8, 1)
+    res, paths = {"card": smi, "size": size, "tokens": (size // 16) ** 2}, {}
+    for dtype, per, check in (("float32", F32_PER_FORWARD, card_vs_cpu), ("bfloat16", BF16_PER_FORWARD,
+                                                                         bf16_card_vs_cpu)):
+        col = Colorizer(device=device, seed=130, compute_dtype=dtype)
+        col.colorize(img)  # cuDNN's first call at this size
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = col.colorize(img)
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        check_launches(f"Colorizer {dtype} at {size}x{size}", counts, per, 1)
+        if out.shape != (size, size, 3) or out.dtype != np.uint8 or out.std() == 0:
+            raise AssertionError(f"Colorizer {dtype} at {size}: {out.shape} {out.dtype}, std {out.std()}")
+        errs = check(col, size=size)
+        res[dtype] = {"latency_s": latency, "card_vs_cpu": errs}
+        log(f"Colorizer {dtype} at {size}x{size} on {smi}: {latency:.4f} s a request; card vs CPU {json.dumps(errs)}")
+        paths[dtype] = counts
+        del col
+        torch.cuda.empty_cache()
+    return paths["float32"], paths["bfloat16"], res
+
+
+def native_server(device, smi: str, size: int = NATIVE_SIZE) -> tuple[dict, dict]:
+    """Phase 16: the server (``serve.start``, the default bf16 ``Colorizer``) answers one ``size`` x ``size`` PNG
+    with a PNG of its size; launches as one bf16 forward."""
+    import threading
+
+    from disentangledcolorization_tpu_torch import serve
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.utils.io import encode_png, read_png
+
+    args = serve.serve_argparser().parse_args(["--device", str(device), "--port", "0", "--warmup", ""])
+    col, batcher, srv = serve.start(args)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(17)
+    img = np.clip(rng.normal(128, 40, (size // 8, size // 8, 3)), 0, 255).astype(np.uint8).repeat(8, 0).repeat(8, 1)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        code, body = post(srv.server_address[1], encode_png(img))
+        latency = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+    if code != 200 or read_png(body).shape != (size, size, 3):
+        raise AssertionError(f"server at {size}x{size}: status {code}")
+    check_launches(f"server at {size}x{size}", counts, BF16_PER_FORWARD, 1)
+    log(f"server on {smi}: one {size}x{size} request answered in {latency:.3f} s (first request, PNG both ways)")
+    return counts, {"size": size, "latency_s": latency}
+
+
+def drive_decoder(device, smi: str, layers: int = 6, n: int = 2, tq: int = 256,
+                  tk: int = 4096) -> tuple[dict, dict, dict]:
+    """Phase 16: the ``TransformerDecoder`` at the recipe's widths (6 layers, d_model 64, 8 heads, 256 FFN
+    units), ``n`` x 256 target tokens over 4,096 memory tokens (one 1024x1024 image's) with both padding
+    masks: its forward and the gradients of every parameter and both inputs on the card against the CPU
+    (dropout off: torch's card and CPU generators draw other masks); launches per forward (attention 2 a layer)
+    and per backward (attention_bwd 2 a layer); then one train-mode forward and backward with dropout 0.1
+    on the card (the kernels with a keep-mask, Tq != Tk in the cross-attention), finite, with the same
+    launches. Returns the launch counts of the eval step and of the dropout step (two paths, each counted
+    from 0 just before its step) and the extras."""
+    from disentangledcolorization_tpu_torch.models import TransformerDecoder
+    from disentangledcolorization_tpu_torch.ops import kernels
+
+    torch.manual_seed(16)
+    dec_cpu = TransformerDecoder(layers, 64, 8, 256, 0.1)
+    dec = TransformerDecoder(layers, 64, 8, 256, 0.1)
+    dec.load_state_dict(dec_cpu.state_dict())
+    dec = dec.to(device)
+    g = torch.Generator().manual_seed(16)
+    tgt, tpos = torch.randn(n, tq, 64, generator=g), torch.randn(n, tq, 64, generator=g)
+    mem, mpos = torch.randn(n, tk, 64, generator=g), torch.randn(n, tk, 64, generator=g)
+    tmask, mmask = torch.rand(n, tq, generator=g) < 0.1, torch.rand(n, tk, generator=g) < 0.25
+    cot = torch.randn(n, tq, 64, generator=g)
+
+    def run(model, dev, train=False, generator=None):
+        xs = [x.detach().to(dev).requires_grad_() for x in (tgt, mem)]
+        out = model(xs[0], xs[1], tpos.to(dev), mpos.to(dev), tmask.to(dev), mmask.to(dev), train, generator)
+        launches_fwd = dict(kernels.LAUNCHES)
+        (out * cot.to(dev)).sum().backward()
+        grads = {"tgt": xs[0].grad, "memory": xs[1].grad, **{k: p.grad for k, p in model.named_parameters()}}
+        return out.detach(), grads, launches_fwd
+
+    def step_counts(label, train=False, generator=None):
+        kernels.reset_launch_counts()
+        out, grads, fwd_counts = run(dec, device, train, generator)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        if fwd_counts["attention"] != 2 * layers or counts["attention"] != 2 * layers or \
+                counts["attention_bwd"] != 2 * layers:
+            raise AssertionError(f"decoder {label}: launches forward {fwd_counts['attention']}, step "
+                                 f"{counts['attention']} and {counts['attention_bwd']}, expected {2 * layers} each")
+        return out, grads, counts
+
+    out, grads, counts = step_counts("eval")
+    out_cpu, grads_cpu, _ = run(dec_cpu, torch.device("cpu"))
+    f_err = max_err(out.cpu(), out_cpu)
+    g_err = max(max_err(grads[k].cpu(), grads_cpu[k]) / max(float(grads_cpu[k].abs().max()), 1e-30) for k in grads_cpu)
+    log(f"decoder ({layers} layers, {n}x{tq} over {tk} memory tokens) card vs CPU: forward {f_err:.3e} (tol "
+        f"{DECODER_TOL['forward']}), gradients {g_err:.3e} of their largest entry (tol {DECODER_TOL['gradients']})")
+    if not (f_err <= DECODER_TOL["forward"] and g_err <= DECODER_TOL["gradients"]):
+        raise AssertionError(f"decoder: card and CPU disagree: forward {f_err}, gradients {g_err}")
+    dec.zero_grad()
+    out, grads, train_counts = step_counts("dropout", True, torch.Generator(device=device).manual_seed(3))
+    if not (torch.isfinite(out).all() and all(torch.isfinite(x).all() for x in grads.values())):
+        raise AssertionError("decoder with dropout: non-finite outputs or gradients")
+    return counts, train_counts, {"layers": layers, "shape": (n, tq, tk, 64, 8), "forward_err": f_err,
+                                  "gradients_err": g_err}
+
+
+def kmeans_steps(x, k: int, state, device) -> list:
+    """``ops/kmeans.py::kmeans`` on ``x`` (B, M, C) step by step, its generator restored to ``state``: after the
+    k-means++ seeding and after each Lloyd step, (the assignment (B, M), each point's margin: its squared
+    distance to the second-nearest center less that to the nearest, the centers (B, K, C))."""
+    from disentangledcolorization_tpu_torch.ops import kmeans as km
+
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    draws, dist = km.as_draws(g, x.device), km._DISTANCES["euclidean"]
+    b, m, _ = x.shape
+    rows = torch.arange(b, device=x.device)[:, None]
+    centers, steps = km._kmeans_pp_init(x, k, draws, dist), []
+    for i in range(km.ITERATIONS + 1):
+        d = dist(x, centers)
+        two = d.topk(2, dim=-1, largest=False).values
+        assign = d.argmin(-1)
+        steps.append((assign, two[..., 1] - two[..., 0], centers))
+        if i == km.ITERATIONS:
+            return steps
+        onehot = F.one_hot(assign, k).float()
+        counts = onehot.sum(1)
+        means = (onehot[..., None] * x[:, :, None, :]).sum(1) / counts.clamp_min(1.0)[..., None]
+        rand_idx = draws.randint(0, m, b, k)
+        centers = torch.where(counts[..., None] > 0, means, x[rows, rand_idx])
+
+
+def anchor_ties(one: dict, other: dict, k: int, device) -> dict:
+    """Where two draws of k-means anchors part (``one`` and ``other``: the tokens, sizes, cluster masks, hints and
+    generator state each forward gave ``anchor.clustering_hint_mask``): the first k-means step whose assignment
+    differs (and how far apart the two seedings' centers are), the points it moves, their margins in ``one``'s
+    run beside the median margin there, and, for each
+    anchor that differs within a cluster both runs agree on, the gap of the two picks' superpixel sizes."""
+    res = {"tokens_max_abs_diff": max_err(other["feats"], one["feats"]),
+           "sizes_max_abs_diff": max_err(other["sizes"], one["sizes"])}
+    x1, x2 = (r["feats"].to(device).flatten(1, 2).float() for r in (one, other))
+    s1, s2 = kmeans_steps(x1, k, one["state"], device), kmeans_steps(x2, k, other["state"], device)
+    res["mirror_matches"] = bool(torch.equal(s1[-1][0].cpu(), one["cluster"].flatten(1, 2).argmax(-1)) and
+                                 torch.equal(s2[-1][0].cpu(), other["cluster"].flatten(1, 2).argmax(-1)))
+    first = next((i for i, (a, b) in enumerate(zip(s1, s2)) if not torch.equal(a[0], b[0])), None)
+    res["seeding_centers_max_abs_diff"] = max_err(s2[0][2], s1[0][2])  # the same points seed both, or not
+    res["first_differing_step"] = first  # 0: the seeding's assignment
+    if first is not None:
+        moved = s1[first][0] != s2[first][0]
+        margins = s1[first][1]
+        res.update(points_moved=int(moved.sum()), moved_margins=sorted(margins[moved].tolist())[:8],
+                   median_margin=float(margins.median()), points_moved_at_the_end=int((s1[-1][0] != s2[-1][0]).sum()))
+    gaps = []
+    same = torch.equal(one["cluster"], other["cluster"])
+    if same:
+        h1, h2 = one["hint"].flatten(1), other["hint"].flatten(1)
+        sizes = one["sizes"].flatten(1)
+        for img in range(h1.shape[0]):
+            for c in range(k):
+                members = one["cluster"].flatten(1, 2)[img, :, c] > 0
+                p1 = (h1[img] > 0) & members
+                p2 = (h2[img] > 0) & members
+                if p1.any() and p2.any() and not torch.equal(p1, p2):
+                    gaps.append(float((sizes[img][p1].max() - sizes[img][p2].max()).abs()))
+    res.update(clusters_equal=same, anchors_equal=bool(torch.equal(one["hint"], other["hint"])), pick_size_gaps=gaps)
+    return res
+
+
+def token_gaps(one: dict, sharded: dict, drawn: dict, affinities: list, slabs: list) -> dict:
+    """The sharded forward's token outputs against the one-device forward's. ``pal_logit``, the wildpath's tokens
+    (what k-means clusters) and the affinity map kernel A pooled (``affinities``: the one-device forward's, then
+    each slab's pooling window's, halo cell rows included) within ``SHARD_TOKEN_TOL``. The discrete outputs may
+    differ only where a near-tie flips: a pixel's winner-take-all cells (``ops/superpixel.py::hard_assignment``
+    counts every winner of a tie) in a pooling window, where the one-device map's two largest affinities lie
+    within twice the affinity gap (the sizes then move by whole pixels, 1/256 of a superpixel, at most two for
+    each such pixel), and a token's anchor color (its most probable bin), where ``pal_logit``'s two largest
+    logits lie within twice its gap."""
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+
+    aff_one = affinities[0]
+    top2 = aff_one.topk(2, dim=-1).values
+    aff_err, flips, flip_gaps = 0.0, 0, []
+    for slab, aff in zip(slabs, affinities[1:]):
+        p0, p1 = slab.pool
+        aff_err = max(aff_err, max_err(aff, aff_one[:, p0:p1]))
+        flipped = (sp.hard_assignment(aff) != sp.hard_assignment(aff_one[:, p0:p1])).any(-1)
+        flips += int(flipped.sum())
+        flip_gaps += (top2[:, p0:p1, :, 0] - top2[:, p0:p1, :, 1])[flipped].tolist()
+    gaps = {"pal_logit": max_err(sharded["pal_logit"], one["pal_logit"]),
+            "tokens": max_err(drawn["sharded"]["feats"], drawn["one"]["feats"]), "affinity": aff_err}
+    moved = (sharded["spixel_sizes"].float() - one["spixel_sizes"].float()) * 256  # pixels a token gained or lost
+    whole = float((moved - moved.round()).abs().max())
+    logits = one["pal_logit"].float().topk(2, dim=-1).values
+    recolored = (sharded["spix_colors"] != one["spix_colors"]).any(-1)
+    logit_gaps = (logits[..., 0] - logits[..., 1])[recolored]
+    res = {**gaps, "tolerance": SHARD_TOKEN_TOL, "pixels_flipped": flips,
+           "their_top2_affinity_gaps": sorted(flip_gaps)[:8],
+           "sizes_max_abs_diff": max_err(sharded["spixel_sizes"], one["spixel_sizes"]),
+           "size_pixels_moved": int(moved.round().abs().sum()), "sizes_off_whole_pixels": whole,
+           "anchor_colors_differing": int(recolored.sum()), "their_top2_logit_gaps": sorted(logit_gaps.tolist())[:8]}
+    res["within"] = bool(max(gaps.values()) <= SHARD_TOKEN_TOL and all(x <= 2 * aff_err for x in flip_gaps) and
+                         whole <= 1e-3 and res["size_pixels_moved"] <= 2 * flips and
+                         (logit_gaps <= 2 * gaps["pal_logit"]).all())
+    return res
+
+
+def drive_shard_spatial(device, smi: str, size: int = NATIVE_SIZE) -> tuple[dict, dict]:
+    """Phase 16: ``--no_resize --shard_spatial`` over ``[cuda:0, cuda:0]`` (two slabs, one after the other, each
+    with its windows: no slab holds the whole image) against the one-device run of the same ``.pkl`` weights
+    (6+6 layers, 8 clusters, f32) on one ``size`` x ``size`` image.
+
+    First the two forwards (``parallel/spatial.py::SpatialShards`` and the serving model), k-means anchors from one
+    generator seed: the tokens within ``SHARD_TOKEN_TOL`` of each other, as ``tests/test_torch_spatial.py``
+    holds them on the CPU, and the discrete outputs equal but at near-ties (:func:`token_gaps`); the anchors
+    compared, and where they part, the k-means step and the margins that part them (:func:`anchor_ties`).
+    Then ``cli.infer.infer --save_guided --save_anchors`` one-device and sharded with the one-device run's
+    anchors pinned: PNGs within ``SHARD_PNG_TOL`` levels. Launches of the sharded command line: B, A and C once
+    a slab (C once more a slab for each of the guided colors and the anchor mask), D 12."""
+    import copy
+    import pickle
+    import tempfile
+
+    from disentangledcolorization_tpu_torch.cli import infer
+    from disentangledcolorization_tpu_torch.models import AnchorColorProb, anchor
+    from disentangledcolorization_tpu_torch.ops import kernels
+    from disentangledcolorization_tpu_torch.ops import superpixel as sp
+    from disentangledcolorization_tpu_torch.parallel import spatial
+    from disentangledcolorization_tpu_torch.tools.convert import to_jax_variables
+    from disentangledcolorization_tpu_torch.utils.config import inference_argparser
+
+    rng = np.random.default_rng(18)
+    rgb = np.clip(rng.normal(128, 40, (1, size // 8, size // 8, 3)), 0, 255).astype(np.uint8)
+    grays, colors = lab_batch(rgb.repeat(8, 1).repeat(8, 2))
+    plain_anchors, seen, pin = anchor.clustering_hint_mask, [], []
+    plain_pool, pooled = sp.pool_and_sizes, []
+
+    def pool(feat, prob, *a, **k):  # the affinity map kernel A pools, each forward's and each slab's
+        pooled.append(prob.float().cpu())
+        return plain_pool(feat, prob, *a, **k)
+
+    def anchors(feats, n_anchors, sizes, generator=None):
+        state = generator.get_state() if isinstance(generator, torch.Generator) else None
+        hint, cluster = plain_anchors(feats, n_anchors, sizes, generator)
+        seen.append({"feats": feats.float().cpu(), "sizes": sizes.float().cpu(), "hint": hint.cpu(),
+                     "cluster": cluster.cpu(), "state": state})
+        return (pin[0].to(hint.device) if pin else hint), cluster
+
+    slabs = spatial.spatial_plan(size, 2)
+    held = [spatial.window_rows(s) for s in slabs]
+    if any(b - a >= size for a, b in held):
+        raise AssertionError(f"shard_spatial: a device holds the whole image ({held})")
+    res, counts = {"card": smi, "size": size, "slabs": [s._asdict() for s in slabs], "rows_held": held}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(130)
+        pkl = os.path.join(tmp, "disco.pkl")
+        with open(pkl, "wb") as f:
+            pickle.dump(to_jax_variables(AnchorColorProb(n_clusters=8, sn_folded=True).state_dict(), sn_folded=True), f)
+        argv = lambda name: ["--checkpt", pkl, "--n_clusters", "8", "--no_resize", "--shard_spatial",  # noqa: E731
+                             "--save_guided", "--save_anchors", "--compute_dtype", "float32", "--device", str(device),
+                             "--save_dir", tmp, "--name", name, "--prefetch", "0"]
+        args = inference_argparser().parse_args(argv("forward"))
+        anchor.clustering_hint_mask = anchors
+        try:
+            model, _ = infer.load_variables(pkl, lambda: infer.build_model(args), args.seed)
+            one = infer.to_serving(copy.deepcopy(model), device)
+            shards = spatial.SpatialShards(model, [device, device], infer.to_serving)
+            g_t, c_t = torch.from_numpy(grays).to(device), torch.from_numpy(colors).to(device)
+            outs, drawn = {}, {}
+            sp.pool_and_sizes = pool
+            with torch.no_grad():
+                for name, fwd in (("one", one), ("sharded", shards)):
+                    seen.clear()
+                    outs[name] = fwd(g_t, c_t, generator=torch.Generator(device=device).manual_seed(args.seed))
+                    drawn[name] = seen[0]
+            sp.pool_and_sizes = plain_pool
+            res["tokens_vs_one_device"] = token_gaps(outs["one"], outs["sharded"], drawn, pooled, slabs)
+            del pooled[:]
+            del one, shards, model
+            torch.cuda.empty_cache()
+            res["anchors"] = anchor_ties(drawn["one"], drawn["sharded"], 8, device)
+            log(f"shard_spatial forward vs one device on {smi}: {json.dumps(res['tokens_vs_one_device'])}; anchors "
+                f"{json.dumps(res['anchors'])}")
+            if not res["tokens_vs_one_device"]["within"]:
+                raise AssertionError(f"shard_spatial: tokens differ from the one-device forward's: "
+                                     f"{res['tokens_vs_one_device']}")
+            del outs
+            seen.clear()
+            pngs = {}
+            for name, devices in (("one", [device]), ("pinned", [device, device])):
+                if name == "pinned":
+                    pin.append(seen[0]["hint"])
+                kernels.reset_launch_counts()
+                run = infer.infer(inference_argparser().parse_args(argv(name)),
+                                  [(grays, colors, ["native.png"], [(size, size)])], devices=devices)
+                torch.cuda.synchronize()
+                if name != "one":
+                    counts = dict(kernels.LAUNCHES)
+                pngs[name] = read_pngs(run["save_dir"])
+                res[f"{name}_seconds"] = run["seconds"]
+        finally:
+            anchor.clustering_hint_mask, sp.pool_and_sizes = plain_anchors, plain_pool
+    per = {"affinity_head": 2, "pool_stats": 2, "upfeat": 6, "attention": 12}
+    check_launches("shard_spatial (two slabs)", counts, per, 1)
+    gaps = {}
+    for key in pngs["one"]:
+        a, b = pngs["pinned"][key].astype(int), pngs["one"][key].astype(int)
+        if a.shape != b.shape or a.shape != (size, size, 3):
+            raise AssertionError(f"shard_spatial {key}: {a.shape} vs {b.shape}")
+        gaps[key] = int(np.abs(a - b).max())
+    res["png_gap_levels"] = gaps
+    log(f"shard_spatial over [{device}, {device}] on {smi}: rows held per slab {held} of {size}; PNG gaps with the "
+        f"one-device anchors pinned {json.dumps(gaps)} (tol {SHARD_PNG_TOL}); seconds one {res['one_seconds']:.3f}, "
+        f"sharded {res['pinned_seconds']:.3f}")
+    if sorted(pngs["pinned"]) != sorted(pngs["one"]) or len(gaps) != 3 or max(gaps.values()) > SHARD_PNG_TOL:
+        raise AssertionError(f"shard_spatial: PNGs {sorted(pngs['pinned'])} vs {sorted(pngs['one'])}, gaps {gaps}")
+    return counts, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4492,6 +4989,17 @@ def main() -> int:
     int8_paths, extras["int8_serving"] = drive_int8_serving(device, smi)
     paths.update(int8_paths)
     mark(15)
+
+    # 16. native resolution: the tiled attention kernels at 4,096 / 16,384 / 65,536 tokens and T_q != T_k, the
+    # f32 and bf16 Colorizer and the server at 1024x1024, the decoder, --shard_spatial over [cuda:0, cuda:0]
+    native_rows, extras["native_attention"] = compare_native_attention(device)
+    rows += native_rows
+    paths["native_serving_f32"], paths["native_serving_bf16"], extras["native_serving"] = native_colorizers(device, smi)
+    paths["native_server"], extras["native_server"] = native_server(device, smi)
+    paths["decoder"], paths["decoder_dropout"], extras["decoder"] = drive_decoder(device, smi)
+    paths["shard_spatial"], extras["shard_spatial"] = drive_shard_spatial(device, smi)
+    mark(16)
+    log(f"chip_smoke: all phases in {time.perf_counter() - start:.1f} s")
 
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in paths.items() if c.get(r["name"], 0)}

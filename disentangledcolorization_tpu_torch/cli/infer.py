@@ -26,9 +26,13 @@ package uses OpenCV.
 Data parallel, as JAX's (``cli/infer.py:119-139``): with more than one card
 in ``parallel/mesh.py::local_devices``, no ``--no_resize`` and a
 ``--batch_size`` that splits over them, each batch is split by rows over one
-replica a card (``parallel/replicas.py``), with the draws of one card;
-otherwise one card runs. ``--shard_spatial`` is read only where JAX reads it,
-with more than one card and ``--no_resize``.
+replica a card (``parallel/replicas.py``), with the draws of one card.
+Spatially sharded, as JAX's (``cli/infer.py:129-139``): with more than one
+card, ``--no_resize`` and ``--shard_spatial``, each image's H axis is split
+over the cards (``parallel/spatial.py``: each card runs the full-resolution
+nets on its slab and halos, the token stage runs on the first). Otherwise one
+card runs. :func:`infer` also takes the device list itself (``devices``), so
+one card can run the sharded path over ``[cuda:0, cuda:0]``.
 
 ``--quantize int8|int8_safe``, as JAX's (``cli/infer.py:77-81``,
 ``:170-180``): the first batch runs one calibration forward (its
@@ -36,10 +40,6 @@ with more than one card and ``--no_resize``.
 every forward is static int8 (``ops/quant.py``; kernels I and H on the card).
 ``int8_safe`` keeps the repnet in the compute dtype. The setting is the
 model's own; no environment variable is read or set.
-
-Not ported yet, and refused: ``--shard_spatial`` over more than one card with
-``--no_resize`` (ROADMAP.md, queue 1, item 9: the H axis sharded, with halo
-exchanges).
 """
 
 from __future__ import annotations
@@ -60,13 +60,12 @@ from ..ops import quant
 from ..ops import superpixel as sp
 from ..parallel import mesh
 from ..parallel.replicas import Replicas
+from ..parallel.spatial import SpatialShards
 from ..tools.convert import fold_spectral_norm, from_jax_variables, load_numpy_pickle
 from ..train.checkpoint import load_train_variables
 from ..utils import io as io_lib
 from ..utils.config import inference_argparser
 from ..utils.logging import profiler_trace
-
-_ROADMAP = "is not ported yet: ROADMAP.md, queue 1, item"
 
 
 def _orbax_snapshot(path: str) -> bool:
@@ -154,30 +153,27 @@ def build_model(args) -> AnchorColorProb:
     )
 
 
-def refuse_unported(args, devices) -> None:
-    """Raise for a flag whose feature is not ported yet; set no environment.
-    ``--shard_spatial`` changes a run only where JAX reads it: more than one
-    of ``devices`` and ``--no_resize``."""
-    if args.shard_spatial and args.no_resize and len(devices) > 1:
-        raise NotImplementedError(f"--shard_spatial over {len(devices)} cards {_ROADMAP} 9 (the H axis sharded); "
-                                  "pick one card with --device cuda:<k> or CUDA_VISIBLE_DEVICES")
-
-
 def data_parallel(args, devices) -> bool:
     """JAX's rule: split batches over the cards when there is more than one,
     images are resized, and ``--batch_size`` splits over them."""
     return len(devices) > 1 and not args.no_resize and args.batch_size % len(devices) == 0
 
 
-def infer(args, batches) -> dict:
+def spatially_sharded(args, devices) -> bool:
+    """JAX's rule: shard each image's H axis over the cards when there is
+    more than one, images keep their size, and ``--shard_spatial`` asks."""
+    return len(devices) > 1 and args.no_resize and args.shard_spatial
+
+
+def infer(args, batches, devices=None) -> dict:
     """Colorize ``batches`` (an iterable of numpy ``(grays (B,H,W,1), colors
     (B,H,W,2), names, sizes)``, normalized Lab; a name of None marks a padding
     image, a size of None an unpadded one) and write the PNGs under
-    ``<save_dir>/<name>-anchor<n_clusters>``. Returns the count of images
-    written and the seconds the loop took."""
-    device = resolve_device(args.device)
-    devices = mesh.local_devices(device)
-    refuse_unported(args, devices)
+    ``<save_dir>/<name>-anchor<n_clusters>``. ``devices``: the devices to
+    serve over (default ``parallel/mesh.py::local_devices`` of ``--device``).
+    Returns the count of images written and the seconds the loop took."""
+    if devices is None:
+        devices = mesh.local_devices(resolve_device(args.device))
     print(f"@Inference: [AnchorColorProb] (spixel-size={args.psize})")
     sampled_T = 2 if args.diverse else 0
     save_dir = os.path.join(args.save_dir, f"{args.name}-anchor{args.n_clusters}")
@@ -189,9 +185,12 @@ def infer(args, batches) -> dict:
     device = devices[0]
     if data_parallel(args, devices):
         print(f"-data-parallel inference over {len(devices)} devices")
+        model = Replicas(model, devices, to_serving)
+    elif spatially_sharded(args, devices):
+        print(f"-spatially-sharded (H axis) inference over {len(devices)} devices")
+        model = SpatialShards(model, devices, to_serving)
     else:
-        devices = [device]
-    model = Replicas(model, devices, to_serving)
+        model = Replicas(model, [device], to_serving)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     # PNG writes go through a background thread unless --prefetch 0 (the
     # reference's serial behaviour); flush() at the end re-raises a write error
@@ -202,6 +201,13 @@ def infer(args, batches) -> dict:
 
     def crop(lab, h, w):
         return lab[:, :h, :w] if args.no_resize else lab
+
+    def unpool(out, tokens, images=slice(None)):
+        """Kernel C over the forward's affinity map (the spatial shards: over
+        each slab's), tokens (N', hc, wc, C) -> pixels on the first device."""
+        if "unpool" in out:
+            return out["unpool"](tokens, images)
+        return sp.upfeat(tokens.contiguous(), out["affinity_map"][images], args.psize, args.psize)
 
     @torch.no_grad()
     def process_batch(grays_np, colors_np, names, orig_sizes):
@@ -220,7 +226,7 @@ def infer(args, batches) -> dict:
         if args.save_guided and not args.diverse:
             # the guided (pre-enhancement) colors, inference.py:111-115
             tok = out["ref_logit"] if args.hint2regress else cl.decode_ind2ab(out["ref_logit"], T=0)
-            guided = sp.upfeat(tok.float().contiguous(), out["affinity_map"], args.psize, args.psize).cpu().numpy()
+            guided = unpool(out, tok.float()).cpu().numpy()
         pred_ab = pred.cpu().numpy()
         if not np.isfinite(pred_ab).all():
             print("@Warning: non-finite prediction values — broken/unconverged weights? (outputs will be garbage)",
@@ -242,8 +248,7 @@ def infer(args, batches) -> dict:
                     save(io_lib.save_normLabs_from_batch, crop(glab, h, w), save_dir, [names[i]], -1,
                          suffix="guided")
                 if args.save_anchors:
-                    masks = sp.upfeat(out["hint_mask"][i:i + 1].contiguous(), out["affinity_map"][i:i + 1],
-                                      args.psize, args.psize)
+                    masks = unpool(out, out["hint_mask"][i:i + 1], slice(i, i + 1))
                     marked = hints_ops.mark_color_hints(grays[i:i + 1], pred[i:i + 1], masks,
                                                         base_abs=pred[i:i + 1]).cpu().numpy()
                     save(io_lib.save_normLabs_from_batch, crop(marked, h, w), save_dir, [names[i]], -1,

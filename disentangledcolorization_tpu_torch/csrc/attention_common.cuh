@@ -1,6 +1,6 @@
 // Shared by csrc/attention.cu (kernel D) and csrc/attention_bwd.cu: the block
-// shape, the padded shared-memory layout of a head's K and V, the 16-byte
-// asynchronous copies that stage them, and the loads of keep-mask bytes.
+// shape, the padded shared-memory layout of a tile of K and V, the ring of
+// tiles that 16-byte asynchronous copies fill, and the loads of keep-mask bytes.
 //
 // Block shape. A block owns a tile of kTile = 64 rows (queries, or keys in the
 // dk/dv phase) of one (head, n) and gives each row kLanes = 4 neighbouring
@@ -24,6 +24,15 @@
 // read 64 consecutive bytes of it. The lanes then read K (and V) rows that lie
 // 16 rows apart; padded_row() puts 8 floats of padding after every 16 rows so
 // that these four rows fall into different shared-memory banks.
+//
+// Tiles. The other dimension streams through shared memory in tiles of L rows
+// (keys in kernel D and the dq phase, queries in the dk/dv phase), kStages
+// tiles in a ring: while the block works on tile t, the copies of tile t + 1
+// are in flight. L is a multiple of 64 rows (one step of the four lanes), so
+// a lane meets its keys (or queries) in the same order whatever L is, and a
+// result does not depend on the tile length: the tiles change where a row
+// waits, not the arithmetic. The plan (L and the bytes of the ring) is
+// computed by ops/attention.py::attention_plan and checked here again.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,6 +44,7 @@ constexpr int kTile = 64;
 constexpr int kLanes = 4;
 constexpr int kGroup = 16;
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kStages = 2;  // tiles in the ring
 
 template <int HD>
 struct Shape {
@@ -65,30 +75,59 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
-// Rows [0, T) of one head (src points at its first float, rows D floats apart)
-// go to padded shared memory; rows [T, rows) are zero-filled, so a lane may
-// multiply through the ragged end of its last group.
+// wait until at most N of this thread's most recent copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bytes of one ring stage of kernel D and of the dq phase: K and V of L keys
+// in the padded layout, then the keys' flags (L bytes)
 template <int HD>
-__device__ __forceinline__ void stage_padded(float* dst, const float* __restrict__ src, int T, int rows, int D) {
+__host__ __device__ inline int kv_stage_floats(int L) {
+  return 2 * padded_floats<HD>(L) + L / 4;
+}
+
+// Rows [0, valid) of a tile (src points at its first row's head slice, rows D
+// floats apart) go to padded shared memory; rows [valid, L) are zero-filled,
+// so a lane may multiply through the ragged end of its last group.
+template <int HD>
+__device__ __forceinline__ void stage_padded(float* dst, const float* __restrict__ src, int valid, int L, int D) {
   constexpr int V = HD / 4;
-  for (int e = threadIdx.x; e < rows * V; e += blockDim.x) {
+  for (int e = threadIdx.x; e < L * V; e += blockDim.x) {
     const int t = e / V, c = (e - t * V) * 4;
     float* d = dst + padded_row<HD>(t) + c;
-    if (t < T)
+    if (t < valid)
       cp_async16(d, src + (long)t * D + c);
     else
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// Per-key flags of a block, Tp bytes: 0 = attend, 1 = key-padding mask set
-// (logit -1e9), 2 = beyond T (no key).
-__device__ __forceinline__ void stage_flags(unsigned char* dst, const unsigned char* __restrict__ mask_row, int T,
-                                            int Tp) {
-  for (int t = threadIdx.x; t < Tp; t += blockDim.x)
-    dst[t] = t >= T ? 2 : (mask_row != nullptr && mask_row[t] != 0) ? 1 : 0;
+// Per-key flags of a tile of L keys starting at key j0, L bytes: 0 = attend,
+// 1 = key-padding mask set (logit -1e9), 2 = beyond T (no key).
+__device__ __forceinline__ void stage_flags(unsigned char* dst, const unsigned char* __restrict__ mask_row, int j0,
+                                            int T, int L) {
+  for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    const int j = j0 + t;
+    dst[t] = j >= T ? 2 : (mask_row != nullptr && mask_row[j] != 0) ? 1 : 0;
+  }
+}
+
+// One ring stage of kernel D or the dq phase: the K and V rows and the flags
+// of keys [j0, j0 + L) of one head (k and v point at the head's key 0).
+template <int HD>
+__device__ __forceinline__ void stage_kv_tile(float* stage, const float* __restrict__ k, const float* __restrict__ v,
+                                              const unsigned char* __restrict__ mask_row, bool flagged, int j0,
+                                              int T, int L, int D) {
+  const int valid = min(L, T - j0);
+  float* sk = stage;
+  float* sv = sk + padded_floats<HD>(L);
+  stage_padded<HD>(sk, k + (long)j0 * D, valid, L, D);
+  stage_padded<HD>(sv, v + (long)j0 * D, valid, L, D);
+  if (flagged) stage_flags(reinterpret_cast<unsigned char*>(sv + padded_floats<HD>(L)), mask_row, j0, T, L);
 }
 
 // 16 consecutive bytes at p as four words, byte b in bits 8 * (b % 4) of word

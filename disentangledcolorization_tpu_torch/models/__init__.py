@@ -6,5 +6,11 @@ from .disco import AnchorColorProb, xavier_reinit_params  # noqa: F401
 from .hourglass import HourGlass2  # noqa: F401
 from .position import PositionEmbeddingLearned, sine_position_encoding  # noqa: F401
 from .spixelnet import SpixelNet, SpixelSeg  # noqa: F401
-from .transformer import EncoderLayer, MultiheadAttention, TransformerEncoder  # noqa: F401
+from .transformer import (  # noqa: F401
+    DecoderLayer,
+    EncoderLayer,
+    MultiheadAttention,
+    TransformerDecoder,
+    TransformerEncoder,
+)
 from .vgg import VGG19Features, load_vgg19  # noqa: F401

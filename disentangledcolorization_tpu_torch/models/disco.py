@@ -180,13 +180,15 @@ class AnchorColorProb(nn.Module):
             return self._forward(input_grays, input_colors, hint_mask_override, anchor_colors_override,
                                  generator, test_mode, train, dropout_generator, sampled_T)
 
-    def _positions(self, n, h, w, hc, wc, device, dtype):
+    def _positions(self, n, h, w, hc, wc, device, dtype, rows=None):
         """The token grid's positions (N, hc, wc, d), f32, unless ``spix_pos``
         pools them; with ``spix_pos`` the pixels' sine code (N, H, W, d) in
-        the features' dtype, to be pooled."""
+        the features' dtype, to be pooled (``rows`` (start, stop): those rows
+        of the H x W image's code)."""
         d = self.d_model
         if self.spix_pos:
-            return sine_position_encoding(h, w, d // 2, device=device, dtype=dtype)[None].expand(n, h, w, d)
+            code = sine_position_encoding(h, w, d // 2, device=device, dtype=dtype, rows=rows)
+            return code[None].expand(n, *code.shape)
         if self.learning_pos:
             rows, cols = self.pos_enc.row_embed.num_embeddings, self.pos_enc.col_embed.num_embeddings
             if hc > rows or wc > cols:
@@ -217,26 +219,36 @@ class AnchorColorProb(nn.Module):
             colors = anchor_colors_override.float()
         return hint_mask, colors
 
-    def _forward(self, input_grays, input_colors, hint_mask_override, anchor_colors_override,
-                 generator, test_mode, train, dropout_generator, sampled_T):
-        n, h, w, _ = input_grays.shape
-        spn, d, cdt = self.sp_size, self.d_model, self.compute_dtype
-        hc, wc = h // spn, w // spn
-        t = hc * wc
-        grays = input_grays.float()
-        grays_c = grays.to(cdt)
-        if input_colors is None:
-            input_colors = grays.new_zeros((n, h, w, 2))
-
+    def pixel_features(self, grays_c, train: bool = False, test_mode: bool = True):
+        """The two full-resolution nets on ``grays_c`` (N, H, W, 1) in the
+        compute dtype: (the segnet's affinity map (N, H, W, 9) f32, the
+        repnet's features (N, H, W, d), cast to f32 outside test mode)."""
         with torch.no_grad():  # frozen segnet, always in eval mode
             affinity_map = self.segnet(grays_c)
         pred_feats = self.repnet(grays_c, train)
         if not test_mode:  # precise pooling: the ground-truth token labels come from f32 pooled colors
             pred_feats = pred_feats.float()
-        pos = self._positions(n, h, w, hc, wc, grays.device, pred_feats.dtype)
+        return affinity_map, pred_feats
+
+    def pool_tokens(self, pred_feats, input_colors, affinity_map, pos=None):
+        """Kernel A over [features | ab (| the pixels' positions with
+        ``spix_pos``)]: (pooled (N, hc, wc, C) f32, relative superpixel
+        sizes (N, hc, wc, 1))."""
+        spn = self.sp_size
         parts = [pred_feats, input_colors.to(pred_feats.dtype)] + ([pos] if self.spix_pos else [])
         pooled, _, spixel_sizes = sp.pool_and_sizes(torch.cat(parts, dim=-1), affinity_map, spn, spn)
-        pooled = pooled.float()
+        return pooled.float(), spixel_sizes
+
+    def token_stage(self, pooled, spixel_sizes, pos, hint_mask_override=None, anchor_colors_override=None,
+                    generator=None, test_mode: bool = True, train: bool = False, dropout_generator=None,
+                    sampled_T: int = 0) -> dict:
+        """Everything between pooling and unpooling, on the whole token grid:
+        the wildpath, the anchors and their colors, the hintpath. ``pos``: the
+        token grid's positions (ignored with ``spix_pos``, which pooled them).
+        Returns the forward's token outputs and ``dec_out`` (N', hc, wc, d),
+        N' = 3N for a diverse forward."""
+        n, hc, wc, _ = spixel_sizes.shape
+        d, spn, t = self.d_model, self.sp_size, hc * wc
         feat_tokens, spix_colors = pooled[..., :d], pooled[..., d:d + 2]
         if self.spix_pos:
             pos = pooled[..., d + 2:]
@@ -254,8 +266,7 @@ class AnchorColorProb(nn.Module):
                                                         generator, sampled_T)
             if sampled_T > 0:  # diverse: the batch tiled x3, one sampling each
                 n = 3 * n
-                grays_c, hint_mask, affinity_map, src_seq, pos_seq = (
-                    x.repeat(3, *(1,) * (x.ndim - 1)) for x in (grays_c, hint_mask, affinity_map, src_seq, pos_seq))
+                hint_mask, src_seq, pos_seq = (x.repeat(3, *(1,) * (x.ndim - 1)) for x in (hint_mask, src_seq, pos_seq))
                 pad_mask = None if pad_mask is None else pad_mask.repeat(3, 1)
             labels = cl.nearest_bin_index(spix_colors)
         else:
@@ -269,23 +280,45 @@ class AnchorColorProb(nn.Module):
             hint = F.one_hot(labels.reshape(n, t), N_VOCAB).float()
         hint_seq = self.trg_word_emb(torch.cat([src_seq, mask_seq * hint, mask_seq], dim=-1))
         dec_out = self.hintpath(hint_seq, pos_seq, pad_mask, train, dropout_generator)
-        ref_logit = self.trg_word_prj(dec_out).reshape(n, hc, wc, -1)
-
-        pred_colors = None
-        if self.enhanced:
-            full_feats = sp.upfeat(dec_out.reshape(n, hc, wc, d).to(cdt), affinity_map, spn, spn)
-            pred_colors = torch.tanh(self.enhanceNet(torch.cat([grays_c, full_feats], dim=-1), train).float())
-
         return {
             "pal_logit": pal_logit,
-            "ref_logit": ref_logit,
-            "pred_colors": pred_colors,
-            "affinity_map": affinity_map,
+            "ref_logit": self.trg_word_prj(dec_out).reshape(n, hc, wc, -1),
             "spix_colors": spix_colors,
             "hint_mask": hint_mask,
             "token_labels": token_labels,
             "spixel_sizes": spixel_sizes,
+            "dec_out": dec_out.reshape(n, hc, wc, d),
         }
+
+    def enhance(self, dec_out, grays_c, affinity_map, train: bool = False):
+        """Kernel C unpools the hintpath's tokens (N, hc, wc, d); HourGlass2
+        takes them with the gray input; tanh: the full-resolution ab (N, H, W, 2)."""
+        spn = self.sp_size
+        full_feats = sp.upfeat(dec_out.to(self.compute_dtype), affinity_map, spn, spn)
+        return torch.tanh(self.enhanceNet(torch.cat([grays_c, full_feats], dim=-1), train).float())
+
+    def _forward(self, input_grays, input_colors, hint_mask_override, anchor_colors_override,
+                 generator, test_mode, train, dropout_generator, sampled_T):
+        n, h, w, _ = input_grays.shape
+        spn = self.sp_size
+        hc, wc = h // spn, w // spn
+        grays = input_grays.float()
+        grays_c = grays.to(self.compute_dtype)
+        if input_colors is None:
+            input_colors = grays.new_zeros((n, h, w, 2))
+
+        affinity_map, pred_feats = self.pixel_features(grays_c, train, test_mode)
+        pos = self._positions(n, h, w, hc, wc, grays.device, pred_feats.dtype)
+        pooled, spixel_sizes = self.pool_tokens(pred_feats, input_colors, affinity_map, pos)
+        out = self.token_stage(pooled, spixel_sizes, pos, hint_mask_override, anchor_colors_override, generator,
+                               test_mode, train, dropout_generator, sampled_T)
+        dec_out = out.pop("dec_out")
+        if dec_out.shape[0] > n:  # diverse: the batch tiled x3, one sampling each
+            grays_c, affinity_map = (x.repeat(3, *(1,) * (x.ndim - 1)) for x in (grays_c, affinity_map))
+        pred_colors = self.enhance(dec_out, grays_c, affinity_map, train) if self.enhanced else None
+        return {"pal_logit": out["pal_logit"], "ref_logit": out["ref_logit"], "pred_colors": pred_colors,
+                "affinity_map": affinity_map, **{k: out[k] for k in ("spix_colors", "hint_mask", "token_labels",
+                                                                        "spixel_sizes")}}
 
 
 def xavier_reinit_params(model: nn.Module, generator: torch.Generator, min_ndim: int = 2) -> None:

@@ -1,4 +1,5 @@
-"""Building-block layers: convs, spectral norm, BatchNorm, res/up/down blocks.
+"""Building-block layers: convs, spectral norm, BatchNorm, res/up/down blocks
+(with their spectral-norm forms ``ResidualBlockSN`` and ``UpsampleBlockSN``).
 
 Counterpart of ``disentangledcolorization_tpu/models/layers.py`` in its default
 (naive) form. Modules run NCHW inside; the ``nn.Sequential`` indices mirror the
@@ -428,6 +429,21 @@ class ResidualBlock(nn.Module):
         return F.relu(x + self.conv(x, train))
 
 
+class ResidualBlockSN(nn.Module):
+    """conv = (SNConv, LeakyReLU 0.2, SNConv[, BN]); leaky_relu(x + conv(x), 0.2)
+    (JAX ``layers.py:445-460``, the reference's ``network.py:50-63``). A
+    public block with no caller in either package, as in the JAX package."""
+
+    def __init__(self, features: int, use_norm: bool = False, sn_folded: bool = False):
+        super().__init__()
+        self.conv = Seq(SNConv(features, features, folded=sn_folded), LeakyReLU(0.2),
+                        SNConv(features, features, folded=sn_folded), *([BatchNorm(features)] if use_norm else []))
+        self.act = LeakyReLU(0.2)
+
+    def forward(self, x, train: bool = False):
+        return self.act(x + self.conv(x, train))
+
+
 class DownsampleBlock(nn.Module):
     """conv = (Conv s2, ReLU, (Conv, ReLU)*(conv_num-1), BN)."""
 
@@ -453,3 +469,25 @@ class UpsampleBlock(nn.Module):
     def forward(self, x, skip, train: bool = False):
         x = F.interpolate(self.conv1(x), scale_factor=2, mode="nearest")
         return self.conv2(F.relu(self.combine(torch.cat([x, skip], dim=1))), train)
+
+
+class UpsampleBlockSN(nn.Module):
+    """conv1 (SNConv) -> nearest 2x -> + shortcut(skip) (SNConv) -> LeakyReLU
+    0.2 -> conv2 = (SNConv, LeakyReLU 0.2)*(conv_num-1)[, BN] (JAX
+    ``layers.py:521-547``, the reference's ``network.py:104-122``). A public
+    block with no caller in either package, as in the JAX package."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int, conv_num: int = 2, use_norm: bool = False,
+                 sn_folded: bool = False):
+        super().__init__()
+        self.conv1 = SNConv(in_ch, features, folded=sn_folded)
+        self.shortcut = SNConv(skip_ch, features, folded=sn_folded)
+        self.act = LeakyReLU(0.2)
+        layers = []
+        for _ in range(conv_num - 1):
+            layers += [SNConv(features, features, folded=sn_folded), LeakyReLU(0.2)]
+        self.conv2 = Seq(*layers, *([BatchNorm(features)] if use_norm else []))
+
+    def forward(self, x, skip, train: bool = False):
+        x = F.interpolate(self.conv1(x, train), scale_factor=2, mode="nearest")
+        return self.conv2(self.act(x + self.shortcut(skip, train)), train)

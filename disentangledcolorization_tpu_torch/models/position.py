@@ -13,24 +13,28 @@ import torch.nn as nn
 
 
 def sine_position_encoding(h: int, w: int, num_pos_feats: int = 32, device=None,
-                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                           dtype: torch.dtype = torch.float32, rows=None) -> torch.Tensor:
     """Normalized 2D sine embedding (H, W, 2*num_pos_feats): 1-based
     coordinates scaled to 2*pi, temperature 1e4, sin on even and cos on odd
     channels, (y, x). Every step runs in ``dtype`` and rounds to it, as the
     JAX function does with its ``dtype`` (bf16 for the full-resolution code of
-    ``spix_pos`` in bf16 serving)."""
+    ``spix_pos`` in bf16 serving). ``rows`` (start, stop): only those rows of
+    the H x W code, each row's coordinates normalized by the whole height as
+    in the whole code (a slab of a spatially sharded image)."""
     kw = dict(dtype=dtype, device=device)
+    r0, r1 = (0, h) if rows is None else rows
     eps, scale = torch.tensor(1e-6, **kw), torch.tensor(2 * math.pi, **kw)  # JAX rounds its scalars to dtype
-    y = torch.arange(1, h + 1, **kw)[:, None] * torch.ones((1, w), **kw)
-    x = torch.ones((h, 1), **kw) * torch.arange(1, w + 1, **kw)[None, :]
-    y = y / (y[-1:, :] + eps) * scale
+    ys = torch.arange(1, h + 1, **kw)
+    y = ys[r0:r1, None] * torch.ones((1, w), **kw)
+    x = torch.ones((r1 - r0, 1), **kw) * torch.arange(1, w + 1, **kw)[None, :]
+    y = y / (ys[-1:, None] + eps) * scale
     x = x / (x[:, -1:] + eps) * scale
     dim_t = torch.arange(num_pos_feats, **kw)
     dim_t = 10000.0 ** (2 * torch.div(dim_t, 2, rounding_mode="floor") / num_pos_feats)
     pos_x = x[:, :, None] / dim_t
     pos_y = y[:, :, None] / dim_t
-    pos_x = torch.stack([pos_x[:, :, 0::2].sin(), pos_x[:, :, 1::2].cos()], dim=3).reshape(h, w, -1)
-    pos_y = torch.stack([pos_y[:, :, 0::2].sin(), pos_y[:, :, 1::2].cos()], dim=3).reshape(h, w, -1)
+    pos_x = torch.stack([pos_x[:, :, 0::2].sin(), pos_x[:, :, 1::2].cos()], dim=3).reshape(r1 - r0, w, -1)
+    pos_y = torch.stack([pos_y[:, :, 0::2].sin(), pos_y[:, :, 1::2].cos()], dim=3).reshape(r1 - r0, w, -1)
     return torch.cat([pos_y, pos_x], dim=-1)
 
 

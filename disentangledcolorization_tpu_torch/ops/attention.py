@@ -1,4 +1,4 @@
-"""Multi-head attention core on projected q, k, v. (N, T, D), heads packed along D.
+"""Multi-head attention core on projected q (N, Tq, D) and k, v (N, Tk, D), heads packed along D.
 
 Counterpart of ``disentangledcolorization_tpu/ops/pallas_attention.py``
 (``fused_attention``) and of the core that ``models/transformer.py`` computes
@@ -7,23 +7,36 @@ in jnp, dropout on the attention weights included. Kernel D
 its gradient w.r.t. q, k and v; :func:`attention` ties the two together as an
 autograd function.
 
-Dropout comes in as a keep-mask (N, nhead, T, T) drawn by the caller and a
-rate: the weights become softmax * keep / (1 - rate), as flax ``nn.Dropout``.
+Tq = Tk in self-attention; the decoder's cross-attention has queries and
+keys of different lengths. The key-padding mask is (N, Tk). Dropout comes in
+as a keep-mask (N, nhead, Tq, Tk) drawn by the caller and a rate: the weights
+become softmax * keep / (1 - rate), as flax ``nn.Dropout``.
 
 When a gradient is needed, the forward also returns its softmax statistics
-(N, nhead, T, 2): per row the max ``m`` of the logits and the sum ``l`` of
+(N, nhead, Tq, 2): per row the max ``m`` of the logits and the sum ``l`` of
 ``exp(s - m)``. The backward reads them and the forward's output instead of
 recomputing the softmax: ``P = exp(s - m) / l`` and ``D_i = dO_i . O_i``.
+
+The kernels stream the other dimension through a shared-memory ring of
+tiles, so any token count runs; :func:`attention_plan` sizes the tiles.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from .kernels import check_cuda, launch
+from .kernels import SMEM_BLOCK, check_cuda, launch
 
 _HEAD_WIDTHS = (4, 8, 16, 32, 64)
-_MAX_SMEM = 227 * 1024
+#: tiles in the kernels' ring (``kStages`` in ``csrc/attention_common.cuh``)
+STAGES = 2
+#: rows a tile holds are a multiple of one step of the four lanes (64), and at most this many
+_MAX_TILE = 256
+#: largest token count: the kernels index the rows of a head, and a row one tile past them, with C ints
+MAX_TOKENS = 2**31 - 512
 
 
 def _heads(x, nhead: int):
@@ -36,7 +49,7 @@ def _keep_factor(keep, rate: float):
 
 
 def _logits(q, k, nhead: int, key_padding_mask):
-    """Scaled q heads, the scale, and the logits (N, nhead, T, T), f32; a
+    """Scaled q heads, the scale, and the logits (N, nhead, Tq, Tk), f32; a
     masked key's logit is -1e9."""
     hd = q.shape[-1] // nhead
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
@@ -48,16 +61,16 @@ def _logits(q, k, nhead: int, key_padding_mask):
 
 
 def _probs(q, k, nhead: int, key_padding_mask):
-    """Scaled q heads and softmax weights (N, nhead, T, T), f32."""
+    """Scaled q heads and softmax weights (N, nhead, Tq, Tk), f32."""
     qh, scale, logits = _logits(q, k, nhead, key_padding_mask)
     return qh, scale, torch.softmax(logits, dim=-1)
 
 
 def attention_plain(q, k, v, nhead: int, key_padding_mask=None, keep=None, rate: float = 0.0, return_stats: bool = False):
-    """softmax((q / sqrt(hd)) k^T) [* keep / (1 - rate)] v per head, f32; a True
-    key in ``key_padding_mask`` (N, T) gets the logit -1e9. With
-    ``return_stats`` also the softmax statistics (N, nhead, T, 2): row max and
-    row sum of exp(logit - max)."""
+    """softmax((q / sqrt(hd)) k^T) [* keep / (1 - rate)] v per head, f32: q
+    (N, Tq, D), k and v (N, Tk, D); a True key in ``key_padding_mask`` (N, Tk)
+    gets the logit -1e9. With ``return_stats`` also the softmax statistics
+    (N, nhead, Tq, 2): row max and row sum of exp(logit - max)."""
     n, t, d = q.shape
     _, _, logits = _logits(q, k, nhead, key_padding_mask)
     attn = torch.softmax(logits, dim=-1)
@@ -72,13 +85,12 @@ def attention_plain(q, k, v, nhead: int, key_padding_mask=None, keep=None, rate:
 
 
 def _grads_from_ds(q, k, ds, pk, qh, doh, scale, nhead: int, key_padding_mask):
-    n, t, d = q.shape
     if key_padding_mask is not None:
         ds = ds.masked_fill(key_padding_mask[:, None, None, :].bool(), 0.0)
     dq = torch.einsum("nhqk,nkhd->nqhd", ds, _heads(k, nhead)) * scale.to(q.device)
     dk = torch.einsum("nhqk,nqhd->nkhd", ds, qh)
     dv = torch.einsum("nhqk,nqhd->nkhd", pk, doh)
-    return tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(k.shape)
 
 
 def attention_bwd_plain(q, k, v, dout, nhead: int, key_padding_mask=None, keep=None, rate: float = 0.0):
@@ -108,7 +120,7 @@ def attention_bwd_saved_plain(q, k, v, dout, nhead: int, key_padding_mask, keep,
     pk = p if kf is None else p * kf
     if kf is not None:
         dp = dp * kf
-    delta = (doh * _heads(out, nhead)).sum(-1).transpose(1, 2)  # (N, nhead, T)
+    delta = (doh * _heads(out, nhead)).sum(-1).transpose(1, 2)  # (N, nhead, Tq)
     ds = p * (dp - delta[..., None])
     return _grads_from_ds(q, k, ds, pk, qh, doh, scale, nhead, key_padding_mask)
 
@@ -120,19 +132,20 @@ def _as_bytes(x, device):
     return x.contiguous()
 
 
-def _masks(q, nhead: int, key_padding_mask, keep, rate: float):
+def _masks(q, k, nhead: int, key_padding_mask, keep, rate: float):
     """Wrapper-side checks of the optional masks; uint8 on q's device."""
-    n, t, d = q.shape
+    n, tq, d = q.shape
+    tk = k.shape[1]
     if d % nhead or (d // nhead) not in _HEAD_WIDTHS:
         raise ValueError(f"attention: head width {d}/{nhead} is not one of {_HEAD_WIDTHS}")
     mask = None
     if key_padding_mask is not None:
-        if key_padding_mask.shape != (n, t):
-            raise ValueError(f"attention: key_padding_mask must be {(n, t)}")
+        if key_padding_mask.shape != (n, tk):
+            raise ValueError(f"attention: key_padding_mask must be {(n, tk)}")
         mask = _as_bytes(key_padding_mask, q.device)
     if keep is not None:
-        if keep.shape != (n, nhead, t, t):
-            raise ValueError(f"attention: keep must be {(n, nhead, t, t)}")
+        if keep.shape != (n, nhead, tq, tk):
+            raise ValueError(f"attention: keep must be {(n, nhead, tq, tk)}")
         if not 0.0 <= rate < 1.0:
             raise ValueError(f"attention: dropout rate {rate} is not in [0, 1)")
         keep = _as_bytes(keep, q.device)
@@ -144,30 +157,82 @@ def _aligned(*tensors):
     return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
 
 
-def _smem_bytes(t: int, hd: int, keep: bool) -> tuple[int, int]:
-    """Dynamic shared memory a block asks for: (kernel D and the backward's dq
-    phase, which stage K and V; the dk/dv phase, which stages Q, dO, the row
-    statistics and its keep-mask tile), by the layouts of
-    ``csrc/attention_common.cuh`` and ``csrc/attention_bwd.cu``."""
-    tp, tq = -(-t // 16) * 16, -(-t // 4) * 4
-    staged_kv = 4 * 2 * (tp * hd + tp // 16 * 8) + tp
-    staged_q_do = 4 * 2 * tq * hd + tq * (16 + (64 if keep else 0))
-    return staged_kv, staged_q_do
+class AttentionPlan(NamedTuple):
+    """How the two kernels stream a head: ``key_tile`` keys a ring stage of
+    kernel D and of the backward's dq phase holds, ``query_tile`` queries a
+    stage of the dk/dv phase holds, ``stages`` stages in the ring, and the
+    dynamic shared memory a block of each asks for (``kv_bytes``: kernel D and
+    the dq phase; ``dkv_bytes``: the dk/dv phase)."""
+
+    key_tile: int
+    query_tile: int
+    stages: int
+    kv_bytes: int
+    dkv_bytes: int
+
+
+def _kv_stage_bytes(tile: int, hd: int) -> int:
+    """``kv_stage_floats`` of ``csrc/attention_common.cuh``, in bytes: K and V
+    of ``tile`` keys in the padded layout (8 floats after every 16 rows), then
+    a flag byte a key."""
+    return 4 * 2 * (tile * hd + tile // 16 * 8) + tile
+
+
+def _dkv_stage_bytes(tile: int, hd: int, keep: bool) -> int:
+    """``dkv_stage_floats`` of ``csrc/attention_bwd.cu``, in bytes: Q and dO of
+    ``tile`` queries, their (m, 1/l, D, 0), and their rows of the block's 64
+    keep-mask columns."""
+    return tile * (4 * 2 * hd + 16 + (64 if keep else 0))
+
+
+def _tile(t: int, budget: int, stage_bytes) -> int:
+    """The longest tile, a multiple of 64 rows and at most 256 (or the rows
+    ``t`` rounds up to), whose ring fits ``budget`` bytes."""
+    tile = min(_MAX_TILE, -(-t // 64) * 64)
+    while tile > 64 and STAGES * stage_bytes(tile) > budget:
+        tile -= 64
+    return tile
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(t_q: int, t_k: int, hd: int, keep: bool) -> AttentionPlan:
+    """Tiles and shared memory of kernel D and ``attention_bwd`` for ``t_q``
+    queries, ``t_k`` keys, head width ``hd`` and a keep-mask or none; from the
+    shape alone, so that a CPU test can check it. The ring's bytes do not grow
+    with the token counts: any count up to :data:`MAX_TOKENS` is planned.
+
+    Budget: at hd <= 8 a block of 128 threads may keep four blocks on an SM
+    (``__launch_bounds__`` caps its registers at 128), so its ring stays
+    within 48 KB; wider heads run one 256-thread block an SM and take up to
+    200 KB. Within it the tile is the longest multiple of 64 up to 256 rows.
+    A lane meets its keys in the same order at every tile length, so the tile
+    changes no bit of the result (``csrc/attention_common.cuh``)."""
+    if hd not in _HEAD_WIDTHS:
+        raise ValueError(f"attention_plan: head width {hd} is not one of {_HEAD_WIDTHS}")
+    if not (0 < t_q <= MAX_TOKENS and 0 < t_k <= MAX_TOKENS):
+        raise ValueError(f"attention_plan: token counts {t_q}, {t_k} are not in [1, {MAX_TOKENS}]")
+    budget = 48 * 1024 if hd <= 8 else 200 * 1024
+    key_tile = _tile(t_k, budget, lambda L: _kv_stage_bytes(L, hd))
+    query_tile = _tile(t_q, budget, lambda L: _dkv_stage_bytes(L, hd, keep))
+    plan = AttentionPlan(key_tile, query_tile, STAGES, STAGES * _kv_stage_bytes(key_tile, hd),
+                         STAGES * _dkv_stage_bytes(query_tile, hd, keep))
+    assert max(plan.kv_bytes, plan.dkv_bytes) <= SMEM_BLOCK, plan
+    return plan
 
 
 def _attention_kernel(q, k, v, nhead: int, key_padding_mask, keep, rate: float, with_stats: bool):
     """Checks, allocates and launches kernel D: (out, statistics or None)."""
     check_cuda("attention", {"q": q, "k": k, "v": v})
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("attention: the kernel takes q, k, v of one shape (self-attention)")
-    mask, keep = _masks(q, nhead, key_padding_mask, keep, rate)
-    n, t, d = q.shape
-    if _smem_bytes(t, d // nhead, False)[0] > _MAX_SMEM:
-        raise ValueError(f"attention: T={t} at head width {d // nhead} does not fit in shared memory")
+    n, tq, d = q.shape
+    if k.ndim != 3 or k.shape[0] != n or k.shape[2] != d or v.shape != k.shape or k.shape[1] == 0:
+        raise ValueError(f"attention: k and v must be ({n}, Tk > 0, {d}) for q {tuple(q.shape)}")
+    tk = k.shape[1]
+    mask, keep = _masks(q, k, nhead, key_padding_mask, keep, rate)
+    plan = attention_plan(max(tq, 1), tk, d // nhead, keep is not None)
     q, k, v = _aligned(q, k, v)
-    out = torch.empty((n, t, d), device=q.device, dtype=torch.float32)
-    stats = torch.empty((n, nhead, t, 2), device=q.device, dtype=torch.float32) if with_stats else None
-    launch("attention", q, k, v, mask, keep, out, stats, n, t, d, nhead, 1.0 / (1.0 - rate))
+    out = torch.empty((n, tq, d), device=q.device, dtype=torch.float32)
+    stats = torch.empty((n, nhead, tq, 2), device=q.device, dtype=torch.float32) if with_stats else None
+    launch("attention", q, k, v, mask, keep, out, stats, n, tq, tk, d, nhead, plan.key_tile, 1.0 / (1.0 - rate))
     return out, stats
 
 
@@ -182,7 +247,7 @@ def _attention(q, k, v, nhead: int, key_padding_mask, keep, rate: float, with_st
 
 def attention_bwd(q, k, v, dout, nhead: int, key_padding_mask=None, keep=None, rate: float = 0.0, out=None, stats=None):
     """``csrc/attention_bwd.cu`` for CUDA tensors, the plain versions for CPU
-    tensors: (dq, dk, dv), each (N, T, D). ``out`` and ``stats`` are the
+    tensors: (dq (N, Tq, D), dk and dv (N, Tk, D)). ``out`` and ``stats`` are the
     forward's output and softmax statistics for the same inputs; without them
     the forward runs first (on the CPU: :func:`attention_bwd_plain`, which
     needs neither)."""
@@ -193,21 +258,26 @@ def attention_bwd(q, k, v, dout, nhead: int, key_padding_mask=None, keep=None, r
             return attention_bwd_plain(q, k, v, dout, nhead, key_padding_mask, keep, rate)
         return attention_bwd_saved_plain(q, k, v, dout, nhead, key_padding_mask, keep, rate, out, stats)
     check_cuda("attention_bwd", {"q": q, "k": k, "v": v, "dout": dout})
-    if not q.shape == k.shape == v.shape == dout.shape:
-        raise ValueError("attention_bwd: q, k, v and dout must have one shape")
-    n, t, d = q.shape
+    n, tq, d = q.shape
+    if dout.shape != q.shape or k.ndim != 3 or k.shape[0] != n or k.shape[2] != d or v.shape != k.shape \
+            or k.shape[1] == 0:
+        raise ValueError(f"attention_bwd: dout must be {tuple(q.shape)}, and k and v ({n}, Tk > 0, {d})")
+    tk = k.shape[1]
     if out is None:
         out, stats = _attention_kernel(q, k, v, nhead, key_padding_mask, keep, rate, True)
     else:
         check_cuda("attention_bwd", {"out": out, "stats": stats})
-        if out.shape != q.shape or stats.shape != (n, nhead, t, 2):
-            raise ValueError(f"attention_bwd: out must be {tuple(q.shape)} and stats {(n, nhead, t, 2)}")
-    mask, keep = _masks(q, nhead, key_padding_mask, keep, rate)
-    if max(_smem_bytes(t, d // nhead, keep is not None)) > _MAX_SMEM:
-        raise ValueError(f"attention_bwd: T={t} at head width {d // nhead} does not fit in shared memory")
+        if out.shape != q.shape or stats.shape != (n, nhead, tq, 2):
+            raise ValueError(f"attention_bwd: out must be {tuple(q.shape)} and stats {(n, nhead, tq, 2)}")
+    mask, keep = _masks(q, k, nhead, key_padding_mask, keep, rate)
+    plan = attention_plan(max(tq, 1), tk, d // nhead, keep is not None)
     q, k, v, dout, out, stats = _aligned(q, k, v, dout, out, stats)
-    dq, dk, dv = (torch.empty((n, t, d), device=q.device, dtype=torch.float32) for _ in range(3))
-    launch("attention_bwd", q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, t, d, nhead, 1.0 / (1.0 - rate))
+    dq = torch.empty((n, tq, d), device=q.device, dtype=torch.float32)
+    dk, dv = (torch.empty((n, tk, d), device=q.device, dtype=torch.float32) for _ in range(2))
+    if tq == 0:  # no query: the keys get no gradient, and the kernels launch nothing
+        return dq, dk.zero_(), dv.zero_()
+    launch("attention_bwd", q, k, v, dout, out, stats, mask, keep, dq, dk, dv, n, tq, tk, d, nhead, plan.key_tile,
+           plan.query_tile, 1.0 / (1.0 - rate))
     return dq, dk, dv
 
 
@@ -234,7 +304,7 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, nhead: int, key_padding_mask=None, keep=None, rate: float = 0.0) -> torch.Tensor:
     """The attention core with autograd: kernel D and its backward kernel for
-    CUDA tensors, the plain versions for CPU tensors. ``keep`` (N, nhead, T, T)
+    CUDA tensors, the plain versions for CPU tensors. ``keep`` (N, nhead, Tq, Tk)
     and ``rate`` apply dropout to the weights. Where no gradient can be asked
     for (serving), the forward runs without the autograd function around it."""
     if keep is None:

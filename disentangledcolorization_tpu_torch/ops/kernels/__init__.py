@@ -55,8 +55,8 @@ KERNELS = {
     "affinity_head[bf16]": ("affinity_head.cu", "disco_affinity_head_bf16", _HEAD_ARGS),
     "upfeat": ("upfeat.cu", "disco_upfeat", _UP_ARGS),
     "upfeat[bf16]": ("upfeat.cu", "disco_upfeat_bf16", _UP_ARGS),
-    "attention": ("attention.cu", "disco_attention", [*[_P] * 7, _I, _I, _I, _I, _F, _P]),
-    "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, _I, _I, _I, _I, _F, _P]),
+    "attention": ("attention.cu", "disco_attention", [*[_P] * 7, *[_I] * 6, _F, _P]),
+    "attention_bwd": ("attention_bwd.cu", "disco_attention_bwd", [*[_P] * 11, *[_I] * 7, _F, _P]),
     "encode_ab2ind": ("encode_ab2ind.cu", "disco_encode_ab2ind", [_P, _P, _P, _L, _I, _F, _F, _P]),
     "prob_grad": ("prob_grad.cu", "disco_prob_grad", [*[_P] * 4, *[_I] * 9, _P]),
     "quantize": ("quantize.cu", "disco_quantize", [_P, _P, _P, _L, _I, _I, _P]),

@@ -21,7 +21,12 @@ initialisation gives it, and ``weight_u`` is the ``spectral`` u.
 :func:`grads_from_jax` maps a gradient tree (shaped like ``params``) the same
 way: every transform above is a permutation, so it carries gradients too.
 :func:`spixel_from_jax_variables` and :func:`spixel_grads_from_jax` do both
-for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys).
+for a standalone ``SpixelSeg`` (stage 1, ``net.*`` keys);
+:func:`decoder_from_jax_variables` and :func:`decoder_grads_from_jax` for a
+standalone ``TransformerDecoder`` (``layers.{i}.self_attn.*``,
+``layers.{i}.corr_attn.*``, ``layers.{i}.norm3.*``: the flax module names),
+and :func:`sn_block_from_jax_variables` for a ``ResidualBlockSN`` or an
+``UpsampleBlockSN``.
 :func:`inception_from_jax_variables` and :func:`inception_to_jax_variables`
 bridge ``InceptionV3Features`` (torchvision's ``inception_v3`` keys) both ways,
 the second as ``convert_inception_torchvision`` lays the tree out.
@@ -173,6 +178,37 @@ def _encoder(b: _StateDictBuilder, tprefix: str, path: tuple):
         b.linear(tl + "linear2", pl + ("linear2",))
         b.layernorm(tl + "norm1", pl + ("norm1",))
         b.layernorm(tl + "norm2", pl + ("norm2",))
+
+
+def _decoder(b: _StateDictBuilder, tprefix: str, path: tuple):
+    for i in range(b.n_layers(tprefix, path)):
+        tl, pl = f"{tprefix}layers.{i}.", path + (f"layer{i}",)
+        for attn in ("self_attn", "corr_attn"):
+            b.copy(f"{tl}{attn}.in_proj_weight", pl + (attn, "in_proj_weight"))
+            b.copy(f"{tl}{attn}.in_proj_bias", pl + (attn, "in_proj_bias"))
+            b.linear(f"{tl}{attn}.out_proj", pl + (attn, "out_proj"))
+        b.linear(tl + "linear1", pl + ("linear1",))
+        b.linear(tl + "linear2", pl + ("linear2",))
+        for norm in ("norm1", "norm2", "norm3"):
+            b.layernorm(tl + norm, pl + (norm,))
+
+
+def _residual_sn(b: _StateDictBuilder, tprefix: str, path: tuple):
+    b.snconv(f"{tprefix}conv.0", path + ("conv_a",))
+    b.snconv(f"{tprefix}conv.2", path + ("conv_b",))
+    if b.has(f"{tprefix}conv.3.", path + ("norm",)):
+        b.bn(f"{tprefix}conv.3", path + ("norm",))
+
+
+def _upsample_sn(b: _StateDictBuilder, tprefix: str, path: tuple):
+    b.snconv(f"{tprefix}conv1", path + ("conv1",))
+    b.snconv(f"{tprefix}shortcut", path + ("shortcut",))
+    i = 0
+    while b.has(f"{tprefix}conv2.{2 * i}.weight_orig", path + (f"post_conv{i}",)):
+        b.snconv(f"{tprefix}conv2.{2 * i}", path + (f"post_conv{i}",))
+        i += 1
+    if b.has(f"{tprefix}conv2.{2 * i}.", path + ("norm",)):
+        b.bn(f"{tprefix}conv2.{2 * i}", path + ("norm",))
 
 
 def _hourglass(b: _StateDictBuilder, tprefix: str, path: tuple):
@@ -333,6 +369,32 @@ def spixel_from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
     ``convert_spixelseg_state_dict`` or ``model.init``, or a stage-1 train
     state's) -> the port's SpixelSeg ``state_dict`` (``net.*`` keys)."""
     return _build(_StateDictBuilder(variables, sn_folded=False), _spixel_seg)
+
+
+def decoder_from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """``TransformerDecoder`` flax variables (``{"params": {"layer0": ...}}``)
+    -> the port's ``TransformerDecoder`` ``state_dict``; the depth and widths
+    come from the tree."""
+    return _build(_StateDictBuilder({"params": {"dec": variables["params"]}}, sn_folded=False),
+                  lambda b: _decoder(b, "", ("dec",)))
+
+
+def decoder_grads_from_jax(grads: dict) -> dict[str, torch.Tensor]:
+    """A gradient tree shaped like a ``TransformerDecoder``'s ``params`` -> port
+    parameter name -> gradient."""
+    return decoder_from_jax_variables({"params": grads})
+
+
+def sn_block_from_jax_variables(variables: dict, sn_folded: bool = False) -> dict[str, torch.Tensor]:
+    """``ResidualBlockSN`` or ``UpsampleBlockSN`` flax variables (``params``,
+    ``spectral`` u unless ``sn_folded``, ``batch_stats`` with ``use_norm``)
+    -> the port block's ``state_dict``. An ``UpsampleBlockSN`` is told by its
+    ``shortcut``; its ``conv_num`` and either block's ``use_norm`` come from
+    the tree."""
+    params = variables["params"]
+    walker = _upsample_sn if "shortcut" in params else _residual_sn
+    wrapped = {k: {"blk": v} for k, v in variables.items()}
+    return _build(_StateDictBuilder(wrapped, sn_folded), lambda b: walker(b, "", ("blk",)))
 
 
 class _NumpyUnpickler(pickle.Unpickler):

@@ -19,9 +19,9 @@
   reference ``.pth.tar`` and a run directory of the port's trainers give the
   weights JAX's loader gives (1e-6), and a ``.pkl`` Colorizer answers within
   2 levels of JAX's; a missing path and a JAX trainer's Orbax directory raise.
-* ``--quantize int8|int8_safe`` computes (no environment variable set; the
-  answers are held in ``test_torch_quant_api.py``), and the refusal of
-  ``--shard_spatial --no_resize`` over more than one device.
+* ``--quantize int8|int8_safe`` and ``--no_resize --shard_spatial`` over more
+  than one device compute (no environment variable set; the answers are held
+  in ``test_torch_quant_api.py`` and ``test_torch_spatial.py``).
 * Attention's plain version at head width 4 (``--d_model 32``) against the
   JAX core, 1e-5 as ``test_torch_attention.py``.
 """
@@ -276,39 +276,45 @@ def test_loader_refuses_a_missing_path_and_an_orbax_run(tmp_path):
 @pytest.mark.parametrize("flags, item", [(["--quantize", "int8"], "item 5"), (["--quantize", "int8_safe"], "item 5"),
                                          (["--no_resize", "--shard_spatial"], "item 9")])
 def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
-    """Of the flags that raised until their ROADMAP.md item was ported, only
-    ``--shard_spatial`` (item 9) still does, and only where JAX would shard:
-    with ``--no_resize`` over more than one device (two here, by
-    ``parallel/mesh.py::local_devices``); on one it is accepted
-    (``test_torch_data_parallel_api.py``). ``--quantize`` (item 5, ported)
-    colorizes over the same two devices, calibrated on the first batch, and
-    sets no environment variable."""
+    """The flags that raised until their ROADMAP.md item was ported now
+    compute over two devices (by ``parallel/mesh.py::local_devices``):
+    ``--quantize`` (item 5) calibrated on the first batch, ``--no_resize
+    --shard_spatial`` (item 9) with each image's H axis split over them
+    (``parallel/spatial.py``); no environment variable is set."""
     for var in ("DISCO_INT8", "DISCO_INT8_EXCLUDE"):
         monkeypatch.delenv(var, raising=False)
     from disentangledcolorization_tpu_torch.parallel import mesh
 
     monkeypatch.setattr(mesh, "local_devices", lambda device: [torch.device("cpu")] * 2)
     argv = ["--data", str(tmp_path), "--device", "cpu", "--save_dir", str(tmp_path), *flags]
-    if item == "item 9":
-        with pytest.raises(NotImplementedError, match=item):
-            infer.main(argv)
-    else:
-        batch = (np.zeros((2, 32, 32, 1), np.float32), np.zeros((2, 32, 32, 2), np.float32), ["a.png", "b.png"],
-                 [None, None])
-        args = infer.inference_argparser().parse_args(argv + ["--n_clusters", "2", "--batch_size", "2"])
-        assert infer.infer(args, [batch])["images"] == 2
-        assert sorted(os.listdir(tmp_path / "test-anchor2")) == ["a.png", "b.png"]
+    batch = (np.zeros((2, 32, 32, 1), np.float32), np.zeros((2, 32, 32, 2), np.float32), ["a.png", "b.png"],
+             [None, None])
+    args = infer.inference_argparser().parse_args(argv + ["--n_clusters", "2", "--batch_size", "2"])
+    assert infer.spatially_sharded(args, mesh.local_devices(None)) == (item == "item 9")
+    assert infer.infer(args, [batch])["images"] == 2
+    assert sorted(os.listdir(tmp_path / "test-anchor2")) == ["a.png", "b.png"]
     assert "DISCO_INT8" not in os.environ and "DISCO_INT8_EXCLUDE" not in os.environ
 
 
-def test_more_than_one_card_raises(tmp_path, monkeypatch):
-    """Two visible cards: data parallel, except ``--no_resize --shard_spatial``
-    (the H axis sharded over the cards), which still raises before any card
-    is touched (ROADMAP.md, queue 1, item 9)."""
+def test_more_than_one_card_raises(tmp_path, monkeypatch, capsys):
+    """Two visible cards: data parallel, except ``--no_resize --shard_spatial``,
+    which shards each image's H axis over the cards (no longer a refusal):
+    the rule picks the sharded path, which then computes over two devices
+    (here ``[cpu, cpu]``, the card's run being ``chip_smoke.py``'s)."""
+    from disentangledcolorization_tpu_torch.parallel import mesh
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        infer.main(["--data", str(tmp_path), "--save_dir", str(tmp_path), "--no_resize", "--shard_spatial"])
+    args = infer.inference_argparser().parse_args(["--data", str(tmp_path), "--save_dir", str(tmp_path),
+                                                   "--no_resize", "--shard_spatial", "--n_clusters", "2"])
+    cards = mesh.local_devices(torch.device("cuda"))
+    assert len(cards) == 2 and infer.spatially_sharded(args, cards) and not infer.data_parallel(args, cards)
+    rng = np.random.default_rng(2)
+    batch = (rng.uniform(-1, 1, (1, 64, 48, 1)).astype(np.float32), np.zeros((1, 64, 48, 2), np.float32),
+             ["c.png"], [(60, 45)])
+    assert infer.infer(args, [batch], devices=[torch.device("cpu")] * 2)["images"] == 1
+    assert "-spatially-sharded (H axis) inference over 2 devices" in capsys.readouterr().out
+    assert tio.read_png(open(tmp_path / "test-anchor2" / "c.png", "rb").read()).shape == (60, 45, 3)
 
 
 def test_argparser_has_every_jax_flag():

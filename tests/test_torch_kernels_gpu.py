@@ -963,6 +963,99 @@ def test_attention_kernels_at_head_width_4(cuda, t, masked, rate):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+def _check_attention_pair(q, k, v, dout, nhead, mask, keep, rate):
+    """Kernel D (output and statistics) within 1e-5 of the plain version and
+    attention_bwd within 2e-5, each bitwise equal to itself run again.
+    Returns the kernels' (out, stats, grads)."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    out, stats = attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)
+    ref, ref_stats = attention.attention_plain(q, k, v, nhead, mask, keep, rate, return_stats=True)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 0], ref_stats[..., 0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[..., 1] / ref_stats[..., 1], torch.ones_like(stats[..., 1]), atol=1e-5, rtol=0)
+    assert torch.equal(out, attention._attention(q, k, v, nhead, mask, keep, rate)[0])
+    grads = attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    for a, b in zip(grads, attention.attention_bwd_plain(q, k, v, dout, nhead, mask, keep, rate)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate,
+                                                                                  out, stats)))
+    return out, stats, grads
+
+
+def _pair_inputs(cuda, n, tq, tk, d, nhead, masked, rate):
+    q, dout = _rand(cuda, n, tq, d, seed=0), _rand(cuda, n, tq, d, seed=3)
+    k, v = _rand(cuda, n, tk, d, seed=1), _rand(cuda, n, tk, d, seed=2)
+    mask = (_rand(cuda, n, tk, seed=4) > 0.5) if masked else None
+    keep = (_rand(cuda, n, nhead, tq, tk, seed=5).abs() > 0.1) if rate else None
+    return q, k, v, dout, mask, keep
+
+
+@pytest.mark.parametrize("hd", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("t", [300, 1000])
+@pytest.mark.parametrize("masked,rate", [(False, 0.0), (True, 0.1)])
+def test_attention_kernels_stream_key_tiles(cuda, hd, t, masked, rate):
+    """Kernel D and attention_bwd where the keys (and queries) take several
+    tiles of the ring at every head width, with a ragged last tile (300 and
+    1000 are multiples of neither 16 nor the tile), with and without the key
+    mask and a keep-mask."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    d = 64
+    nhead = d // hd
+    assert attention.attention_plan(t, t, hd, rate > 0).key_tile < t
+    q, k, v, dout, mask, keep = _pair_inputs(cuda, 1, t, t, d, nhead, masked, rate)
+    _check_attention_pair(q, k, v, dout, nhead, mask, keep, rate)
+
+
+@pytest.mark.parametrize("tq,tk", [(256, 4096), (130, 600), (600, 130), (24, 40), (1, 777)])
+@pytest.mark.parametrize("masked,rate", [(False, 0.0), (True, 0.0), (True, 0.1)])
+def test_attention_kernels_take_queries_and_keys_of_different_lengths(cuda, tq, tk, masked, rate):
+    """Cross-attention's shapes: q (N, Tq, D) against k, v (N, Tk, D), the key
+    mask (N, Tk), the keep-mask (N, nhead, Tq, Tk); dk and dv come out
+    (N, Tk, D)."""
+    q, k, v, dout, mask, keep = _pair_inputs(cuda, 2, tq, tk, 64, 8, masked, rate)
+    _check_attention_pair(q, k, v, dout, 8, mask, keep, rate)
+
+
+@pytest.mark.parametrize("hd", [8, 64])
+def test_all_masked_rows_stay_uniform_across_tiles(cuda, hd):
+    """An image whose keys are all masked, over several tiles: every row's max
+    is -1e9, its sum Tk, its output the mean of v; the other image as plain."""
+    n, t, d = 2, 700, 64
+    nhead = d // hd
+    q, k, v, dout, mask, _ = _pair_inputs(cuda, n, t, t, d, nhead, True, 0.0)
+    mask[0] = True
+    out, stats, _ = _check_attention_pair(q, k, v, dout, nhead, mask, None, 0.0)
+    assert torch.equal(stats[0, ..., 0], torch.full_like(stats[0, ..., 0], -1e9))
+    torch.testing.assert_close(stats[0, ..., 1], torch.full_like(stats[0, ..., 1], float(t)), atol=0, rtol=1e-6)
+    torch.testing.assert_close(out[0], v[0].mean(0).expand(t, d), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [4, 8, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tile_length_changes_no_bit(cuda, monkeypatch, hd, rate):
+    """The plan's tile length moves no bit of kernel D's output and statistics
+    or of the three gradients: a lane meets its keys (and queries) in the
+    same order at every tile length. Tiles of 64 rows against the plan's."""
+    from disentangledcolorization_tpu_torch.ops import attention
+
+    d, t = 64, 515
+    nhead = d // hd
+    q, k, v, dout, mask, keep = _pair_inputs(cuda, 2, t, t, d, nhead, True, rate)
+
+    def run():
+        out, stats = attention._attention(q, k, v, nhead, mask, keep, rate, with_stats=True)
+        return (out, stats, *attention.attention_bwd(q, k, v, dout, nhead, mask, keep, rate, out, stats))
+
+    base = run()
+    plan = attention.attention_plan(t, t, hd, rate > 0)
+    assert plan.key_tile > 64 or plan.query_tile > 64
+    monkeypatch.setattr(attention, "attention_plan", lambda *a: plan._replace(key_tile=64, query_tile=64))
+    assert all(torch.equal(a, b) for a, b in zip(base, run()))
+
+
 @pytest.mark.parametrize("c", [1, 2])
 def test_upfeat_at_the_inference_outputs_widths(cuda, c):
     """Kernel C at C=2 (the guided ab of ``--save_guided``) and C=1 (the anchor

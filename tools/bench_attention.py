@@ -20,6 +20,7 @@ bytes, then one per build and round. Needs a CUDA device and nvcc:
 
     python tools/bench_attention.py                        # attention: base and the built-in variant
     python tools/bench_attention.py --variants my.json      # {"name": [[file, old, new], ...], ...}
+    python tools/bench_attention.py --before _archive/parent --sass --rounds 2
     python tools/bench_attention.py --set superpixel --before _archive/parent
     python tools/bench_attention.py --set superpixel --before _archive/parent --only '^c(bf)?_'   # kernel C alone
     python tools/bench_attention.py --set head_labels --before _archive/parent
@@ -28,9 +29,18 @@ bytes, then one per build and round. Needs a CUDA device and nvcc:
 attention, at the main path's shapes (T=256, d=64, 8 heads, f32): the backward
 at batch 24 with a keep-mask and saved statistics (``bwd_dq``, ``bwd_dkv``),
 kernel D at batch 24 with keep-mask and statistics (``fwd_train``) and at
-batch 8 without (``fwd_serve``). The built-in variant gives every thread one
-row of the tile instead of two (256-thread blocks): the design before the
-register tile.
+batch 8 without (``fwd_serve``), each held bit for bit against the first
+build's outputs (``*_equal_first``: ``--before``'s where given); in a
+checkout whose kernels stream tiles, also one image at T=4,096 (``t4096_*``)
+and 256 queries over its 4,096 keys (``cross_256x4096_*``), forward and
+backward. The built-in variants: every thread one row of the tile instead of
+two (256-thread blocks), the design before the register tile; and kernel D
+(``d_ring_at_one_tile``) or the backward's dq phase (``bwd_ring_at_one_tile``)
+walking a head that fits one tile through the tile loop, as at any longer T,
+instead of through the loop of its own. ``--sass`` adds, for each build, the
+innermost loops of each attention kernel in its machine code (``cuobjdump
+-sass``): the FFMA and LDS.128 instructions of one trip, the loops with the
+most FFMA first.
 
 superpixel, 256x256 images and 16x16 cells: kernel A alone (its epilogue off)
 in f32 at (8,256,256,66) with counts (``a_serve``), at (24,256,256,64) as
@@ -122,6 +132,9 @@ SETS = {
                 ["attention_common.cuh", "rows = HD <= 8 ? 2 : 1;", "rows = 1;"],
                 ["attention_common.cuh", "min_blocks = HD <= 8 ? 4 : 1;", "min_blocks = HD <= 8 ? 2 : 1;"],
             ],
+            # one tile of keys walked by the tile loop's inner loop instead of the loop of its own (T = 256)
+            "d_ring_at_one_tile": [["attention.cu", "  if (ntiles == 1) {\n", "  if (ntiles < 0) {\n"]],
+            "bwd_ring_at_one_tile": [["attention_bwd.cu", "  if (ntiles == 1) {  //", "  if (ntiles < 0) {  //"]],
         },
         "instances": lambda args: args[:1] == ["8"],  # the main path's head width
     },
@@ -182,6 +195,42 @@ def ptxas_table(build_log: dict, keep) -> dict:
     return regs
 
 
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(text: str, keep) -> dict:
+    """{kernel<template arguments>: [[FFMA, LDS.128], ...]} from ``cuobjdump
+    -sass`` text, for the instances ``keep`` accepts: each innermost loop (a
+    backward branch's span that holds no other) with FFMA in it, one trip's
+    count, the loops with the most FFMA first."""
+    loops_by_kernel = {}
+    for chunk in text.split("Function : ")[1:]:
+        label = kernel_label(chunk.split()[0])
+        if not keep(label[label.index("<") + 1:-1].split(",") if "<" in label else []):
+            continue
+        insns = [(int(a, 16), op, rest) for a, op, rest in _INSN.findall(chunk)]
+        spans = [(int(m.group(1), 16), a) for a, op, rest in insns
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", rest)) and int(m.group(1), 16) < a]
+        inner = [s for s in spans if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+        counts = []
+        for lo, hi in inner:
+            ops = [op for a, op, _ in insns if lo <= a <= hi]
+            if "FFMA" in ops:
+                counts.append([ops.count("FFMA"), ops.count("LDS.128")])
+        loops_by_kernel[label] = sorted(counts, reverse=True)
+    return loops_by_kernel
+
+
+def sass_table(libs: dict, keep) -> dict:
+    """:func:`sass_loops` of every loaded library in ``libs`` (name -> ctypes library)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    table = {}
+    for lib in libs.values():
+        text = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True, timeout=300).stdout
+        table.update(sass_loops(text, keep))
+    return table
+
+
 def build(pkg, names, subs, keep, ptxas_logs: dict) -> tuple[dict, dict]:
     """``names`` of package ``pkg`` from a copy of its ``csrc/`` with ``subs``
     applied: the loaded libraries and their :func:`ptxas_table`. ``ptxas_logs``
@@ -231,20 +280,37 @@ def attention_cases(dev):
     q8, k8, v8 = (x[:8].contiguous() for x in (q, k, v))
     ref_bwd = port.ops.attention.attention_bwd_plain(q, k, v, dout, nhead, None, keep, rate)
     ref_fwd = port.ops.attention.attention_plain(q8, k8, v8, nhead)
+    # native resolution: one 1024x1024 image's 4,096 tokens, and cross-attention of 256 queries over them
+    q_long, k_long, v_long, do_long = (torch.randn(1, 4096, d, generator=g).to(dev) for _ in range(4))
+    q_cross, do_cross = q_long[:, :256].contiguous(), do_long[:, :256].contiguous()
+    first = {}  # the first build's outputs
 
     def measure(pkg, first_round):
         att = pkg.ops.attention
         out, stats = att._attention(q, k, v, nhead, None, keep, rate, with_stats=True)
         grads = att.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats)
+        serve = att.attention(q8, k8, v8, nhead)
+        res = {"max_abs_err_bwd": max_err(grads, ref_bwd), "max_abs_err_fwd": max_err(serve, ref_fwd)}
+        for name, outs in (("fwd_train", (out, stats)), ("bwd", grads), ("fwd_serve", (serve,))):
+            if name in first:
+                res[f"{name}_equal_first"] = all(torch.equal(a, b) for a, b in zip(outs, first[name]))
+            else:
+                first[name] = outs
         _, bwd = device_ms(lambda: att.attention_bwd(q, k, v, dout, nhead, None, keep, rate, out, stats))
-        return {
-            "max_abs_err_bwd": max_err(grads, ref_bwd),
-            "max_abs_err_fwd": max_err(att.attention(q8, k8, v8, nhead), ref_fwd),
+        res.update({
             "bwd_dq_ms": sum(ms for key, ms in bwd.items() if "kernel_dq" in key),
             "bwd_dkv_ms": sum(ms for key, ms in bwd.items() if "kernel_dkv" in key),
             "fwd_train_ms": device_ms(lambda: att._attention(q, k, v, nhead, None, keep, rate, with_stats=True))[0],
             "fwd_serve_ms": device_ms(lambda: att.attention(q8, k8, v8, nhead))[0],
-        }
+        })
+        if "attention_plan" in vars(att):  # a checkout whose kernels stream tiles: T = 4,096 and T_q != T_k
+            for name, (qq, dd) in (("t4096", (q_long, do_long)), ("cross_256x4096", (q_cross, do_cross))):
+                o, st = att._attention(qq, k_long, v_long, nhead, None, None, 0.0, with_stats=True)
+                res[f"{name}_fwd_ms"] = device_ms(lambda qq=qq: att._attention(qq, k_long, v_long, nhead, None, None,
+                                                                               0.0, with_stats=True))[0]
+                res[f"{name}_bwd_ms"] = device_ms(lambda qq=qq, dd=dd, o=o, st=st: att.attention_bwd(
+                    qq, k_long, v_long, dd, nhead, None, None, 0.0, o, st))[0]
+        return res
 
     return measure
 
@@ -463,6 +529,7 @@ def main() -> None:
     ap.add_argument("--before", help="root of another checkout whose package is measured as the build 'before'")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--only", help="measure only the superpixel cases whose names match this regular expression")
+    ap.add_argument("--sass", action="store_true", help="print each build's innermost loops' FFMA and LDS.128 counts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_attention: needs a CUDA device")
@@ -493,6 +560,9 @@ def main() -> None:
         libs, regs = build(pkg, names, subs, kset["instances"], ptxas_logs)
         built[name] = (pkg, libs)
         print(json.dumps({"card": card, "set": args.kernel_set, "build": name, "registers_spills": regs}), flush=True)
+        if args.sass:
+            print(json.dumps({"set": args.kernel_set, "build": name,
+                              "inner_loops_ffma_lds128": sass_table(libs, kset["instances"])}), flush=True)
 
     warm = torch.randn(8192, 8192, device=dev)
     for _ in range(60):
